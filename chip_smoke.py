@@ -1,0 +1,553 @@
+"""On-card smoke test of the PyTorch + CUDA port (``src/repro_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
+kernel against its plain PyTorch version on the card at the shapes the
+full-width deepseek-7b serve path gives it, holds the kernel route against
+the plain route end to end on a depth-cut (2-layer) full-width model, and
+then serves full-width deepseek-7b (30 layers, d_model 4096, vocab 102400)
+for 16 greedy steps at batch 4 through the port's own entry point
+``repro_torch.launch.serve.serve``: clean, with injected memory faults
+(the corrected and DUE counts must equal the injected single- and
+double-flip blocks), and with correctable faults only (the logits must
+equal the clean run's bit for bit).
+
+Every phase raises on failure and the script exits nonzero; it prints no
+result without a CUDA device. Its last lines are the kernels JSON (per
+kernel: launches on the main path, max abs error against the plain version,
+times and bound) and ``{"ok": true, "device": {...}}``.
+
+Times are CUDA-event medians over repeats with the 50 MB L2 cache flushed
+before each repeat and the card kept busy while the host enqueues. Kernel
+entries report the work one decode step gives the kernel (ecc_encode: one
+deploy, every protected leaf once): the sum over the launches of that
+step. ``bound_ms`` is max(bytes / 3.35 TB/s, ops / peak) with each input
+read once and each output written once (H100 SXM data-sheet rates: HBM
+3.35 TB/s, dense bf16 989 TFLOP/s).
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"
+
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+
+# tolerances (stated here, used below)
+QMM_RTOL = 2e-4     # |kernel - plain| <= QMM_RTOL * (|a| @ |w|) + 1e-6: both
+#                     sum exact bf16 products in f32, in different orders
+# fused_page_attention is held to its plain version bit for bit: it mirrors
+# the plain version's op order and rounds scores, probabilities and outputs
+# to bf16 where it does, so the two differ at most in f32 summation order,
+# which those roundings absorb at these inputs (max abs err 0 in every
+# run). A dropped bf16 rounding would change some outputs by an ulp.
+E2E_MAX_ATOL = 0.25  # 2-layer logits, bf16 activations: the kernel rounds
+E2E_MEAN_ATOL = 0.02  # each projection once from f32, cuBLAS rounds its own
+
+
+def fail(msg: str):
+    print(f"[chip_smoke] FAIL: {msg}", flush=True)
+    raise SystemExit(1)
+
+
+def log(msg: str):
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("[chip_smoke] no CUDA device: nothing to check", flush=True)
+        raise SystemExit(2)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build  # noqa: E402
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    t0 = time.time()
+    build.load_all()
+    log(f"built the CUDA kernels in {time.time() - t0:.1f}s")
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "chip_smoke_build.log", "w") as fh:
+        for src, text in build.BUILD_LOG.items():
+            fh.write(f"=== {src}.cu ===\n{text}\n")
+
+    entries = phase_kernels(torch, dev)
+    phase_routes(torch, dev)
+    counts = phase_full(torch, dev, build)
+    phase_profile(torch)
+    if sorted(entries) != sorted(counts):
+        fail(f"kernels checked {sorted(entries)} != kernels counted "
+             f"{sorted(counts)}")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        fail(f"kernels never launched on the main path: {missing}")
+    line = [{"name": name, "route": "cuda", "launches": counts[name], **e}
+            for name, e in entries.items()]
+    print(json.dumps({"kernels": line}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+
+class Timer:
+    REPS = 10
+
+    def __init__(self, torch, dev):
+        self.torch = torch
+        self.flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def ms(self, fn) -> float:
+        """Median CUDA-event time of ``fn`` over repeats, L2 flushed. A
+        ~1 ms device sleep ahead of the start event keeps the card busy
+        while the host enqueues ``fn``, so a small kernel's time is not its
+        wrapper's host latency."""
+        torch = self.torch
+        fn()
+        times = []
+        for _ in range(self.REPS):
+            self.flush.zero_()
+            torch.cuda._sleep(2_000_000)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+
+def bound_ms(nbytes: float, ops: float = 0.0):
+    """Least time for the work: bytes at the HBM rate or bf16 operations at
+    the tensor-core peak, whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def wot_blocks(torch, dev, nblk, gen):
+    """Random WOT-compliant int8 blocks as (nblk, 8) uint8: bytes 0..6 in
+    [-64, 63], byte 7 anywhere in [-127, 127]."""
+    q = torch.randint(-64, 64, (nblk, 8), generator=gen, device=dev,
+                      dtype=torch.int8)
+    q[:, 7] = torch.randint(-127, 128, (nblk,), generator=gen, device=dev,
+                            dtype=torch.int8)
+    return q.view(torch.uint8)
+
+
+def flip_blocks(torch, blocks, n_single, n_double, gen):
+    """Flip one bit in each of ``n_single`` blocks and two distinct bits in
+    each of ``n_double`` more, spread evenly over a contiguous (nblk, 8)
+    uint8 tensor, in place. -> (n_single, n_double)."""
+    dev = blocks.device
+    n = n_single + n_double
+    idx = torch.arange(n, device=dev) * max(1, blocks.shape[0] // n)
+    b1 = torch.randint(0, 64, (n,), generator=gen, device=dev)
+    b2 = (b1 + torch.randint(1, 64, (n,), generator=gen, device=dev)) % 64
+    mask = torch.ones_like(b1) << b1
+    mask[n_single:] ^= torch.ones_like(b2[n_single:]) << b2[n_single:]
+    words = blocks.view(torch.int64)[:, 0]
+    words[idx] ^= mask
+    return n_single, n_double
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version at full-width shapes
+# ---------------------------------------------------------------------------
+
+
+def phase_kernels(torch, dev):
+    from repro_torch.configs import get
+    from repro_torch.core import ecc
+    from repro_torch.kernels import (ecc_decode, ecc_encode, ecc_qmatmul,
+                                     paged_attention)
+    from repro_torch.models import lm
+    from repro_torch.serving import kvcache
+
+    cfg = get("deepseek-7b")
+    timer = Timer(torch, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    out = {}
+
+    # -- exhaustive single and double flips of 64 random blocks -------------
+    base = ecc.encode64(wot_blocks(torch, dev, 64, gen))
+    w = base.contiguous().view(torch.int64)[:, 0]
+    bits = torch.arange(64, device=dev)
+    i, j = torch.triu_indices(64, 64, 1, device=dev)
+    one = torch.ones((), dtype=torch.int64, device=dev)
+    singles = w[:, None] ^ (one << bits)[None, :]
+    doubles = w[:, None] ^ ((one << i) ^ (one << j))[None, :]
+    cases = torch.cat([singles, doubles], 1).reshape(-1, 1).view(torch.uint8)
+    kd, kf = ecc_decode.ecc_decode(cases)
+    pd, pf = ecc_decode.ecc_decode_plain(cases)
+    if not (torch.equal(kd, pd) and torch.equal(kf, pf)):
+        fail("ecc_decode disagrees with its plain version on the 64 single "
+             "and 2016 double flips")
+    nc = 64 * (64 + 2016)
+    if int((kf == 1).sum()) != 64 * 64 or int((kf == 2).sum()) != 64 * 2016:
+        fail("ecc_decode: single/double flips not all flagged")
+    restored = ecc.restore_sign_bits(base)
+    if not torch.equal(kd.view(64, 2080, 8)[:, :64], restored[:, None].expand(
+            64, 64, 8)):
+        fail("ecc_decode did not correct every single flip")
+    if not torch.equal(ecc_encode.ecc_encode(restored),
+                       ecc_encode.ecc_encode_plain(restored)):
+        fail("ecc_encode disagrees with its plain version on 64 blocks")
+    log(f"ecc_decode/ecc_encode: {nc} exhaustive flip cases agree")
+
+    # -- kernel 1: decode of the embedding table, once per step --------------
+    nblk = cfg.vocab_padded * cfg.d_model // 8
+    enc = ecc.encode64(wot_blocks(torch, dev, nblk, gen))
+    ns, nd = flip_blocks(torch, enc, 1000, 1000, gen)
+    kd, kf = ecc_decode.ecc_decode(enc)
+    pd, pf = ecc_decode.ecc_decode_plain(enc)
+    if not (torch.equal(kd, pd) and torch.equal(kf, pf)):
+        fail("ecc_decode disagrees with its plain version (embedding)")
+    if int((kf & 1).sum()) != ns or int((kf >> 1).sum()) != nd:
+        fail("ecc_decode flag counts != injected single/double blocks")
+    bms, by = bound_ms(8 * nblk + 8 * nblk + nblk)
+    out["ecc_decode"] = dict(
+        source="src/repro_torch/csrc/ecc_codec.cu",
+        replaces="src/repro/kernels/ecc_decode.py:73",
+        max_abs_err=0.0,
+        ms=timer.ms(lambda: ecc_decode.ecc_decode(enc)),
+        plain_ms=timer.ms(lambda: ecc_decode.ecc_decode_plain(enc)),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    log(f"ecc_decode ({nblk} blocks): {out['ecc_decode']}")
+    del enc, kd, kf, pd, pf
+
+    # -- kernel 2: encode of every protected leaf, once per deploy ----------
+    shapes = lm.param_shapes(cfg)
+    leaves = [s.shape for s in (shapes["embed"], shapes["head"],
+                                *shapes["layers"]["attn"].values(),
+                                *shapes["layers"]["mlp"].values())]
+    nmax = max(math.prod(s) // 8 for s in leaves)
+    raw = wot_blocks(torch, dev, nmax, gen)
+    kt = pt = 0.0
+    nbytes = 0
+    for s in leaves:
+        n = math.prod(s) // 8
+        x = raw[:n]
+        if not torch.equal(ecc_encode.ecc_encode(x),
+                           ecc_encode.ecc_encode_plain(x)):
+            fail(f"ecc_encode disagrees with its plain version at {s}")
+        kt += timer.ms(lambda: ecc_encode.ecc_encode(x))
+        pt += timer.ms(lambda: ecc_encode.ecc_encode_plain(x))
+        nbytes += 16 * n
+    bms, by = bound_ms(nbytes)
+    out["ecc_encode"] = dict(
+        source="src/repro_torch/csrc/ecc_codec.cu",
+        replaces="src/repro/kernels/ecc_encode.py:49", max_abs_err=0.0,
+        ms=kt, plain_ms=pt, bound_ms=bms, bound_by=by, library_ms=None)
+    log(f"ecc_encode ({len(leaves)} leaves): {out['ecc_encode']}")
+    # the kernel route also encodes each new KV token (one K and one V
+    # slab of (batch, kv, hd) per layer): 60 launches per step
+    tok = raw[: 4 * cfg.n_kv_heads * cfg.head_dim // 8]
+    if not torch.equal(ecc_encode.ecc_encode(tok),
+                       ecc_encode.ecc_encode_plain(tok)):
+        fail("ecc_encode disagrees with its plain version on a KV token")
+    km = timer.ms(lambda: ecc_encode.ecc_encode(tok))
+    pm = timer.ms(lambda: ecc_encode.ecc_encode_plain(tok))
+    log(f"ecc_encode KV token ({tok.shape[0]} blocks) x{2 * cfg.n_layers} "
+        f"per step: kernel {km:.4f} ms, plain {pm:.4f} ms, bound "
+        f"{bound_ms(16 * tok.shape[0])[0]:.6f} ms each")
+    del raw
+
+    # -- kernel 3: every projection and the head, 211 launches per step -----
+    d, f, v, nl = cfg.d_model, cfg.d_ff, cfg.vocab_padded, cfg.n_layers
+    b = 4
+    per_step = [((d, d), 4 * nl), ((d, f), 2 * nl), ((f, d), nl), ((d, v), 1)]
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound": 0.0}
+    err = 0.0
+    scale = torch.tensor(0.02, dtype=torch.float32, device=dev)
+    for (k, n), count in per_step:
+        a = torch.randn((b, k), generator=gen, device=dev).to(torch.bfloat16)
+        w_enc = ecc.encode64(wot_blocks(torch, dev, k * n // 8, gen))
+        ns, nd = flip_blocks(torch, w_enc, 50, 20, gen)
+        w_enc = w_enc.view(k, n)
+        ko, kfl = ecc_qmatmul.ecc_qmatmul(a, w_enc, scale)
+        po, pfl = ecc_qmatmul.ecc_qmatmul_plain(a, w_enc, scale)
+        if kfl.tolist() != pfl.tolist() or kfl.tolist() != [ns, nd]:
+            fail(f"ecc_qmatmul flags {kfl.tolist()} vs plain {pfl.tolist()} "
+                 f"vs injected {[ns, nd]} at {(b, k, n)}")
+        dec = ecc.decode64(w_enc.reshape(k, n // 8, 8))[0].reshape(k, n)
+        w_bf = (dec.view(torch.int8).float() * scale).to(torch.bfloat16)
+        mag = a.float().abs() @ w_bf.float().abs()
+        e = (ko - po).abs()
+        if bool((e > QMM_RTOL * mag + 1e-6).any()):
+            fail(f"ecc_qmatmul out of tolerance at {(b, k, n)}: max "
+                 f"{float(e.max())}")
+        err = max(err, float(e.max()))
+        km = timer.ms(lambda: ecc_qmatmul.ecc_qmatmul(a, w_enc, scale))
+        pm = timer.ms(lambda: ecc_qmatmul.ecc_qmatmul_plain(a, w_enc, scale))
+        lm_ = timer.ms(lambda: torch.matmul(a, w_bf))
+        bb, _ = bound_ms(b * k * 2 + k * n + b * n * 4 + 4, 2 * b * k * n)
+        log(f"ecc_qmatmul {(b, k, n)} x{count}: kernel {km:.4f} ms, plain "
+            f"{pm:.4f} ms, torch.matmul(bf16 decoded) {lm_:.4f} ms, bound "
+            f"{bb:.4f} ms, max abs err {float(e.max()):.3g}")
+        tot["ms"] += count * km
+        tot["plain_ms"] += count * pm
+        tot["library_ms"] += count * lm_
+        tot["bound"] += count * bb
+        del a, w_enc, dec, w_bf, mag, ko, po
+    out["ecc_qmatmul"] = dict(
+        source="src/repro_torch/csrc/ecc_qmatmul.cu",
+        replaces="src/repro/kernels/ecc_qmatmul.py:393", max_abs_err=err,
+        ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound"],
+        bound_by="bytes", library_ms=tot["library_ms"])
+    log(f"ecc_qmatmul (per step, 211 launches): {out['ecc_qmatmul']}")
+
+    # -- kernel 4: fused page attention, 30 launches per step ---------------
+    h, kvh, hd, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 64
+    policy = kvcache.get_kv_policy("in-place-fused")
+    kf_ = torch.randn((b, s, kvh, hd), generator=gen, device=dev)
+    vf_ = torch.randn((b, s, kvh, hd), generator=gen, device=dev)
+    ke, _, ksc = kvcache._encode_kv(kf_, policy)
+    ve, _, vsc = kvcache._encode_kv(vf_, policy)
+    ke, ve = ke.contiguous(), ve.contiguous()
+    flip_blocks(torch, ke.view(-1, 8), 40, 10, gen)
+    flip_blocks(torch, ve.view(-1, 8), 40, 10, gen)
+    q = torch.randn((b, h, 1, hd), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.tensor([63, 40, 15, 0], dtype=torch.int32, device=dev)
+    args = (q, ke, None, ksc, ve, None, vsc, pos)
+    ko, kfl = paged_attention.fused_page_attention(*args)
+    po, pfl = paged_attention.fused_page_attention_plain(*args)
+    if kfl.tolist() != pfl.tolist():
+        fail(f"fused_page_attention flags {kfl.tolist()} vs plain "
+             f"{pfl.tolist()}")
+    e = float((ko.float() - po.float()).abs().max())
+    if not torch.equal(ko, po):
+        fail(f"fused_page_attention differs from its plain version in "
+             f"{int((ko != po).sum())} outputs: max abs err {e}")
+    kq = ecc.decode64(ke.view(b, s, kvh, hd // 8, 8))[0].view(torch.int8)
+    vq = ecc.decode64(ve.view(b, s, kvh, hd // 8, 8))[0].view(torch.int8)
+    kd_ = (kq.reshape(b, s, kvh, hd).float() * ksc[..., None, None]).to(
+        torch.bfloat16).transpose(1, 2)
+    vd_ = (vq.reshape(b, s, kvh, hd).float() * vsc[..., None, None]).to(
+        torch.bfloat16).transpose(1, 2)
+    mask = (torch.arange(s, device=dev)[None, :] <= pos[:, None])[:, None,
+                                                                   None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    nbytes = (q.numel() * 2 + 2 * ke.numel() + 2 * ksc.numel() * 4 + 4 * b
+              + q.numel() * 2 + b * kvh * 2 * 4)
+    bb, by = bound_ms(nbytes, 4 * b * h * s * hd)
+    out["fused_page_attention"] = dict(
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:175", max_abs_err=e,
+        ms=cfg.n_layers * timer.ms(
+            lambda: paged_attention.fused_page_attention(*args)),
+        plain_ms=cfg.n_layers * timer.ms(
+            lambda: paged_attention.fused_page_attention_plain(*args)),
+        bound_ms=cfg.n_layers * bb, bound_by=by,
+        library_ms=cfg.n_layers * timer.ms(
+            lambda: sdpa(q, kd_, vd_, attn_mask=mask)))
+    log(f"fused_page_attention (per step, 30 launches of B={b} H={h} S={s}): "
+        f"{out['fused_page_attention']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernel route against plain route, full width, depth cut to 2
+# ---------------------------------------------------------------------------
+
+
+def phase_routes(torch, dev):
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
+    from repro_torch.serving import kvcache, protected
+
+    cfg = get("deepseek-7b").with_(n_layers=2)
+    pol = policy_mod.ProtectionPolicy(backend="cuda")
+    plan = pol.plan(lm.param_shapes(cfg))
+    enc = lm.init_params(cfg, 7, device=dev, leaf_fn=plan.encode_leaf)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    enc, _ = policy_mod.inject_tree_device(enc, 1e-5, gen)
+    results = {}
+    for route, kvp in (("cuda", "in-place-fused"), ("torch", "in-place")):
+        step = protected.make_serve_step(cfg, backend=route, kv_policy=kvp)
+        cache = kvcache.init_cache(cfg, 4, 64, kv_policy=kvp, device=dev)
+        tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
+        logits, flags = [], []
+        for t in range(2):
+            pos = torch.full((4,), t, dtype=torch.int32, device=dev)
+            lg, cache, fl = step(enc, cache, tok, pos)
+            tok = torch.full_like(tok, 11 + t)  # same tokens on both routes
+            logits.append(lg.float())
+            flags.append({k: v.tolist() for k, v in fl.items()})
+        results[route] = (torch.stack(logits), flags)
+    (lk, fk), (lp, fp) = results["cuda"], results["torch"]
+    if fk != fp:
+        fail(f"routes disagree on flags: cuda {fk} vs torch {fp}")
+    diff = (lk - lp).abs()
+    log(f"2-layer full width, cuda vs torch route: flags equal {fk[0]['top']} "
+        f"top; logits max abs diff {float(diff.max()):.4g}, mean "
+        f"{float(diff.mean()):.4g} (|logits| max {float(lp.abs().max()):.3g})")
+    if float(diff.max()) > E2E_MAX_ATOL or float(diff.mean()) > E2E_MEAN_ATOL:
+        fail("kernel route logits out of tolerance of the plain route")
+    del enc
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path — full-width deepseek-7b, clean and faulted
+# ---------------------------------------------------------------------------
+
+
+def phase_full(torch, dev, build):
+    """Three 16-step runs: clean; faulted at ``rate`` (corrected and DUE
+    counts against the injected single- and double-flip blocks); and
+    faulted at ``rate`` with at most one flip per code block, which must
+    give the clean run's logits and tokens bit for bit."""
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import serve
+
+    cfg = get("deepseek-7b")
+    tokens, batch, rate = 16, 4, 1e-6
+    kw = dict(backend="cuda", kv_policy="in-place-fused", batch=batch,
+              tokens=tokens, device="cuda", log=log)
+    build.reset_counts()
+    clean = serve(cfg, **kw)
+    torch.cuda.empty_cache()
+    faulted = serve(cfg, fault_rate=rate, **kw)
+    torch.cuda.empty_cache()
+    fixed = serve(cfg, fault_rate=rate, correctable_only=True, **kw)
+    counts = dict(build.COUNTS)
+    log(f"launch counts over the three runs: {counts}")
+
+    lg = clean["logits"]
+    if lg.shape != (tokens, batch, cfg.vocab_padded) or \
+            not bool(torch.isfinite(lg.float()).all()):
+        fail(f"clean logits: shape {tuple(lg.shape)} or non-finite values")
+    if clean["flags"] != {"corrected": 0, "due": 0, "kv_corrected": 0,
+                          "kv_due": 0}:
+        fail(f"clean run reported faults: {clean['flags']}")
+
+    def block_counts(positions):
+        hist = {1: 0, 2: 0, "3+": 0}
+        for pos in positions.values():
+            _, c = torch.unique(pos // 64, return_counts=True)
+            hist[1] += int((c == 1).sum())
+            hist[2] += int((c == 2).sum())
+            hist["3+"] += int((c >= 3).sum())
+        return hist
+
+    wh = block_counts(faulted["weight_positions"])
+    kh = block_counts(faulted["kv_positions"])
+    fl = faulted["flags"]
+    log(f"faulted run: weight blocks with 1/2/3+ flips {wh}, KV {kh}; "
+        f"reported {fl}")
+    if wh["3+"]:
+        fail("a weight block took 3+ flips: its accounting is undefined")
+    if fl["corrected"] != tokens * wh[1] or fl["due"] != tokens * wh[2]:
+        fail(f"weight fault accounting {fl['corrected']}/{fl['due']} != "
+             f"{tokens}x injected single/double blocks {wh[1]}/{wh[2]}")
+
+    ch = block_counts(fixed["weight_positions"])
+    ckh = block_counts(fixed["kv_positions"])
+    ff = fixed["flags"]
+    log(f"correctable-only run: weight blocks with 1/2/3+ flips {ch}, KV "
+        f"{ckh}; reported {ff}")
+    if ch[1] == 0 or ckh[1] == 0 or ch[2] or ch["3+"] or ckh[2] or ckh["3+"]:
+        fail("the correctable-only run did not inject exactly one flip into "
+             "each hit block of the weights and the KV pools")
+    if ff["corrected"] != tokens * ch[1] or ff["due"] or ff["kv_due"]:
+        fail(f"correctable-only accounting {ff} != {tokens} x {ch[1]} "
+             f"corrected weight blocks and no DUE")
+    if not (torch.equal(fixed["logits"], clean["logits"])
+            and torch.equal(fixed["tokens"], clean["tokens"])):
+        d = (fixed["logits"].float() - clean["logits"].float()).abs().max()
+        fail(f"every flip was correctable, yet the logits differ from the "
+             f"clean run (max abs diff {float(d)})")
+    log("correctable-only run: logits and greedy tokens equal the clean run "
+        "bit for bit")
+    runs = (("clean", clean), ("faulted", faulted),
+            ("correctable-only", fixed))
+    for name, r in runs:
+        log(f"full width {name}: {r['tok_per_s']:.1f} tok/s, median "
+            f"{statistics.median(r['step_ms']):.2f} ms/step, first step "
+            f"{r['step_ms'][0]:.2f} ms")
+    with open(OUT_DIR / "chip_smoke_serve.json", "w") as fh:
+        json.dump({n: {"tok_per_s": r["tok_per_s"], "step_ms": r["step_ms"],
+                       "flags": r["flags"]} for n, r in runs}, fh, indent=1)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5: where the time of a full-width step goes (torch.profiler)
+# ---------------------------------------------------------------------------
+
+
+def phase_profile(torch):
+    """Profile 4 decode steps of the full-width kernel route, built as
+    ``serve`` builds it (after the timed runs; the launch counts are already
+    read). Prints the device-busy share of the profiled steps' wall time and
+    the ops with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
+    from repro_torch.serving import kvcache, protected
+
+    cfg, dev, batch = get("deepseek-7b"), torch.device("cuda"), 4
+    torch.cuda.empty_cache()
+    plan = policy_mod.ProtectionPolicy(backend="cuda").plan(
+        lm.param_shapes(cfg))
+    enc = lm.init_params(cfg, 0, device=dev, leaf_fn=plan.encode_leaf)
+    step = protected.make_serve_step(cfg, plan=plan, backend="cuda",
+                                     kv_policy="in-place-fused")
+    cache = kvcache.init_cache(cfg, batch, 64, kv_policy="in-place-fused",
+                               device=dev)
+    tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for t in range(4):
+            pos = torch.full((batch,), t, dtype=torch.int32, device=dev)
+            logits, cache, _ = step(enc, cache, tok, pos)
+            tok = logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+    avg = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in avg) / 1e3
+    log(f"profile, 4 full-width steps: device busy {busy_ms:.2f} ms of "
+        f"{wall_ms:.2f} ms wall ({100 * busy_ms / wall_ms:.1f}%)")
+    table = avg.table(sort_by="self_device_time_total", row_limit=25)
+    with open(OUT_DIR / "chip_smoke_profile.txt", "w") as fh:
+        fh.write(table)
+    for line in table.splitlines()[:18]:
+        print(line, flush=True)
+
+if __name__ == "__main__":
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    main()

@@ -1,0 +1,28 @@
+"""Architecture registry of the port: copies of ``repro.configs``' entries
+for the architectures the port serves so far.
+
+``get(name)`` returns the full-size ArchConfig; ``get_smoke(name)`` the
+reduced same-family config used by the CPU tests and the CLI.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ArchConfig  # noqa: F401
+
+ARCH_IDS = ["deepseek-7b", "minitron-4b", "qwen1.5-4b"]
+
+
+def _module(name: str):
+    if name not in ARCH_IDS:
+        raise ValueError(f"arch {name!r} is not ported yet; one of {ARCH_IDS}")
+    return importlib.import_module(
+        f"repro_torch.configs.{name.replace('-', '_').replace('.', '_')}")
+
+
+def get(name: str) -> ArchConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke(name: str) -> ArchConfig:
+    return _module(name).SMOKE

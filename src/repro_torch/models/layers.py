@@ -1,0 +1,158 @@
+"""Model building blocks of the dense decoder (pure functions over dicts).
+
+Counterpart of the dense subset of ``repro.models.layers``: norms, RoPE,
+single-token GQA attention, SwiGLU, embedding and logits. Where the
+reference routes fault flags through a module-level sink
+(``layers.record_flags``), the port hands each decode-at-use view the
+``record`` method of a :class:`FlagRecorder` that the serve step creates
+per step and the model drains per layer, so the flags come back as values.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+class FlagRecorder:
+    """(corrected, due) accumulator of one serve step: every decode-at-use
+    view records into it, and the model drains it once per layer."""
+
+    def __init__(self, device):
+        self.device = device
+        self._pairs: list = []
+
+    def record(self, corrected, due) -> None:
+        self._pairs.append((corrected, due))
+
+    def drain(self) -> torch.Tensor:
+        """Sum and clear the recorded pairs -> (2,) int32."""
+        total = torch.zeros(2, dtype=torch.int32, device=self.device)
+        for c, d in self._pairs:
+            total = total + torch.stack([torch.as_tensor(c).reshape(()),
+                                         torch.as_tensor(d).reshape(())]
+                                        ).to(device=self.device,
+                                             dtype=torch.int32)
+        self._pairs.clear()
+        return total
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+
+def rms_norm(x, w, eps=1e-6):
+    var = x.to(torch.float32).square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * w.to(x.dtype)
+
+
+def apply_norm(x, p, kind):
+    if kind != "rms":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet (rms only)")
+    return rms_norm(x, p["w"])
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    """``1 / theta ** (2i / head_dim)`` in f64, built on ``device`` (a host
+    array copied per call would stall the host on the card every layer)."""
+    i = torch.arange(0, head_dim, 2, dtype=torch.float64, device=device)
+    return 1.0 / (theta ** (i / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D); positions: (..., S) int."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device).to(torch.float32)
+    ang = positions[..., None].to(torch.float32) * freqs   # (..., S, D/2)
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)          # broadcast heads
+    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+
+def decode_attention(q, k_cache, v_cache, length_mask=None):
+    """q: (B,H,1,D); caches: (B,H,Skv,D). Full-cache single-token attention."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k_cache).to(torch.float32) * scale
+    if length_mask is not None:
+        s = torch.where(length_mask[:, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v_cache)
+
+
+def gqa_params_shape(cfg):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd),
+         "wo": (h * hd, d)}
+    if cfg.qkv_bias:
+        p.update({"bq": (h * hd,), "bk": (kv * hd,), "bv": (kv * hd,)})
+    return p
+
+
+def _proj(x, w, b=None):
+    if getattr(w, "decode_at_use", False):
+        y = w.matmul(x)  # decode-at-use view: fused kernel or inline decode
+    else:
+        y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def gqa_decode(p, x, cfg, cache, *, pos):
+    """Single-token decode over a dense cache. x: (B,1,D); cache: {"k","v":
+    (B, Smax, kv, hd)} — this layer's slice, written IN PLACE (the port
+    updates the cache where the reference returns a new one).
+    Returns (out, cache)."""
+    b = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _proj(x, p["wq"], p.get("bq")).reshape(b, 1, h, hd)
+    k = _proj(x, p["wk"], p.get("bk")).reshape(b, 1, kv, hd)
+    v = _proj(x, p["wv"], p.get("bv")).reshape(b, 1, kv, hd)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    rows = torch.arange(b, device=x.device)
+    cache["k"][rows, pos] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, pos] = v[:, 0].to(cache["v"].dtype)
+    smax = cache["k"].shape[1]
+    rep = h // kv
+    kh = cache["k"].repeat_interleave(rep, dim=2).transpose(1, 2)  # (B,H,S,hd)
+    vh = cache["v"].repeat_interleave(rep, dim=2).transpose(1, 2)
+    valid = torch.arange(smax, device=x.device)[None, :] <= pos[:, None]
+    o = decode_attention(q.transpose(1, 2), kh, vh, valid)
+    o = o.transpose(1, 2).reshape(b, 1, h * hd)
+    return _proj(o, p["wo"]), cache
+
+
+# --------------------------------------------------------------------------
+# MLP, embedding, logits
+# --------------------------------------------------------------------------
+
+
+def swiglu_params_shape(cfg, d_ff=None):
+    f = d_ff or cfg.d_ff
+    d = cfg.d_model
+    return {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+
+
+def swiglu(p, x):
+    g = F.silu(_proj(x, p["w_gate"]))
+    return _proj(g * _proj(x, p["w_up"]), p["w_down"])
+
+
+def embed(tokens, emb, dtype=torch.bfloat16):
+    return emb.to(dtype)[tokens]
+
+
+def logits(x, head):
+    return _proj(x, head)

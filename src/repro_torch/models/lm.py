@@ -1,0 +1,168 @@
+"""Dense decoder LM: parameter init, KV cache and the decode step.
+
+Counterpart of the dense family of ``repro.models.lm``. Per-layer params
+are stacked along a leading L axis, as in the reference; a Python loop over
+layers takes the place of ``lax.scan``. Other families (MoE, MLA, SSM,
+hybrid, enc-dec) and the full-sequence forward/prefill are not ported yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_mod
+
+from . import layers as L
+from .config import ArchConfig
+
+def _norm_shape(cfg):
+    return {"w": (cfg.d_model,)}
+
+
+def _layer_shapes(cfg: ArchConfig) -> dict:
+    """Per-layer (pre-stacking) param shapes of the scanned decoder block."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
+                                  f"(dense only)")
+    return {"attn": L.gqa_params_shape(cfg), "mlp": L.swiglu_params_shape(cfg),
+            "ln1": _norm_shape(cfg), "ln2": _norm_shape(cfg)}
+
+
+def n_scan_layers(cfg: ArchConfig) -> int:
+    return cfg.n_layers
+
+
+def _init_kind(name: str, shp: tuple):
+    """The reference's per-name init: norm weights one, biases zero, the
+    rest normal with std 0.02 (vectors) or 1/sqrt(fan_in) (matrices)."""
+    if name == "w":
+        return "ones", None
+    if name == "b" or name.startswith("b_"):
+        return "zeros", None
+    return "normal", (0.02 if len(shp) < 2 else 1.0 / np.sqrt(shp[-2]))
+
+
+def _leaf_specs(cfg: ArchConfig):
+    """Yield ``(path, full shape, (kind, std))`` for every leaf, in the
+    order :func:`init_params` draws them."""
+    v, d = cfg.vocab_padded, cfg.d_model
+    yield ("embed",), (v, d), ("normal", 0.02)
+    for name, shp in sorted(_norm_shape(cfg).items()):
+        yield ("final_norm", name), shp, _init_kind(name, shp)
+    if cfg.tie_embeddings:
+        raise NotImplementedError("tied embeddings are not ported yet")
+    yield ("head",), (d, v), ("normal", 1.0 / np.sqrt(d))
+    nl = n_scan_layers(cfg)
+    for sub, shapes in sorted(_layer_shapes(cfg).items()):
+        for name, shp in sorted(shapes.items()):
+            yield ("layers", sub, name), (nl, *shp), _init_kind(name, shp)
+
+
+def _set(tree: dict, path: tuple, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """The f32 parameter tree as ``ShapeDtype`` records (nothing
+    allocated)."""
+    from repro_torch.protection.plan import ShapeDtype
+    out: dict = {}
+    for path, shape, _ in _leaf_specs(cfg):
+        _set(out, path, ShapeDtype(tuple(shape), torch.float32))
+    return out
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
+                leaf_fn=None) -> dict:
+    """Random f32 parameters with the reference's shapes and distributions,
+    drawn leaf by leaf from one ``torch.Generator`` on ``device`` (default
+    ``"cuda"``). ``leaf_fn(path, tensor)``, when given, replaces each leaf
+    right after it is drawn — e.g. ``plan.encode_leaf`` — so a model that
+    does not fit twice in memory is built and encoded one leaf at a time.
+    """
+    dev = device_mod.resolve(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    out: dict = {}
+    for path, shape, (kind, std) in _leaf_specs(cfg):
+        if kind == "ones":
+            t = torch.ones(shape, device=dev)
+        elif kind == "zeros":
+            t = torch.zeros(shape, device=dev)
+        else:
+            t = torch.randn(shape, generator=gen, device=dev).mul_(std)
+        _set(out, path, leaf_fn(path, t) if leaf_fn is not None else t)
+        del t
+    return out
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, *, device=None) -> dict:
+    """Dense KV cache ``{"k", "v": (L, B, max_len, kv, hd)}``."""
+    dev = device_mod.resolve(device)
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    shape = (n_scan_layers(cfg), batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _take(i: int, tree):
+    """Layer ``i`` of a stacked subtree: tensors index their leading axis,
+    leaves with a ``layer`` method (``ProtectedTensor``) slice themselves."""
+    if isinstance(tree, dict):
+        return {k: _take(i, v) for k, v in tree.items()}
+    layer = getattr(tree, "layer", None)
+    return layer(i) if layer is not None else tree[i]
+
+
+def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
+                dtype=torch.bfloat16, layer_transform=None, recorder=None,
+                kv_policy=None):
+    """One decode step. tokens: (B,1) int; pos: (B,) int.
+
+    Returns ``(logits (B,1,V), cache)``; the cache is updated in place. With
+    a ``recorder`` (:class:`layers.FlagRecorder`) it also returns a flags
+    dict: ``"layers"`` (L, 2) int32 per-layer (corrected, due) drained from
+    the recorder after each layer, and — for a paged protected KV cache
+    (marked by its ``"k_pages"`` pools, served under ``kv_policy``) —
+    ``"layers_kv"`` (L, 2) KV counts. The output head's flags stay in the
+    recorder for the caller to drain.
+    """
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    x = L.embed(tokens, params["embed"], dtype)
+    paged = "k_pages" in cache
+    if paged:
+        from repro_torch.serving import kvcache
+        kvp = kvcache.get_kv_policy(kv_policy)
+        if kvp is None:
+            raise ValueError("cache is paged (k_pages present) but no "
+                             "kv_policy was passed to decode_step")
+    layer_flags, kv_flags = [], []
+    for i in range(n_scan_layers(cfg)):
+        lp = _take(i, params["layers"])
+        if layer_transform is not None:
+            lp = layer_transform(lp)
+        lc = {k: v[i] for k, v in cache.items()}
+        h = L.apply_norm(x, lp["ln1"], cfg.norm)
+        if paged:
+            o, _, kvf = kvcache.paged_gqa_decode(lp["attn"], h, cfg, lc,
+                                                 pos=pos, policy=kvp)
+            kv_flags.append(kvf)
+        else:
+            o, _ = L.gqa_decode(lp["attn"], h, cfg, lc, pos=pos)
+        x = x + o
+        x = x + L.swiglu(lp["mlp"], L.apply_norm(x, lp["ln2"], cfg.norm))
+        if recorder is not None:
+            layer_flags.append(recorder.drain())
+    x = L.apply_norm(x, params["final_norm"], cfg.norm)
+    logits = L.logits(x, params["head"])
+    if recorder is None:
+        return logits, cache
+    flags = {"layers": torch.stack(layer_flags)}
+    if paged:
+        flags["layers_kv"] = torch.stack(kv_flags)
+    return logits, cache, flags

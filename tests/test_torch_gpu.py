@@ -1,0 +1,96 @@
+"""Each CUDA kernel of the port against its plain PyTorch version, on the
+card. Every test here is ``gpu``-marked and skips without a CUDA device.
+
+The file imports neither JAX nor the reference (the machine with the card
+need not have JAX), so it runs there alone:
+
+    PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py
+"""
+import pytest
+import torch
+
+from repro_torch.core import ecc
+from repro_torch.kernels import (build, ecc_decode, ecc_encode, ecc_qmatmul,
+                                 paged_attention)
+from repro_torch.protection.policy import ProtectionPolicy
+from repro_torch.serving import kvcache
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _flip(blocks, every, gen):
+    """Flip one random bit in every ``every``-th block and a second one in
+    every ``3*every``-th, in place (blocks: contiguous (n, 8) uint8)."""
+    words = blocks.view(torch.int64)[:, 0]
+    for step in (every, 3 * every):
+        idx = torch.arange(0, words.numel(), step, device=words.device)
+        bits = torch.randint(0, 64, idx.shape, generator=gen,
+                             device=words.device)
+        words[idx] ^= torch.ones_like(bits) << bits
+
+
+def _encoded_weight(k, n, dev, gen):
+    w = torch.randn((k, n), generator=gen, device=dev)
+    pt = ProtectionPolicy().encode_leaf(w, "in-place")
+    _flip(pt.enc.view(-1, 8), 97, gen)
+    return pt.enc, pt.scale
+
+
+def test_gpu_codec_kernels_match_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    enc, _ = _encoded_weight(256, 512, cuda, gen)
+    x = enc.view(-1, 8)
+    before = build.COUNTS["ecc_decode"]
+    kd, kf = ecc_decode.ecc_decode(x)
+    assert build.COUNTS["ecc_decode"] == before + 1
+    pd, pf = ecc_decode.ecc_decode_plain(x)
+    assert torch.equal(kd, pd) and torch.equal(kf, pf)
+    assert bool((kf == 1).any()) and bool((kf == 2).any())
+    assert torch.equal(ecc_encode.ecc_encode(kd),
+                       ecc_encode.ecc_encode_plain(kd))
+    assert torch.equal(ecc.restore_sign_bits(ecc_encode.ecc_encode(kd)), kd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# m picks the kernel's rows per thread: 1 and 4 -> 1, 6 -> 2, 9 -> 4,
+# 37 -> 8 in two passes over K
+@pytest.mark.parametrize("m,k,n", [(37, 200, 72), (4, 64, 8), (1, 520, 136),
+                                   (6, 96, 24), (9, 136, 64)])
+def test_gpu_qmatmul_kernel_matches_plain(cuda, dtype, m, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    w, s = _encoded_weight(k, n, cuda, gen)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    ko, kf = ecc_qmatmul.ecc_qmatmul(a, w, s)
+    po, pf = ecc_qmatmul.ecc_qmatmul_plain(a, w, s)
+    assert kf.tolist() == pf.tolist() and kf.tolist() != [0, 0]
+    # both sum the same f32 products in different orders
+    torch.testing.assert_close(ko, po, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_page_attention_kernel_matches_plain(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    b, h, kv, s, hd = 3, 4, 2, 32, 16
+    pol = kvcache.get_kv_policy("in-place")
+    ke, _, ksc = kvcache._encode_kv(
+        torch.randn((b, s, kv, hd), generator=gen, device=cuda), pol)
+    ve, _, vsc = kvcache._encode_kv(
+        torch.randn((b, s, kv, hd), generator=gen, device=cuda), pol)
+    _flip(ke.view(-1, 8), 7, gen)
+    _flip(ve.view(-1, 8), 11, gen)
+    q = torch.randn((b, h, 1, hd), generator=gen, device=cuda).to(dtype)
+    args = (q, ke, None, ksc, ve, None, vsc,
+            torch.tensor([31, 7, 0], device=cuda))
+    ko, kf = paged_attention.fused_page_attention(*args)
+    po, pf = paged_attention.fused_page_attention_plain(*args)
+    assert kf.tolist() == pf.tolist() and kf.tolist() != [0, 0]
+    # same op order; f32 sums in another order (bf16: one rounding apart)
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(ko.float(), po.float(), rtol=tol, atol=tol)
