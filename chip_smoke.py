@@ -6,27 +6,40 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel against its plain PyTorch version on the card at the shapes the
-full-width deepseek-7b serve path gives it, holds the kernel route against
-the plain route end to end on a depth-cut (2-layer) full-width model, and
-then serves full-width deepseek-7b (30 layers, d_model 4096, vocab 102400)
-for 16 greedy steps at batch 4 through the port's own entry point
-``repro_torch.launch.serve.serve``: clean, with injected memory faults
-(the corrected and DUE counts must equal the injected single- and
-double-flip blocks), and with correctable faults only (the logits must
-equal the clean run's bit for bit).
+full-width deepseek-7b serve paths give it (the two attention kernels also
+against an fp64 oracle), holds the kernel route against the plain route end
+to end on a depth-cut (2-layer) full-width model, and then drives the
+port's two serving paths through its own entry point
+``repro_torch.launch.serve.serve`` on full-width deepseek-7b (30 layers,
+d_model 4096, vocab 102400) at batch 4:
 
+* decode-at-use serving from position 0 (``in-place-fused`` KV, 16 greedy
+  steps): clean, with injected memory faults (the corrected and DUE counts
+  must equal the injected single- and double-flip blocks), and with
+  correctable faults only (the logits must equal the clean run's bit for
+  bit);
+* long-context serving (``in-place-chunked`` KV): a 2,048-token prompt per
+  row is prefilled into the paged ECC KV cache through the flash kernel,
+  then 16 steps decode through the chunked kernel at a 2,064-token
+  context, clean and with correctable weight faults only (prefill logits,
+  decode logits and tokens must equal the clean run's bit for bit, and
+  each flipped block is counted once per call: 17 times).
+
+Launch counts are set to 0 just before each path and read just after.
 Every phase raises on failure and the script exits nonzero; it prints no
 result without a CUDA device. Its last lines are the kernels JSON (per
-kernel: launches on the main path, max abs error against the plain version,
-times and bound) and ``{"ok": true, "device": {...}}``.
+kernel: launches on the main paths, max abs error against the plain
+version, times and bound) and ``{"ok": true, "device": {...}}``.
 
 Times are CUDA-event medians over repeats with the 50 MB L2 cache flushed
 before each repeat and the card kept busy while the host enqueues. Kernel
-entries report the work one decode step gives the kernel (ecc_encode: one
-deploy, every protected leaf once): the sum over the launches of that
-step. ``bound_ms`` is max(bytes / 3.35 TB/s, ops / peak) with each input
-read once and each output written once (H100 SXM data-sheet rates: HBM
-3.35 TB/s, dense bf16 989 TFLOP/s).
+entries report the work one call of the serve path gives the kernel: one
+decode step (ecc_decode, ecc_qmatmul, the two decode attentions), one
+deploy (ecc_encode: every protected leaf once) or one prefill
+(flash_attention): the sum over the launches of that call. ``bound_ms`` is
+max(bytes / 3.35 TB/s, ops / peak) with each input read once and each
+output written once (H100 SXM data-sheet rates: HBM 3.35 TB/s, dense bf16
+989 TFLOP/s).
 """
 from __future__ import annotations
 
@@ -55,6 +68,17 @@ QMM_RTOL = 2e-4     # |kernel - plain| <= QMM_RTOL * (|a| @ |w|) + 1e-6: both
 # run). A dropped bf16 rounding would change some outputs by an ulp.
 E2E_MAX_ATOL = 0.25  # 2-layer logits, bf16 activations: the kernel rounds
 E2E_MEAN_ATOL = 0.02  # each projection once from f32, cuBLAS rounds its own
+# chunked_page_attention: kernel and plain version are f32 to the end in
+# the same op order (sums in another order) and round the output to bf16
+# once, so they differ by at most one bf16 ulp of the output (2^-7 |o|)
+# plus f32 noise; both are held to the fp64 oracle within 2% of
+# max|oracle| (the reference's gate for its chunked kernel).
+CHUNKED_RTOL, CHUNKED_ATOL = 2.0 ** -7, 1e-5
+ORACLE_RTOL = 0.02
+# flash_attention: same op order; f32 sums in another order can move a
+# probability across a bf16 rounding boundary before PV (one ulp, 2^-8 p)
+# and the output rounds once (one ulp of |o|).
+FLASH_RTOL, FLASH_ATOL = 2.0 ** -6, 2e-3
 
 
 def fail(msg: str):
@@ -92,16 +116,37 @@ def main():
         for src, text in build.BUILD_LOG.items():
             fh.write(f"=== {src}.cu ===\n{text}\n")
 
+    t0 = time.time()
     entries = phase_kernels(torch, dev)
+    log(f"phase 2 (kernels) took {time.time() - t0:.0f}s")
+    t0 = time.time()
     phase_routes(torch, dev)
-    counts = phase_full(torch, dev, build)
+    log(f"phase 3 (routes) took {time.time() - t0:.0f}s")
+    t0 = time.time()
+    decode_counts = phase_full(torch, dev, build)
+    log(f"phase 4 (decode path) took {time.time() - t0:.0f}s")
+    t0 = time.time()
+    long_counts = phase_long(torch, dev, build)
+    log(f"phase 5 (long-context path) took {time.time() - t0:.0f}s")
+    t0 = time.time()
     phase_profile(torch)
+    log(f"phase 6 (profiles) took {time.time() - t0:.0f}s")
+    counts = {k: decode_counts[k] + long_counts[k] for k in build.COUNTS}
     if sorted(entries) != sorted(counts):
         fail(f"kernels checked {sorted(entries)} != kernels counted "
              f"{sorted(counts)}")
+    for path, cnt, needed in (
+            ("decode", decode_counts, ("ecc_decode", "ecc_encode",
+                                       "ecc_qmatmul", "fused_page_attention")),
+            ("long-context", long_counts,
+             ("ecc_decode", "ecc_encode", "ecc_qmatmul", "flash_attention",
+              "chunked_page_attention"))):
+        missing = [k for k in needed if cnt[k] <= 0]
+        if missing:
+            fail(f"kernels never launched on the {path} path: {missing}")
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+        fail(f"kernels never launched on the main paths: {missing}")
     line = [{"name": name, "route": "cuda", "launches": counts[name], **e}
             for name, e in entries.items()]
     print(json.dumps({"kernels": line}), flush=True)
@@ -347,12 +392,7 @@ def phase_kernels(torch, dev):
     if not torch.equal(ko, po):
         fail(f"fused_page_attention differs from its plain version in "
              f"{int((ko != po).sum())} outputs: max abs err {e}")
-    kq = ecc.decode64(ke.view(b, s, kvh, hd // 8, 8))[0].view(torch.int8)
-    vq = ecc.decode64(ve.view(b, s, kvh, hd // 8, 8))[0].view(torch.int8)
-    kd_ = (kq.reshape(b, s, kvh, hd).float() * ksc[..., None, None]).to(
-        torch.bfloat16).transpose(1, 2)
-    vd_ = (vq.reshape(b, s, kvh, hd).float() * vsc[..., None, None]).to(
-        torch.bfloat16).transpose(1, 2)
+    kd_, vd_ = _decoded_bf16(torch, ke, ksc), _decoded_bf16(torch, ve, vsc)
     mask = (torch.arange(s, device=dev)[None, :] <= pos[:, None])[:, None,
                                                                    None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -371,7 +411,138 @@ def phase_kernels(torch, dev):
             lambda: sdpa(q, kd_, vd_, attn_mask=mask)))
     log(f"fused_page_attention (per step, 30 launches of B={b} H={h} S={s}): "
         f"{out['fused_page_attention']}")
+    del args, ke, ve, kd_, vd_
+    out["chunked_page_attention"] = check_chunked(torch, dev, cfg, timer, gen)
+    out["flash_attention"] = check_flash(torch, dev, cfg, timer, gen)
     return out
+
+
+def _decoded_bf16(torch, enc, sc):
+    """Encoded (B, S, KV, hd) strip -> dequantized bf16 (B, KV, S, hd)."""
+    from repro_torch.core import ecc
+    b, s, kv, hd = enc.shape
+    qv = ecc.decode64(enc.view(b, s, kv, hd // 8, 8))[0].view(torch.int8)
+    return (qv.reshape(b, s, kv, hd).float() * sc[..., None, None]).to(
+        torch.bfloat16).transpose(1, 2)
+
+
+def check_chunked(torch, dev, cfg, timer, gen):
+    """chunked_page_attention at the long-context path's decode shape (B 4,
+    S 2,064 = 129 pages) and at B 1, S 16,384, KV 32, hd 128, bf16 q, with
+    single- and double-flip blocks and ragged positions: flags equal to
+    the plain version's, output within CHUNKED_* of it and within 2% of
+    max|oracle| of the fp64 oracle. Timed at the path's last step (every
+    row at pos S - 1), 30 launches per decode step."""
+    from repro_torch.kernels import paged_attention
+    from repro_torch.serving import kvcache
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    policy = kvcache.get_kv_policy("in-place-chunked")
+    chunk = policy.chunk_pages * policy.page_size
+    err = 0.0
+    entry = None
+    for b, s, ragged in ((4, 2064, (2063, 1500, 700, 0)), (1, 16384, (16000,))):
+        ke, _, ksc = kvcache._encode_kv(
+            torch.randn((b, s, kvh, hd), generator=gen, device=dev), policy)
+        ve, _, vsc = kvcache._encode_kv(
+            torch.randn((b, s, kvh, hd), generator=gen, device=dev), policy)
+        ke, ve = ke.contiguous(), ve.contiguous()
+        flip_blocks(torch, ke.view(-1, 8), 300, 100, gen)
+        flip_blocks(torch, ve.view(-1, 8), 300, 100, gen)
+        q = torch.randn((b, h, 1, hd), generator=gen, device=dev).to(
+            torch.bfloat16)
+        pos = torch.tensor(ragged, dtype=torch.int32, device=dev)
+        args = (q, ke, None, ksc, ve, None, vsc, pos)
+        ko, kfl = paged_attention.chunked_page_attention(*args,
+                                                         chunk_tokens=chunk)
+        po, pfl = paged_attention.chunked_page_attention_plain(
+            *args, chunk_tokens=chunk)
+        if kfl.tolist() != pfl.tolist() or kfl.tolist()[0] == 0:
+            fail(f"chunked_page_attention flags {kfl.tolist()} vs plain "
+                 f"{pfl.tolist()} at B={b} S={s}")
+        e = (ko.float() - po.float()).abs()
+        if bool((e > CHUNKED_RTOL * po.float().abs() + CHUNKED_ATOL).any()):
+            fail(f"chunked_page_attention out of tolerance of its plain "
+                 f"version at B={b} S={s}: max abs err {float(e.max())}")
+        oracle = paged_attention.oracle_page_attention(*args)
+        oerr = float(abs(ko.double().cpu().numpy() - oracle).max())
+        otol = ORACLE_RTOL * float(abs(oracle).max())
+        if oerr > otol:
+            fail(f"chunked_page_attention {oerr} from the fp64 oracle at "
+                 f"B={b} S={s} (> {otol})")
+        err = max(err, float(e.max()))
+        # the path's last decode step: every row at pos S - 1
+        last = (q, ke, None, ksc, ve, None, vsc,
+                torch.full((b,), s - 1, dtype=torch.int32, device=dev))
+        km = timer.ms(lambda: paged_attention.chunked_page_attention(
+            *last, chunk_tokens=chunk))
+        pm = timer.ms(lambda: paged_attention.chunked_page_attention_plain(
+            *last, chunk_tokens=chunk))
+        kd_ = _decoded_bf16(torch, ke, ksc)
+        vd_ = _decoded_bf16(torch, ve, vsc)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lm_ = timer.ms(lambda: sdpa(q, kd_, vd_))
+        nbytes = (2 * q.numel() * 2 + 2 * b * s * kvh * hd + 2 * b * s * 4
+                  + 4 * b + b * kvh * 2 * 4)
+        bb, by = bound_ms(nbytes, 4 * b * h * s * hd)
+        log(f"chunked_page_attention B={b} S={s} (chunk {chunk}): flags "
+            f"{kfl.tolist()}, max abs err vs plain {float(e.max()):.3g}, vs "
+            f"fp64 oracle {oerr:.3g} (gate {otol:.3g}); per launch kernel "
+            f"{km:.4f} ms, plain {pm:.4f} ms, sdpa(decoded) {lm_:.4f} ms, "
+            f"bound {bb:.5f} ms")
+        if entry is None:
+            n = cfg.n_layers
+            entry = dict(source="src/repro_torch/csrc/chunked_attention.cu",
+                         replaces="src/repro/kernels/paged_attention.py:313",
+                         ms=n * km, plain_ms=n * pm, bound_ms=n * bb,
+                         bound_by=by, library_ms=n * lm_)
+        del ke, ve, kd_, vd_, args, last
+    entry["max_abs_err"] = err
+    log(f"chunked_page_attention (per step, 30 launches of B=4 H={h} "
+        f"S=2064): {entry}")
+    return entry
+
+
+def check_flash(torch, dev, cfg, timer, gen):
+    """flash_attention at the prefill's shape (B 4, H 32, S 2,048, hd 128,
+    bf16; 30 launches per prefill) and at a ragged S, against its plain
+    version; library yardstick SDPA with ``is_causal=True``."""
+    from repro_torch.kernels import flash_attention
+    h, hd = cfg.n_heads, cfg.head_dim
+    err = 0.0
+    entry = None
+    for b, s in ((4, 2048), (1, 1000)):
+        q, k, v = (torch.randn((b, h, s, hd), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(3))
+        ko = flash_attention.flash_attention(q, k, v)
+        po = flash_attention.flash_attention_plain(q, k, v)
+        e = (ko.float() - po.float()).abs()
+        if bool((e > FLASH_RTOL * po.float().abs() + FLASH_ATOL).any()):
+            fail(f"flash_attention out of tolerance of its plain version at "
+                 f"{(b, h, s, hd)}: max abs err {float(e.max())}")
+        err = max(err, float(e.max()))
+        log(f"flash_attention {(b, h, s, hd)}: max abs err vs plain "
+            f"{float(e.max()):.3g}, mean {float(e.mean()):.3g}")
+        if entry is None:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            km = timer.ms(lambda: flash_attention.flash_attention(q, k, v))
+            pm = timer.ms(lambda: flash_attention.flash_attention_plain(q, k,
+                                                                        v))
+            lm_ = timer.ms(lambda: sdpa(q, k, v, is_causal=True))
+            ops = 4 * b * h * hd * s * (s + 1) // 2   # QK^T and PV, causal
+            bb, by = bound_ms(4 * b * h * s * hd * 2, ops)
+            n = cfg.n_layers
+            entry = dict(source="src/repro_torch/csrc/flash_attention.cu",
+                         replaces="src/repro/kernels/flash_attention.py:87",
+                         ms=n * km, plain_ms=n * pm, bound_ms=n * bb,
+                         bound_by=by, library_ms=n * lm_)
+            log(f"flash_attention per launch: kernel {km:.4f} ms, plain "
+                f"{pm:.4f} ms, sdpa(causal) {lm_:.4f} ms, bound {bb:.4f} ms "
+                f"({ops / km / 1e9:.1f} TFLOP/s achieved)")
+        del q, k, v, ko, po, e
+    entry["max_abs_err"] = err
+    log(f"flash_attention (per prefill, 30 launches of (4, 32, 2048, 128)): "
+        f"{entry}")
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -414,6 +585,50 @@ def phase_routes(torch, dev):
         f"{float(diff.mean()):.4g} (|logits| max {float(lp.abs().max()):.3g})")
     if float(diff.max()) > E2E_MAX_ATOL or float(diff.mean()) > E2E_MEAN_ATOL:
         fail("kernel route logits out of tolerance of the plain route")
+
+    # the long-context path: prefill a ragged prompt, then chunked decode
+    # steps (kernel route: flash prefill, chunked kernel; plain route:
+    # chunked_causal_attention prefill, decode-then-attend)
+    prompt_len, steps = 1000, 3
+    gen.manual_seed(8)
+    prompt = torch.randint(0, cfg.vocab, (4, prompt_len), generator=gen,
+                           device=dev)
+    results = {}
+    for route, kvp in (("cuda", "in-place-chunked"), ("torch", "in-place")):
+        prefill = protected.make_prefill(cfg, backend=route, kv_policy=kvp,
+                                         with_flags=True)
+        step = protected.make_serve_step(cfg, backend=route, kv_policy=kvp)
+        cache = kvcache.init_cache(cfg, 4, prompt_len + steps, kv_policy=kvp,
+                                   device=dev)
+        lg, cache, fl = prefill(enc, cache, prompt)
+        logits = [lg.float()]
+        flags = [{k: v.tolist() for k, v in fl.items()}]
+        for t in range(steps):
+            tok = torch.full((4, 1), 21 + t, dtype=torch.long, device=dev)
+            pos = torch.full((4,), prompt_len + t, dtype=torch.int32,
+                             device=dev)
+            lg, cache, fl = step(enc, cache, tok, pos)
+            logits.append(lg.float())
+            flags.append({k: v.tolist() for k, v in fl.items()})
+        results[route] = (logits, flags)
+        del cache
+    (lk, fk), (lp, fp) = results["cuda"], results["torch"]
+    if fk != fp:
+        fail(f"prefill/chunked routes disagree on flags: cuda {fk} vs torch "
+             f"{fp}")
+    for name, a, b in (("prefill", lk[0], lp[0]),
+                       ("chunked decode", torch.cat(lk[1:]),
+                        torch.cat(lp[1:]))):
+        diff = (a - b).abs()
+        log(f"2-layer full width {name} ({prompt_len}-token prompt), cuda vs "
+            f"torch route: logits max abs diff {float(diff.max()):.4g}, mean "
+            f"{float(diff.mean()):.4g} (|logits| max "
+            f"{float(b.abs().max()):.3g}); flags equal "
+            f"(prefill weight rows {fk[0]['layers']})")
+        if float(diff.max()) > E2E_MAX_ATOL or \
+                float(diff.mean()) > E2E_MEAN_ATOL:
+            fail(f"kernel route {name} logits out of tolerance of the plain "
+                 f"route")
     del enc
 
 
@@ -502,15 +717,117 @@ def phase_full(torch, dev, build):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: where the time of a full-width step goes (torch.profiler)
+# phase 5: the long-context path — prefill + chunked decode, full width
 # ---------------------------------------------------------------------------
+
+
+def phase_long(torch, dev, build):
+    """Two runs of a 2,048-token prompt per row plus 16 decode steps under
+    ``in-place-chunked``: clean, and with at most one flip per weight code
+    block at ``rate`` (the KV pools take correctable flips mid-run too).
+    The faulted run must give the clean run's prefill logits, decode logits
+    and tokens bit for bit, and count each flipped weight block once per
+    call: 1 prefill + 16 steps = 17 times."""
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import serve
+
+    cfg = get("deepseek-7b")
+    prompt_len, tokens, batch, rate = 2048, 16, 4, 1e-6
+    kw = dict(backend="cuda", kv_policy="in-place-chunked", batch=batch,
+              tokens=tokens, prompt_len=prompt_len, device="cuda", log=log)
+    torch.cuda.empty_cache()
+    build.reset_counts()
+    clean = serve(cfg, **kw)
+    clean_counts = dict(build.COUNTS)
+    torch.cuda.empty_cache()
+    fixed = serve(cfg, fault_rate=rate, correctable_only=True, **kw)
+    counts = dict(build.COUNTS)
+    log(f"launch counts over the two long-context runs: {counts} (clean run "
+        f"alone: {clean_counts})")
+    per_run = {"flash_attention": cfg.n_layers,
+               "chunked_page_attention": cfg.n_layers * tokens}
+    for k, n in per_run.items():
+        if clean_counts[k] != n or counts[k] != 2 * n:
+            fail(f"{k}: {clean_counts[k]} launches in the clean run, "
+                 f"{counts[k]} in both; expected {n} per run")
+
+    pl = clean["prefill_logits"]
+    if pl.shape != (batch, prompt_len, cfg.vocab_padded) or \
+            not bool(torch.isfinite(pl.float()).all()) or \
+            not bool(torch.isfinite(clean["logits"].float()).all()):
+        fail(f"prefill logits {tuple(pl.shape)} or decode logits not finite")
+    if clean["flags"] != {"corrected": 0, "due": 0, "kv_corrected": 0,
+                          "kv_due": 0}:
+        fail(f"clean long-context run reported faults: {clean['flags']}")
+    singles = {}
+    for name, pos in fixed["weight_positions"].items():
+        _, c = torch.unique(pos // 64, return_counts=True)
+        if c.numel() and int(c.max()) > 1:
+            fail(f"{name}: a weight block took more than one flip")
+        singles[name] = int(c.numel())
+    n_single = sum(singles.values())
+    ff = fixed["flags"]
+    log(f"long-context correctable-only run: {n_single} single-flip weight "
+        f"blocks; reported {ff}")
+    calls = 1 + tokens
+    if n_single == 0 or ff["corrected"] != calls * n_single or ff["due"] or \
+            ff["kv_due"] or ff["kv_corrected"] == 0:
+        fail(f"long-context accounting {ff} != {calls} x {n_single} "
+             f"corrected weight blocks and no DUE")
+    for name in ("prefill_logits", "logits", "tokens"):
+        if not torch.equal(fixed[name], clean[name]):
+            fail(f"every flip was correctable, yet the {name} differ from "
+                 f"the clean run")
+    log("long-context correctable-only run: prefill logits, decode logits "
+        "and tokens equal the clean run bit for bit")
+    for name, r in (("clean", clean), ("correctable-only", fixed)):
+        log(f"long context {name}: prefill {batch} x {prompt_len} tokens in "
+            f"{r['prefill_s']:.3f} s ({r['prefill_tok_per_s']:.1f} tok/s); "
+            f"decode at context {prompt_len + 1}..{prompt_len + tokens}: "
+            f"{r['tok_per_s']:.2f} tok/s, median "
+            f"{statistics.median(r['step_ms']):.2f} ms/step")
+    with open(OUT_DIR / "chip_smoke_long.json", "w") as fh:
+        json.dump({n: {"prefill_s": r["prefill_s"],
+                       "prefill_tok_per_s": r["prefill_tok_per_s"],
+                       "tok_per_s": r["tok_per_s"], "step_ms": r["step_ms"],
+                       "flags": r["flags"]}
+                   for n, r in (("clean", clean),
+                                ("correctable-only", fixed))}, fh, indent=1)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6: where the time goes (torch.profiler)
+# ---------------------------------------------------------------------------
+
+
+def _profile_table(torch, prof, wall_ms, what, fname, rows=18):
+    """Log the device-busy share of a profiled window and print its top
+    ops; -> the device-side (kernel) events. An operator row's self device
+    time repeats its kernels' rows, so only kernel rows are summed."""
+    avg = prof.key_averages()
+    kernels = [e for e in avg
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"profile, {what}: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms "
+        f"wall ({100 * busy_ms / wall_ms:.1f}%), "
+        f"{sum(e.count for e in kernels)} kernel launches")
+    table = avg.table(sort_by="self_device_time_total", row_limit=25)
+    with open(OUT_DIR / fname, "w") as fh:
+        fh.write(table)
+    for line in table.splitlines()[:rows]:
+        print(line, flush=True)
+    return kernels
 
 
 def phase_profile(torch):
     """Profile 4 decode steps of the full-width kernel route, built as
-    ``serve`` builds it (after the timed runs; the launch counts are already
-    read). Prints the device-busy share of the profiled steps' wall time and
-    the ops with the most device time."""
+    ``serve`` builds it, and then one full-width prefill of a 2,048-token
+    prompt per row (batch 4, ``in-place-chunked``) with 2 chunked decode
+    steps (after the timed runs; the launch counts are already read).
+    Prints the device-busy share of each profiled window's wall time, the
+    ops with the most device time, and the prefill's device time split
+    into projections, attention, KV encode and decode, and the rest."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get
@@ -529,8 +846,8 @@ def phase_profile(torch):
                                device=dev)
     tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.time()
         for t in range(4):
             pos = torch.full((batch,), t, dtype=torch.int32, device=dev)
@@ -538,15 +855,52 @@ def phase_profile(torch):
             tok = logits.argmax(dim=-1)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.time() - t0)
-    avg = prof.key_averages()
-    busy_ms = sum(e.self_device_time_total for e in avg) / 1e3
-    log(f"profile, 4 full-width steps: device busy {busy_ms:.2f} ms of "
-        f"{wall_ms:.2f} ms wall ({100 * busy_ms / wall_ms:.1f}%)")
-    table = avg.table(sort_by="self_device_time_total", row_limit=25)
-    with open(OUT_DIR / "chip_smoke_profile.txt", "w") as fh:
-        fh.write(table)
-    for line in table.splitlines()[:18]:
-        print(line, flush=True)
+    _profile_table(torch, prof, wall_ms, "4 full-width decode steps",
+                   "chip_smoke_profile.txt")
+    del cache
+
+    prompt_len = 2048
+    kvp = "in-place-chunked"
+    prefill = protected.make_prefill(cfg, plan=plan, backend="cuda",
+                                     kv_policy=kvp)
+    step = protected.make_serve_step(cfg, plan=plan, backend="cuda",
+                                     kv_policy=kvp)
+    cache = kvcache.init_cache(cfg, batch, prompt_len + 2, kv_policy=kvp,
+                               device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.time()
+        logits, cache = prefill(enc, cache, prompt)
+        torch.cuda.synchronize()
+        pre_ms = 1e3 * (time.time() - t0)
+        tok = logits[:, -1:].argmax(dim=-1)
+        for t in range(2):
+            pos = torch.full((batch,), prompt_len + t, dtype=torch.int32,
+                             device=dev)
+            logits, cache, _ = step(enc, cache, tok, pos)
+            tok = logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+    kernels = _profile_table(
+        torch, prof, wall_ms, f"one full-width prefill ({pre_ms:.0f} ms of "
+        f"wall) + 2 chunked decode steps", "chip_smoke_prefill_profile.txt")
+    split = {"projections (qmatmul_kernel)": 0.0,
+             "prefill attention (flash_kernel)": 0.0,
+             "decode attention (chunked_attention_kernel)": 0.0,
+             "KV encode (encode_kernel)": 0.0,
+             "KV and embedding decode (decode_kernel)": 0.0, "other": 0.0}
+    for e in kernels:
+        t = e.self_device_time_total / 1e3
+        key = next((k for k in split if k.split("(")[-1].rstrip(")") in
+                    e.key), "other")
+        split[key] += t
+    log("profile split (device ms over the window): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in split.items()))
+
 
 if __name__ == "__main__":
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")

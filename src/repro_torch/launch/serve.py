@@ -7,7 +7,14 @@ corrected at the point of use.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
       --tokens 16 --batch 4 [--scheme in-place] [--backend torch|cuda] \\
-      [--kv-policy in-place-fused] [--fault-rate 1e-4] [--device cuda|cpu]
+      [--kv-policy in-place-fused|in-place-chunked] [--prompt-len 512] \\
+      [--fault-rate 1e-4] [--device cuda|cpu]
+
+The backend defaults to the kernels (``cuda``) on the card and to the
+plain route (``torch``) on the CPU. With ``--prompt-len`` a random prompt
+drawn from the seed is prefilled into the paged KV cache first (needs a
+``--kv-policy``), and decoding continues from it; the ``-chunked`` KV
+presets serve contexts past the strip kernel's shared-memory wall.
 
 The CLI serves the smoke configs (``configs.get_smoke``), as the reference
 CLI does; :func:`serve` takes any config, e.g. the full-width
@@ -34,11 +41,23 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(cfg, *, batch: int = 4, tokens: int = 16, fault_rate: float = 0.0,
-          correctable_only: bool = False, seed: int = 0,
-          scheme: str = "in-place", backend: str = "torch", kv_policy=None,
-          device=None, dtype=torch.bfloat16, log=print) -> dict:
-    """Serve ``tokens`` greedy decode steps of a batch from position 0.
+def default_backend(device) -> str:
+    """The kernels on the card, the plain route on the CPU."""
+    return "cuda" if device.type == "cuda" else "torch"
+
+
+def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
+          fault_rate: float = 0.0, correctable_only: bool = False,
+          seed: int = 0, scheme: str = "in-place", backend=None,
+          kv_policy=None, device=None, dtype=torch.bfloat16,
+          log=print) -> dict:
+    """Serve ``tokens`` greedy decode steps of a batch.
+
+    Without a prompt the batch decodes from position 0. With ``prompt_len``
+    a random prompt of that many tokens per row, drawn from ``seed``, is
+    prefilled into the paged KV cache (``kv_policy`` required) and the
+    decode continues from position ``prompt_len``. ``backend`` defaults to
+    :func:`default_backend` of the device.
 
     With ``correctable_only`` the injector keeps at most one flip in each
     64-bit code block (weights and KV), so an in-place run must give the
@@ -46,16 +65,23 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, fault_rate: float = 0.0,
 
     Returns a dict with ``tokens`` (T, B) and ``logits`` (T, B, V) of every
     step, the run's fault accounting ``flags`` (weight corrected/DUE from
-    the ``top`` and ``layers`` rows, KV from ``layers_kv``), the flipped bit
-    positions of each injected image (``weight_positions``,
-    ``kv_positions``), and the timings ``seconds``, ``tok_per_s`` and
-    ``step_ms`` (host clock, each step ended by a device sync).
+    the ``top`` and ``layers`` rows, KV from ``layers_kv``, prefill
+    included), the flipped bit positions of each injected image
+    (``weight_positions``, ``kv_positions``), and the timings ``seconds``,
+    ``tok_per_s`` and ``step_ms`` of the decode (host clock, each step
+    ended by a device sync). With a prompt it also holds ``prompt`` (B, S),
+    ``prefill_logits`` (B, S, V), ``prefill_s`` and ``prefill_tok_per_s``.
     """
     dev = device_mod.resolve(device)
+    if backend is None:
+        backend = default_backend(dev)
     log(f"[serve] {cfg.name} (d_model {cfg.d_model}, {cfg.n_layers} layers), "
         f"scheme={scheme}, backend={backend}, fault_rate={fault_rate}"
         f"{' (correctable only)' if correctable_only else ''}, device={dev}")
     kvp = kvcache.get_kv_policy(kv_policy)
+    if prompt_len and kvp is None:
+        raise ValueError("a prompt is prefilled into the paged KV cache: "
+                         "pass a kv_policy")
     if dev.type == "cuda" and (backend == "cuda" or (kvp and kvp.fused)):
         from repro_torch.kernels import build
         t0 = time.time()
@@ -83,16 +109,37 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, fault_rate: float = 0.0,
 
     step = protected.make_serve_step(cfg, plan=plan, backend=backend,
                                      kv_policy=kvp, dtype=dtype)
-    max_len = max(64, tokens * 2)
+    max_len = prompt_len + tokens if prompt_len else max(64, tokens * 2)
     cache = kvcache.init_cache(cfg, batch, max_len, kv_policy=kvp,
                                dtype=dtype, device=dev)
     if kvp is not None:
         kb = kvcache.kv_bytes(cache)
         log(f"[serve] paged KV cache ({kvp.scheme}, page_size={kvp.page_size}"
+            f", attention {kvp.attention_impl if kvp.fused else 'reference'}"
             f"): stored {kb['stored']}B + scales {kb['scales']}B")
     tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
     kv_positions: dict = {}
     out_tok, out_logits, step_flags, step_s = [], [], [], []
+    extra: dict = {}
+    if prompt_len:
+        gen_p = torch.Generator(device=dev)
+        gen_p.manual_seed(seed + 1)
+        prompt = torch.randint(0, cfg.vocab, (batch, prompt_len),
+                               generator=gen_p, device=dev)
+        prefill = protected.make_prefill(cfg, plan=plan, backend=backend,
+                                         kv_policy=kvp, dtype=dtype,
+                                         with_flags=True)
+        _sync(dev)
+        t0 = time.time()
+        plogits, cache, pflags = prefill(enc, cache, prompt)
+        _sync(dev)
+        dt = time.time() - t0
+        step_flags.append(pflags)
+        tok = plogits[:, -1:].argmax(dim=-1)
+        extra = {"prompt": prompt.cpu(), "prefill_logits": plogits,
+                 "prefill_s": dt, "prefill_tok_per_s": batch * prompt_len / dt}
+        log(f"[serve] prefilled {batch} x {prompt_len} prompt tokens in "
+            f"{dt:.2f}s ({batch * prompt_len / dt:.1f} tok/s)")
     _sync(dev)
     t_run = time.time()
     for t in range(tokens):
@@ -106,7 +153,8 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, fault_rate: float = 0.0,
                 one_per_block=correctable_only)
             cache = kvcache.from_protected_tree(cache, dirty)
             log(f"[serve] injected faults into the live KV pools at step {t}")
-        pos = torch.full((batch,), t, dtype=torch.int32, device=dev)
+        pos = torch.full((batch,), prompt_len + t, dtype=torch.int32,
+                         device=dev)
         logits, cache, flags = step(enc, cache, tok, pos)
         tok = logits.argmax(dim=-1)
         out_tok.append(tok[:, 0])
@@ -125,7 +173,8 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, fault_rate: float = 0.0,
     ms = [1e3 * x for x in step_s]
     log(f"[serve] {tokens} steps x batch {batch} in {dt:.2f}s "
         f"({tokens * batch / dt:.1f} tok/s, median step "
-        f"{statistics.median(ms):.2f} ms)")
+        f"{statistics.median(ms):.2f} ms, context up to "
+        f"{prompt_len + tokens})")
     log(f"[serve] decode-at-use fault accounting over the run: "
         f"{acc['corrected']} corrected, {acc['due']} DUE "
         f"(detected-uncorrectable)")
@@ -137,7 +186,7 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, fault_rate: float = 0.0,
     return {"tokens": toks, "logits": torch.stack(out_logits),
             "flags": acc, "weight_positions": weight_positions,
             "kv_positions": kv_positions, "seconds": dt,
-            "tok_per_s": tokens * batch / dt, "step_ms": ms}
+            "tok_per_s": tokens * batch / dt, "step_ms": ms, **extra}
 
 
 def main(argv=None):
@@ -150,8 +199,13 @@ def main(argv=None):
     ap.add_argument("--scheme", default="in-place",
                     choices=sorted(set(schemes.scheme_ids()) |
                                    set(schemes.ALIASES)))
-    ap.add_argument("--backend", default="torch",
-                    choices=sorted(backends.BACKENDS))
+    ap.add_argument("--prompt-len", type=int, default=0,
+                    help="prefill a random prompt of this many tokens into "
+                         "the paged KV cache first (needs --kv-policy)")
+    ap.add_argument("--backend", default=None,
+                    choices=sorted(backends.BACKENDS),
+                    help="default: cuda (the kernels) on the card, torch on "
+                         "the CPU")
     ap.add_argument("--kv-policy", default=None,
                     choices=sorted(kvcache.KV_POLICY_PRESETS),
                     help="serve against the paged protected KV cache under "
@@ -161,8 +215,9 @@ def main(argv=None):
                     help="cuda (default) or cpu for the plain route")
     args = ap.parse_args(argv)
     serve(configs.get_smoke(args.arch), batch=args.batch, tokens=args.tokens,
-          fault_rate=args.fault_rate, seed=args.seed, scheme=args.scheme,
-          backend=args.backend, kv_policy=args.kv_policy, device=args.device)
+          prompt_len=args.prompt_len, fault_rate=args.fault_rate,
+          seed=args.seed, scheme=args.scheme, backend=args.backend,
+          kv_policy=args.kv_policy, device=args.device)
 
 
 if __name__ == "__main__":

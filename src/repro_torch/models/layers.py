@@ -1,9 +1,9 @@
 """Model building blocks of the dense decoder (pure functions over dicts).
 
 Counterpart of the dense subset of ``repro.models.layers``: norms, RoPE,
-single-token GQA attention, SwiGLU, embedding and logits. Where the
-reference routes fault flags through a module-level sink
-(``layers.record_flags``), the port hands each decode-at-use view the
+single-token GQA attention, chunked causal attention, SwiGLU, embedding
+and logits. Where the reference routes fault flags through a module-level
+sink (``layers.record_flags``), the port hands each decode-at-use view the
 ``record`` method of a :class:`FlagRecorder` that the serve step creates
 per step and the model drains per layer, so the flags come back as values.
 """
@@ -78,6 +78,69 @@ def apply_rope(x, positions, theta: float):
 # --------------------------------------------------------------------------
 # attention
 # --------------------------------------------------------------------------
+
+
+def _attend_chunk(q, k, v, mask, scale):
+    """q (B,H,Sq,D) k/v (B,H,Sk,D[v]) mask (Sq,Sk) or None -> (o, m, l);
+    ``o`` in v's dtype, ``m`` and ``l`` f32."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * scale
+    if mask is not None:
+        s = torch.where(mask, s, -1e30)
+    m = s.amax(dim=-1)                            # (B,H,Sq)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)                             # (B,H,Sq)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+    return o, m, l
+
+
+def chunked_causal_attention(q, k, v, *, chunk: int = 2048,
+                             window: int = 0) -> torch.Tensor:
+    """Online-softmax causal attention, the plain route's prefill attention.
+
+    q,k,v: (B, H, S, D) (k/v already GQA-broadcast). ``window > 0``
+    restricts each query to a sliding local window (the chunk becomes the
+    window). Returns (B, H, S, Dv). Query chunk ``i`` attends its diagonal
+    chunk first, then merges key chunks ``0..i-1`` in order (``i-1`` only
+    when windowed), as the reference's triangle path does.
+    """
+    b, h, s, d = q.shape
+    dv = v.shape[-1]
+    scale = 1.0 / np.sqrt(d)
+    if window:
+        if window >= s:
+            window = 0      # window covers everything -> plain causal
+        else:
+            chunk = window  # one previous chunk == the window
+    chunk = min(chunk, s)
+    if s % chunk:  # zero-pad the tail; padded keys are causally invisible
+        pad = chunk - s % chunk  # to real queries, padded rows are cut off
+        grow = lambda t: F.pad(t, (0, 0, 0, pad))
+        out = chunked_causal_attention(grow(q), grow(k), grow(v), chunk=chunk,
+                                       window=window)
+        return out[:, :, :s]
+    nq = s // chunk
+    qc = q.reshape(b, h, nq, chunk, d)
+    kc = k.reshape(b, h, nq, chunk, d)
+    vc = v.reshape(b, h, nq, chunk, dv)
+    idx = torch.arange(chunk, device=q.device)
+    diag_mask = idx[:, None] >= idx[None, :]
+    # windowed: only keys of the previous chunk strictly newer than q - chunk
+    prev_mask = (idx[:, None] < idx[None, :]) if window else None
+    outs = []
+    for i in range(nq):
+        qi = qc[:, :, i]
+        o, m, l = _attend_chunk(qi, kc[:, :, i], vc[:, :, i], diag_mask, scale)
+        prev = ([i - 1] if i else []) if window else range(i)
+        for j in prev:
+            o2, m2, l2 = _attend_chunk(qi, kc[:, :, j], vc[:, :, j], prev_mask,
+                                       scale)
+            mnew = torch.maximum(m, m2)
+            a1, a2 = torch.exp(m - mnew), torch.exp(m2 - mnew)
+            o = o * a1[..., None].to(o.dtype) + o2 * a2[..., None].to(o.dtype)
+            l = l * a1 + l2 * a2
+            m = mnew
+        outs.append(o / torch.clamp(l, min=1e-30)[..., None].to(o.dtype))
+    return torch.stack(outs, dim=2).reshape(b, h, s, dv)
 
 
 def decode_attention(q, k_cache, v_cache, length_mask=None):

@@ -1,9 +1,11 @@
-"""Dense decoder LM: parameter init, KV cache and the decode step.
+"""Dense decoder LM: parameter init, KV cache, the decode step and the
+prefill into a paged KV cache.
 
 Counterpart of the dense family of ``repro.models.lm``. Per-layer params
 are stacked along a leading L axis, as in the reference; a Python loop over
 layers takes the place of ``lax.scan``. Other families (MoE, MLA, SSM,
-hybrid, enc-dec) and the full-sequence forward/prefill are not ported yet.
+hybrid, enc-dec) and the cache-less full-sequence ``forward`` are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -166,3 +168,53 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
     if paged:
         flags["layers_kv"] = torch.stack(kv_flags)
     return logits, cache, flags
+
+
+def prefill_with_cache(cfg: ArchConfig, params, cache, tokens, *,
+                       dtype=torch.bfloat16, chunk: int = 2048,
+                       layer_transform=None, recorder=None, kv_policy=None):
+    """Full-sequence prefill that fills a paged protected KV cache.
+
+    tokens: (B, S) int; ``cache`` from ``serving.kvcache.init_paged_cache``
+    with room for S tokens. Every layer's K/V is encoded into its pages
+    (in place) and the attention runs over the decoded pages, so the logits
+    reflect exactly the state later :func:`decode_step` calls read. Returns
+    ``(logits (B, S, V), cache)``; with a ``recorder`` also a flags dict
+    with ``"layers"`` (weight) and ``"layers_kv"`` (KV) per-layer
+    (corrected, due) rows, as :func:`decode_step` returns them.
+    """
+    from repro_torch.serving import kvcache
+    if "k_pages" not in cache:
+        raise ValueError("prefill_with_cache expects a paged cache "
+                         "(serving.kvcache.init_paged_cache)")
+    kvp = kvcache.get_kv_policy(kv_policy)
+    if kvp is None:
+        raise ValueError("kv_policy is required for a paged cache")
+    if not kvcache.supports_paged(cfg):
+        raise NotImplementedError(f"paged prefill for family {cfg.family!r} "
+                                  f"is not ported yet")
+    x = L.embed(tokens, params["embed"], dtype)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    layer_flags, kv_flags = [], []
+    for i in range(n_scan_layers(cfg)):
+        lp = _take(i, params["layers"])
+        if layer_transform is not None:
+            lp = layer_transform(lp)
+        lc = {k: v[i] for k, v in cache.items()}
+        h = L.apply_norm(x, lp["ln1"], cfg.norm)
+        o, _, kvf = kvcache.paged_gqa_prefill(lp["attn"], h, cfg, lc,
+                                              positions=positions, policy=kvp,
+                                              chunk=chunk)
+        x = x + o
+        x = x + L.swiglu(lp["mlp"], L.apply_norm(x, lp["ln2"], cfg.norm))
+        kv_flags.append(kvf)
+        if recorder is not None:
+            layer_flags.append(recorder.drain())
+    x = L.apply_norm(x, params["final_norm"], cfg.norm)
+    logits = L.logits(x, params["head"])
+    if recorder is None:
+        return logits, cache
+    return logits, cache, {"layers": torch.stack(layer_flags),
+                           "layers_kv": torch.stack(kv_flags)}

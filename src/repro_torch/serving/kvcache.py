@@ -1,19 +1,24 @@
 """Protected paged KV cache — zero-space ECC over serving state.
 
 Counterpart of ``repro.serving.kvcache`` for the presets ``unprotected``,
-``in-place`` and ``in-place-fused``. Keys/values are int8-quantized per
-token (absmax over the token's ``(kv, hd)`` slab, the scale riding the
-page), WOT-throttled for the in-place scheme, and encoded into fixed-size
-pages ``(page_size, kv, hd)`` of a pool ``(nl, P, page_size, kv, hd)``
-uint8; each sequence reaches its pages through a page-table row.
+``in-place`` and their ``-fused`` and ``-chunked`` forms. Keys/values are
+int8-quantized per token (absmax over the token's ``(kv, hd)`` slab, the
+scale riding the page), WOT-throttled for the in-place scheme, and encoded
+into fixed-size pages ``(page_size, kv, hd)`` of a pool
+``(nl, P, page_size, kv, hd)`` uint8; each sequence reaches its pages
+through a page-table row.
 
 Attention decodes pages at use: the reference path gathers the sequence's
 encoded strips, block-decodes them, dequantizes and runs the stock
 ``layers.decode_attention``; the fused path hands the gathered strips to
-the ``fused_page_attention`` kernel. Per-token (corrected, DUE) flags are
-counted over valid (``<= pos``) tokens and returned as values.
+the ``fused_page_attention`` kernel (whole strips in shared memory), and
+the chunked path to the ``chunked_page_attention`` kernel (one page chunk
+at a time, online softmax), which serves long contexts. The prefill
+(:func:`paged_gqa_prefill`) encodes a whole prompt into pages and attends
+over the decoded pages. Per-token (corrected, DUE) flags are counted over
+valid tokens and returned as values.
 
-The port writes new tokens into the pools IN PLACE, where the reference
+The port writes tokens into the pools IN PLACE, where the reference
 returns new arrays.
 """
 from __future__ import annotations
@@ -31,8 +36,9 @@ from repro_torch.protection.backends import get_backend
 from repro_torch.protection.schemes import ALIASES, get_scheme
 
 __all__ = ["KVProtectionPolicy", "KV_POLICY_PRESETS", "get_kv_policy",
-           "pages_per_seq", "init_paged_cache", "init_cache",
-           "paged_gqa_decode", "kv_bytes"]
+           "supports_paged", "pages_per_seq", "pages_needed",
+           "init_paged_cache", "init_cache", "paged_gqa_decode",
+           "paged_gqa_prefill", "kv_bytes"]
 
 KV_SCHEMES = ("faulty", "in-place")
 
@@ -40,15 +46,25 @@ KV_SCHEMES = ("faulty", "in-place")
 @dataclasses.dataclass(frozen=True)
 class KVProtectionPolicy:
     """scheme:    "faulty" (unprotected int8 baseline) | "in-place".
-    backend:   block-codec route of the reference path ("torch" | "cuda").
-    fused:     decode-at-use attention through the fused kernel instead of
-               the decode-then-attend reference.
-    page_size: tokens per page."""
+    backend:   block-codec route of the reference path ("torch" | "cuda");
+               the prefill's attention follows it too (flash kernel on
+               "cuda", ``layers.chunked_causal_attention`` on "torch").
+    fused:     decode-at-use attention through a kernel instead of the
+               decode-then-attend reference.
+    page_size: tokens per page.
+    attention_impl: the decode kernel: "strip" holds the whole gathered
+               strip in shared memory (``fused_page_attention``, a context
+               wall of a few hundred tokens); "chunked" streams page chunks
+               through an online softmax (``chunked_page_attention``),
+               validated against the fp64 oracle instead of bit for bit.
+    chunk_pages: pages per chunk of the chunked kernel."""
 
     scheme: str = "in-place"
     backend: str = "torch"
     fused: bool = False
     page_size: int = 16
+    attention_impl: str = "strip"
+    chunk_pages: int = 16
 
     def __post_init__(self):
         sid = ALIASES.get(self.scheme, self.scheme)
@@ -57,6 +73,12 @@ class KVProtectionPolicy:
         object.__setattr__(self, "scheme", sid)
         if self.page_size <= 0:
             raise ValueError(f"page_size must be positive, got {self.page_size}")
+        if self.attention_impl not in ("strip", "chunked"):
+            raise ValueError(f"attention_impl {self.attention_impl!r}; one "
+                             f"of ('strip', 'chunked')")
+        if self.chunk_pages <= 0:
+            raise ValueError(f"chunk_pages must be positive, "
+                             f"got {self.chunk_pages}")
 
     @property
     def scheme_obj(self):
@@ -68,23 +90,46 @@ class KVProtectionPolicy:
 KV_POLICY_PRESETS = {
     "unprotected": KVProtectionPolicy(scheme="faulty"),
     "in-place": KVProtectionPolicy(scheme="in-place"),
+    "unprotected-fused": KVProtectionPolicy(scheme="faulty", fused=True),
     "in-place-fused": KVProtectionPolicy(scheme="in-place", fused=True),
+    # long contexts: the page-chunked online-softmax kernel
+    "unprotected-chunked": KVProtectionPolicy(scheme="faulty", fused=True,
+                                              attention_impl="chunked"),
+    "in-place-chunked": KVProtectionPolicy(scheme="in-place", fused=True,
+                                           attention_impl="chunked"),
 }
 
 
 def get_kv_policy(policy) -> Optional[KVProtectionPolicy]:
-    """Resolve a preset name or pass a policy / None through."""
+    """Resolve a preset name (scheme aliases + optional "-fused" /
+    "-chunked" suffix) or pass a policy / None through."""
     if policy is None or isinstance(policy, KVProtectionPolicy):
         return policy
+    name = str(policy)
+    suffix = next((s for s in ("-fused", "-chunked") if name.endswith(s)), "")
+    base = name[: -len(suffix)] if suffix else name
+    base = ALIASES.get(base, base)
+    base = "unprotected" if base == "faulty" else base
     try:
-        return KV_POLICY_PRESETS[str(policy)]
+        return KV_POLICY_PRESETS[base + suffix]
     except KeyError:
         raise ValueError(f"unknown or unported KV policy {policy!r}; one of "
                          f"{sorted(KV_POLICY_PRESETS)}") from None
 
 
+def supports_paged(cfg: ArchConfig) -> bool:
+    """Families whose decode KV state the paged pool replaces; the port
+    has the dense family only."""
+    return cfg.family == "dense"
+
+
 def pages_per_seq(max_len: int, page_size: int) -> int:
     return -(-max_len // page_size)
+
+
+def pages_needed(n_tokens: int, page_size: int) -> int:
+    """Pool pages a request writing ``n_tokens`` positions needs."""
+    return -(-n_tokens // page_size)
 
 
 def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int, policy, *,
@@ -103,7 +148,7 @@ def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int, policy, *,
     policy = get_kv_policy(policy)
     if policy is None:
         raise ValueError("init_paged_cache needs a KV policy")
-    if cfg.family != "dense":
+    if not supports_paged(cfg):
         raise NotImplementedError(f"paged KV cache for family {cfg.family!r} "
                                   f"is not ported yet")
     if cfg.head_dim % ecc.BLOCK_BYTES:
@@ -187,6 +232,20 @@ def _write_token(pages, checks, scales, table, enc, ch, sc, pos):
     return pages, checks, scales
 
 
+def _write_pages(pages, checks, scales, table, enc, ch, sc):
+    """Scatter whole prefill pages IN PLACE. enc (B, npg*ps, kv, hd);
+    sc (B, npg*ps)."""
+    b = table.shape[0]
+    ps = pages.shape[1]
+    npg = enc.shape[1] // ps
+    idx = table[:, :npg].reshape(-1).long()                  # (B*npg,)
+    pages[idx] = enc.reshape(b * npg, ps, *enc.shape[2:])
+    if checks is not None:
+        checks[idx] = ch.reshape(b * npg, ps, *ch.shape[2:])
+    scales[idx] = sc.reshape(b * npg, ps)
+    return pages, checks, scales
+
+
 def _gather_seq(pages, checks, scales, table):
     """Pool -> per-sequence encoded strips: (enc (B, S, kv, hd), checks |
     None, scale (B, S)) with S = pages_per_seq * page_size."""
@@ -253,7 +312,12 @@ def paged_gqa_decode(p, x, cfg: ArchConfig, lc, *, pos,
     ve, vch, vsc = _gather_seq(lc["v_pages"], lc.get("v_checks"),
                                lc["v_scale"], table)
     qh = q.transpose(1, 2)                                   # (B, H, 1, hd)
-    if policy.fused:
+    if policy.attention_impl == "chunked":
+        from repro_torch.kernels import paged_attention
+        o, flags = paged_attention.chunked_page_attention(
+            qh, ke, kch, ksc, ve, vch, vsc, pos, scheme=policy.scheme,
+            chunk_tokens=policy.chunk_pages * policy.page_size)
+    elif policy.fused:
         from repro_torch.kernels import paged_attention
         o, flags = paged_attention.fused_page_attention(
             qh, ke, kch, ksc, ve, vch, vsc, pos, scheme=policy.scheme)
@@ -262,6 +326,57 @@ def paged_gqa_decode(p, x, cfg: ArchConfig, lc, *, pos,
             qh, ke, kch, ksc, ve, vch, vsc, pos, policy)
         flags = torch.stack([corrected, due])
     o = o.transpose(1, 2).reshape(b, 1, h * hd)
+    return L._proj(o, p["wo"]), lc, flags
+
+
+def paged_gqa_prefill(p, x, cfg: ArchConfig, lc, *, positions,
+                      policy: KVProtectionPolicy, chunk: int = 2048):
+    """Prefill counterpart of :func:`paged_gqa_decode`: project and rope the
+    whole sequence, encode it into whole pages (zero-padded; written IN
+    PLACE), then attend causally over the DECODED pages, so the logits
+    reflect exactly the state later decode steps read. x: (B, S, D).
+
+    Attention follows the codec route: the ``flash_attention`` kernel on
+    "cuda", ``layers.chunked_causal_attention`` on "torch". Returns
+    ``(out, lc, kv_flags (2,) int32)`` with flags over live tokens."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = L._proj(x, p["wq"], p.get("bq")).reshape(b, s, h, hd)
+    k = L._proj(x, p["wk"], p.get("bk")).reshape(b, s, kv, hd)
+    v = L._proj(x, p["wv"], p.get("bv")).reshape(b, s, kv, hd)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+
+    pad = (-s) % lc["k_pages"].shape[1]
+    if pad:  # zero-pad to whole pages; padded tokens are masked below
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    table = lc["kv_table"]
+    ke, kch, ksc = _encode_kv(k, policy)                     # (B, S', kv, hd)
+    ve, vch, vsc = _encode_kv(v, policy)
+    _write_pages(lc["k_pages"], lc.get("k_checks"), lc["k_scale"], table,
+                 ke, kch, ksc)
+    _write_pages(lc["v_pages"], lc.get("v_checks"), lc["v_scale"], table,
+                 ve, vch, vsc)
+
+    kq, kcor, kdue = _decode_kv(ke, kch, policy.scheme, policy.backend)
+    vq, vcor, vdue = _decode_kv(ve, vch, policy.scheme, policy.backend)
+    kf = (kq.to(torch.float32) * ksc[..., None, None]).to(x.dtype)[:, :s]
+    vf = (vq.to(torch.float32) * vsc[..., None, None]).to(x.dtype)[:, :s]
+    rep = h // kv
+    qh = q.transpose(1, 2)                                   # (B, H, S, hd)
+    kh = kf.repeat_interleave(rep, dim=2).transpose(1, 2)
+    vh = vf.repeat_interleave(rep, dim=2).transpose(1, 2)
+    if policy.backend == "cuda":
+        from repro_torch.kernels import flash_attention
+        o = flash_attention.flash_attention(qh, kh, vh)
+    else:
+        o = L.chunked_causal_attention(qh, kh, vh, chunk=chunk)
+    live = (torch.arange(ke.shape[1], device=x.device) < s).to(
+        torch.int32)[None, :]
+    flags = torch.stack([((kcor + vcor) * live).sum(dtype=torch.int32),
+                         ((kdue + vdue) * live).sum(dtype=torch.int32)])
+    o = o.transpose(1, 2).reshape(b, s, h * hd)
     return L._proj(o, p["wo"]), lc, flags
 
 

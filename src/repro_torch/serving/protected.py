@@ -1,13 +1,14 @@
-"""Protected serving: the decode-at-use serve step.
+"""Protected serving: the decode-at-use serve step and prefill.
 
 Counterpart of ``repro.serving.protected`` in its decode-at-use mode with
 flags. Weights stay resident as ``ProtectedTensor`` leaves; every
 projection decodes its weight at the point of use — through the fused
 decode+matmul kernel on the ``cuda`` route, or inline per leaf on the
-``torch`` route — so no decoded copy of the tree is kept. The step returns
-logits and the (corrected, DUE) counts each layer's decodes observed.
-The whole-tree decode ablations, prefill, activation quantization, ABFT and
-calibration are not ported yet.
+``torch`` route — so no decoded copy of the tree is kept. The serve step
+returns logits and the (corrected, DUE) counts each layer's decodes
+observed; the prefill fills a paged protected KV cache from a prompt. The
+whole-tree decode ablations, the cache-less prefill (``lm.forward``),
+activation quantization, ABFT and calibration are not ported yet.
 """
 from __future__ import annotations
 
@@ -109,8 +110,22 @@ def _use_tree(enc_params, router: _Router, dtype, recorder: L.FlagRecorder):
     return out
 
 
+def _kv_policy(kv_policy, attention_impl, backend):
+    """Resolve the KV policy, apply the ``attention_impl`` override and set
+    the codec route to the step's ``backend``."""
+    kvp = kvcache.get_kv_policy(kv_policy)
+    if attention_impl is not None:
+        if kvp is None:
+            raise ValueError("attention_impl override needs a kv_policy")
+        kvp = dataclasses.replace(kvp, attention_impl=attention_impl)
+    if kvp is not None:
+        kvp = dataclasses.replace(kvp, backend=backend)
+    return kvp
+
+
 def make_serve_step(cfg: ArchConfig, *, plan=None, dtype=torch.bfloat16,
-                    backend="torch", kv_policy=None):
+                    backend="torch", kv_policy=None,
+                    attention_impl=None):
     """``serve_step(enc_params, cache, tokens, pos) -> (logits, cache,
     flags)``.
 
@@ -120,10 +135,11 @@ def make_serve_step(cfg: ArchConfig, *, plan=None, dtype=torch.bfloat16,
     cache's encode and decode: it replaces the KV policy's own. flags: ``"top"`` (2,) for the embedding and the
     head, ``"layers"`` (L, 2) per-layer (corrected, DUE) counts, and with a
     paged protected KV cache (``kv_policy``) ``"layers_kv"`` (L, 2).
+    ``attention_impl`` ("strip" | "chunked") overrides the resolved KV
+    policy's attention routing — the switch onto the page-chunked kernel
+    for long contexts.
     """
-    kvp = kvcache.get_kv_policy(kv_policy)
-    if kvp is not None:
-        kvp = dataclasses.replace(kvp, backend=backend)
+    kvp = _kv_policy(kv_policy, attention_impl, backend)
     router = _Router(plan, backend)
 
     def serve_step(enc_params, cache, tokens, pos):
@@ -139,3 +155,51 @@ def make_serve_step(cfg: ArchConfig, *, plan=None, dtype=torch.bfloat16,
 
     return serve_step
 
+
+def make_prefill(cfg: ArchConfig, *, plan=None, dtype=torch.bfloat16,
+                 chunk: int = 2048, backend="torch",
+                 decode_at_use: bool = True, with_flags: bool = False,
+                 act_quant=None, kv_policy=None, attention_impl=None):
+    """``prefill(enc_params, cache, tokens) -> (logits, cache)`` (``+
+    flags`` with ``with_flags=True``).
+
+    Decode at use, routed as in :func:`make_serve_step`: it fills the paged
+    protected KV cache through ``lm.prefill_with_cache`` so decode steps
+    continue from it. flags: ``"top"``, ``"layers"`` and ``"layers_kv"``
+    rows as the serve step returns them. ``backend`` routes the KV codec
+    and the attention (the flash kernel on "cuda"); ``chunk`` is the
+    plain route's attention chunk. The whole-tree decode ablation
+    (``decode_at_use=False``), ``act_quant`` and the cache-less form
+    (no ``kv_policy``, ``lm.forward``) raise ``NotImplementedError``.
+    """
+    if not decode_at_use:
+        raise NotImplementedError("the whole-tree decode prefill ablation "
+                                  "(decode_at_use=False) is not ported yet: "
+                                  "it comes with the whole-tree decode "
+                                  "ablations of the serve step")
+    if act_quant is not None:
+        raise NotImplementedError("act_quant (int8 activations) is not "
+                                  "ported yet: it comes with the ABFT and "
+                                  "int8 paths of ecc_qmatmul")
+    kvp = _kv_policy(kv_policy, attention_impl, backend)
+    if kvp is None:
+        raise NotImplementedError("the cache-less prefill (lm.forward) is "
+                                  "not ported yet: it comes with the "
+                                  "lm.forward/gqa_attention slice; pass a "
+                                  "kv_policy")
+    router = _Router(plan, backend)
+
+    def prefill(enc_params, cache, tokens):
+        recorder = L.FlagRecorder(tokens.device)
+        params = _use_tree(enc_params, router, dtype, recorder)
+        top = recorder.drain()
+        logits, cache, flags = lm.prefill_with_cache(
+            cfg, params, cache, tokens, dtype=dtype, chunk=chunk,
+            layer_transform=_layer_transform(router, dtype, recorder),
+            recorder=recorder, kv_policy=kvp)
+        if not with_flags:
+            return logits, cache
+        top = top + recorder.drain()  # the output head decodes last
+        return logits, cache, {"top": top, **flags}
+
+    return prefill

@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.core import ecc
 from repro_torch.kernels import (build, ecc_decode, ecc_encode, ecc_qmatmul,
-                                 paged_attention)
+                                 flash_attention, paged_attention)
 from repro_torch.protection.policy import ProtectionPolicy
 from repro_torch.serving import kvcache
 
@@ -93,4 +93,54 @@ def test_gpu_page_attention_kernel_matches_plain(cuda, dtype):
     assert kf.tolist() == pf.tolist() and kf.tolist() != [0, 0]
     # same op order; f32 sums in another order (bf16: one rounding apart)
     tol = 1e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(ko.float(), po.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scheme", ["faulty", "in-place"])
+# 100 tokens in chunks of 32: the last chunk is ragged; 16 covers all pos
+@pytest.mark.parametrize("s,chunk", [(100, 32), (48, 16), (40, 256)])
+def test_gpu_chunked_attention_kernel_matches_plain(cuda, dtype, scheme, s,
+                                                    chunk):
+    gen = torch.Generator(device=cuda).manual_seed(s + chunk)
+    b, h, kv, hd = 3, 4, 2, 16
+    pol = kvcache.KVProtectionPolicy(scheme=scheme)
+    ke, _, ksc = kvcache._encode_kv(
+        torch.randn((b, s, kv, hd), generator=gen, device=cuda), pol)
+    ve, _, vsc = kvcache._encode_kv(
+        torch.randn((b, s, kv, hd), generator=gen, device=cuda), pol)
+    _flip(ke.view(-1, 8), 7, gen)
+    _flip(ve.view(-1, 8), 11, gen)
+    q = torch.randn((b, h, 1, hd), generator=gen, device=cuda).to(dtype)
+    args = (q, ke, None, ksc, ve, None, vsc,
+            torch.tensor([s - 1, s // 2, 0], device=cuda))
+    before = build.COUNTS["chunked_page_attention"]
+    ko, kf = paged_attention.chunked_page_attention(
+        *args, scheme=scheme, chunk_tokens=chunk)
+    assert build.COUNTS["chunked_page_attention"] == before + 1
+    po, pf = paged_attention.chunked_page_attention_plain(
+        *args, scheme=scheme, chunk_tokens=chunk)
+    assert kf.tolist() == pf.tolist()
+    assert (kf.tolist() != [0, 0]) == (scheme == "in-place")
+    # all f32 in the same op order, summed in another order; bf16 output
+    # rounds once, so at most one bf16 ulp apart
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(ko.float(), po.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# 128: whole tiles; 100 and 1: a ragged S
+@pytest.mark.parametrize("s,d", [(128, 16), (100, 64), (1, 128), (200, 128),
+                                 (70, 32)])
+def test_gpu_flash_attention_kernel_matches_plain(cuda, dtype, s, d):
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k, v = (torch.randn((2, 3, s, d), generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    before = build.COUNTS["flash_attention"]
+    ko = flash_attention.flash_attention(q, k, v)
+    assert build.COUNTS["flash_attention"] == before + 1
+    po = flash_attention.flash_attention_plain(q, k, v)
+    # same op order, f32 sums in another order; bf16 probabilities can
+    # round across a boundary, and the output rounds once
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(ko.float(), po.float(), rtol=tol, atol=tol)

@@ -98,11 +98,12 @@ def test_paged_attention_faulty_scheme_and_budget():
 
 @pytest.mark.parametrize("name", sorted(kvcache.KV_POLICY_PRESETS))
 def test_kv_presets_equal_the_reference(name):
-    """Same scheme, attention path and page size as the reference preset,
-    and the counterpart of its codec route."""
+    """Same scheme, attention path, chunking and page size as the reference
+    preset, and the counterpart of its codec route."""
     mine, ref = kvcache.get_kv_policy(name), jkv.get_kv_policy(name)
-    assert (mine.scheme, mine.fused, mine.page_size) == \
-        (ref.scheme, ref.fused, ref.page_size)
+    assert (mine.scheme, mine.fused, mine.page_size, mine.attention_impl,
+            mine.chunk_pages) == (ref.scheme, ref.fused, ref.page_size,
+                                  ref.attention_impl, ref.chunk_pages)
     assert mine.backend == {"xla": "torch", "pallas": "cuda"}[ref.backend]
 
 

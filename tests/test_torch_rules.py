@@ -12,7 +12,7 @@ import torch
 from repro import configs as jconfigs
 from repro_torch import configs, device
 from repro_torch.kernels import (ecc_decode, ecc_encode, ecc_qmatmul,
-                                 paged_attention)
+                                 flash_attention, paged_attention)
 from repro_torch.launch import serve
 from repro_torch.models import lm
 from repro_torch.serving import kvcache
@@ -92,4 +92,12 @@ def test_wrappers_take_the_plain_route_for_cpu_tensors(monkeypatch):
     po, pf = paged_attention.fused_page_attention_plain(q, ke, None, sc, ke,
                                                         None, sc, pos)
     assert torch.equal(o, po) and torch.equal(f, pf)
+    o, f = paged_attention.chunked_page_attention(q, ke, None, sc, ke, None,
+                                                  sc, pos, chunk_tokens=8)
+    po, pf = paged_attention.chunked_page_attention_plain(
+        q, ke, None, sc, ke, None, sc, pos, chunk_tokens=8)
+    assert torch.equal(o, po) and torch.equal(f, pf)
+    x = torch.randn(1, 2, 20, 8, generator=g)
+    assert torch.equal(flash_attention.flash_attention(x, x, x),
+                       flash_attention.flash_attention_plain(x, x, x))
     assert build.COUNTS == before
