@@ -23,7 +23,17 @@ d_model 4096, vocab 102400) at batch 4:
   then 16 steps decode through the chunked kernel at a 2,064-token
   context, clean and with correctable weight faults only (prefill logits,
   decode logits and tokens must equal the clean run's bit for bit, and
-  each flipped block is counted once per call: 17 times).
+  each flipped block is counted once per call: 17 times);
+* the training path (QAT with WOT throttling, then deploy and serve):
+  ``repro_torch.launch.train.train`` runs QATT steps of full-width
+  deepseek-7b cut to 8 layers (batch 8 x 2,048 tokens in 8 microbatches,
+  the throttle through the ``quantize_throttle`` kernel); the last update
+  runs unthrottled and its masters are throttled on both routes (masters,
+  q and scales bit-equal, the WOT constraint on every leaf); the trained
+  masters are deployed (quantize-throttle and in-place encode) on both
+  routes, byte-equal, and served 8 greedy steps at batch 4 under
+  ``in-place-fused``, clean and with correctable weight faults only
+  (bit-equal logits and tokens).
 
 Launch counts are set to 0 just before each path and read just after.
 Every phase raises on failure and the script exits nonzero; it prints no
@@ -35,8 +45,9 @@ Times are CUDA-event medians over repeats with the 50 MB L2 cache flushed
 before each repeat and the card kept busy while the host enqueues. Kernel
 entries report the work one call of the serve path gives the kernel: one
 decode step (ecc_decode, ecc_qmatmul, the two decode attentions), one
-deploy (ecc_encode: every protected leaf once) or one prefill
-(flash_attention): the sum over the launches of that call. ``bound_ms`` is
+deploy (ecc_encode: every protected leaf once), one prefill (flash_attention)
+or one train step (quantize_throttle: every protected leaf of the 8-layer
+model once): the sum over the launches of that call. ``bound_ms`` is
 max(bytes / 3.35 TB/s, ops / peak) with each input read once and each
 output written once (H100 SXM data-sheet rates: HBM 3.35 TB/s, dense bf16
 989 TFLOP/s).
@@ -79,6 +90,10 @@ ORACLE_RTOL = 0.02
 # probability across a bf16 rounding boundary before PV (one ulp, 2^-8 p)
 # and the output rounds once (one ulp of |o|).
 FLASH_RTOL, FLASH_ATOL = 2.0 ** -6, 2e-3
+# The training phase keeps every width and cuts deepseek-7b to 8 layers:
+# at 30 layers the f32 masters, the momentum and one gradient set alone
+# take 82.9 GB (12 B per parameter), more than the card's 80 GB.
+TRAIN_LAYERS = 8
 
 
 def fail(msg: str):
@@ -97,6 +112,7 @@ def main():
         raise SystemExit(2)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build  # noqa: E402
+    from repro_torch.configs import get as get_config  # noqa: E402
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -131,16 +147,29 @@ def main():
     t0 = time.time()
     phase_profile(torch)
     log(f"phase 6 (profiles) took {time.time() - t0:.0f}s")
-    counts = {k: decode_counts[k] + long_counts[k] for k in build.COUNTS}
+    t0 = time.time()
+    train_cfg = get_config("deepseek-7b").with_(n_layers=TRAIN_LAYERS)
+    train_counts, trained = phase_train(torch, dev, build, train_cfg)
+    log(f"phase 7 (training, deploy, serve) took {time.time() - t0:.0f}s")
+    t0 = time.time()
+    phase_train_profile(torch, dev, train_cfg, trained)
+    del trained
+    log(f"phase 7 profile took {time.time() - t0:.0f}s")
+    counts = {k: decode_counts[k] + long_counts[k] + train_counts[k]
+              for k in build.COUNTS}
     if sorted(entries) != sorted(counts):
         fail(f"kernels checked {sorted(entries)} != kernels counted "
              f"{sorted(counts)}")
     for path, cnt, needed in (
             ("decode", decode_counts, ("ecc_decode", "ecc_encode",
-                                       "ecc_qmatmul", "fused_page_attention")),
+                                       "ecc_qmatmul", "fused_page_attention",
+                                       "throttle")),
             ("long-context", long_counts,
              ("ecc_decode", "ecc_encode", "ecc_qmatmul", "flash_attention",
-              "chunked_page_attention"))):
+              "chunked_page_attention", "throttle")),
+            ("training", train_counts,
+             ("quantize_throttle", "throttle", "ecc_encode", "ecc_decode",
+              "ecc_qmatmul", "fused_page_attention"))):
         missing = [k for k in needed if cnt[k] <= 0]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
@@ -414,6 +443,8 @@ def phase_kernels(torch, dev):
     del args, ke, ve, kd_, vd_
     out["chunked_page_attention"] = check_chunked(torch, dev, cfg, timer, gen)
     out["flash_attention"] = check_flash(torch, dev, cfg, timer, gen)
+    out["quantize_throttle"] = check_quant_throttle(torch, dev, timer, gen)
+    out["throttle"] = check_throttle(torch, dev, timer, gen)
     return out
 
 
@@ -542,6 +573,134 @@ def check_flash(torch, dev, cfg, timer, gen):
     entry["max_abs_err"] = err
     log(f"flash_attention (per prefill, 30 launches of (4, 32, 2048, 128)): "
         f"{entry}")
+    return entry
+
+
+def _tie_blocks(torch, dev, nblk, gen):
+    """f32 (nblk, 8) blocks whose quantization lands on exact rounding
+    ties: absmax 127 * 2^-7 makes the scale 2^-7, so w / scale = k + 0.5
+    exactly; positions 0..3 hold 63.5, -64.5, -63.5 (around the WOT
+    bounds) and -0.0."""
+    k = torch.randint(-127, 127, (nblk, 8), generator=gen, device=dev).float()
+    k += 0.5
+    k[:, 0], k[:, 1], k[:, 2], k[:, 3] = 63.5, -64.5, -63.5, -0.0
+    k[0, 4] = 127.0
+    return k * 2.0 ** -7
+
+
+def train_leaf_shapes(cfg):
+    """Shapes of the protected leaves of ``cfg``'s parameter tree (the
+    leaves the QATT throttle and the deploy encode visit)."""
+    from repro_torch import tree
+    from repro_torch.core import wot
+    from repro_torch.models import lm
+    return [s.shape for path, s in tree.leaves_with_path(lm.param_shapes(cfg))
+            if wot.is_protected_weight(path, s)]
+
+
+def check_quant_throttle(torch, dev, timer, gen):
+    """quantize_throttle against its plain version, byte-equal q and
+    bit-equal scale: at the embedding leaf (52,428,800 blocks), a ragged
+    size, exact rounding ties and an all-zero leaf (the eps clamp). Timed
+    summed over the protected leaves one throttled train step of the
+    training phase visits (the 8-layer full-width model); one call is two
+    launches (absmax pass, quantize pass)."""
+    from repro_torch.configs import get
+    from repro_torch.core import wot
+    from repro_torch.kernels import quant_throttle as qt
+    cfg = get("deepseek-7b")
+    emb = cfg.vocab_padded * cfg.d_model // 8
+    cases = (("embedding", lambda: 0.02 * torch.randn(
+                 (emb, 8), generator=gen, device=dev)),
+             ("ragged", lambda: torch.randn((1_000_003, 8), generator=gen,
+                                            device=dev)),
+             ("ties", lambda: _tie_blocks(torch, dev, 1_000_000, gen)),
+             ("zeros", lambda: torch.zeros((4096, 8), device=dev)))
+    for name, make in cases:
+        w = make()
+        kq, ks = qt.quantize_throttle(w)
+        pq, ps = qt.quantize_throttle_plain(w)
+        if not torch.equal(kq, pq) or \
+                ks.view(torch.int32).item() != ps.view(torch.int32).item():
+            fail(f"quantize_throttle differs from its plain version on the "
+                 f"{name} input ({w.shape[0]} blocks): "
+                 f"{int((kq != pq).sum())} q bytes, scale {ks.item()!r} vs "
+                 f"{ps.item()!r}")
+        if int(wot.count_large_in_protected(kq.reshape(-1))):
+            fail(f"quantize_throttle output breaks the WOT constraint "
+                 f"({name})")
+        if name == "embedding":
+            bb, _ = bound_ms(9 * w.numel())
+            km = timer.ms(lambda: qt.quantize_throttle(w))
+            pm = timer.ms(lambda: qt.quantize_throttle_plain(w))
+            lm_ = timer.ms(lambda: torch.linalg.vector_norm(w, float("inf")))
+            log(f"quantize_throttle embedding leaf {tuple(w.shape)}: kernel "
+                f"{km:.4f} ms, plain {pm:.4f} ms, vector_norm(inf) {lm_:.4f} "
+                f"ms, bound {bb:.4f} ms")
+        del w, kq, pq
+    log("quantize_throttle: q byte-equal and scale bit-equal to the plain "
+        "version on the embedding, ragged, ties and all-zero inputs")
+    leaves = train_leaf_shapes(cfg.with_(n_layers=TRAIN_LAYERS))
+    nmax = max(math.prod(s) for s in leaves)
+    raw = 0.02 * torch.randn((nmax // 8, 8), generator=gen, device=dev)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0}
+    for s in leaves:
+        w = raw[: math.prod(s) // 8]
+        tot["ms"] += timer.ms(lambda: qt.quantize_throttle(w))
+        tot["plain_ms"] += timer.ms(lambda: qt.quantize_throttle_plain(w))
+        tot["library_ms"] += timer.ms(
+            lambda: torch.linalg.vector_norm(w, float("inf")))
+        tot["bytes"] += 9 * w.numel()
+    del raw
+    bb, by = bound_ms(tot["bytes"])
+    entry = dict(source="src/repro_torch/csrc/quant_throttle.cu",
+                 replaces="src/repro/kernels/quant_throttle.py:65",
+                 max_abs_err=0.0, ms=tot["ms"], plain_ms=tot["plain_ms"],
+                 bound_ms=bb, bound_by=by, library_ms=tot["library_ms"])
+    log(f"quantize_throttle (per train step: {len(leaves)} protected leaves "
+        f"of the {TRAIN_LAYERS}-layer model, one call = two launches each; "
+        f"library = vector_norm(inf), pass 1 only): {entry}")
+    return entry
+
+
+def check_throttle(torch, dev, timer, gen):
+    """throttle against its plain version (byte-equal) at the decode KV
+    write (4 x 32 x 128 values = 2,048 blocks) and the prefill's (4 x
+    2,048 x 32 x 128), and at ragged sizes, with the int8 extremes at
+    every position. Timed per decode step of the slice-1 path: K and V of
+    each of the 30 layers, 60 launches. Library: one ``torch.clamp`` with
+    (8,) bound tensors."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import throttle as thr
+    cfg = get("deepseek-7b")
+    tok = 4 * cfg.n_kv_heads * cfg.head_dim // 8
+    lo = torch.tensor([-64] * 7 + [-128], dtype=torch.int8, device=dev)
+    hi = torch.tensor([63] * 7 + [127], dtype=torch.int8, device=dev)
+    entry = None
+    for nblk in (tok, 2048 * tok, tok - 1, 2048 * tok + 1):
+        q = torch.randint(-128, 128, (nblk, 8), generator=gen, device=dev,
+                          dtype=torch.int8)
+        q[0] = torch.tensor([-128, 127, -65, 64, -64, 63, 0, -128])
+        kq, pq = thr.throttle(q), thr.throttle_plain(q)
+        if not torch.equal(kq, pq) or not torch.equal(
+                kq, torch.clamp(q, min=lo, max=hi)):
+            fail(f"throttle differs from its plain version at {nblk} blocks")
+        if nblk in (tok, 2048 * tok):
+            km = timer.ms(lambda: thr.throttle(q))
+            pm = timer.ms(lambda: thr.throttle_plain(q))
+            lm_ = timer.ms(lambda: torch.clamp(q, min=lo, max=hi))
+            bb, by = bound_ms(2 * q.numel())
+            what = "decode KV write" if nblk == tok else "prefill KV write"
+            log(f"throttle {what} ({nblk} blocks): kernel {km:.5f} ms, plain "
+                f"{pm:.5f} ms, clamp {lm_:.5f} ms, bound {bb:.6f} ms")
+            if entry is None:
+                n = 2 * cfg.n_layers
+                entry = dict(source="src/repro_torch/csrc/throttle.cu",
+                             replaces="src/repro/kernels/throttle.py:35",
+                             max_abs_err=0.0, ms=n * km, plain_ms=n * pm,
+                             bound_ms=n * bb, bound_by=by, library_ms=n * lm_)
+        del q, kq, pq
+    log(f"throttle (per decode step, 60 launches of {tok} blocks): {entry}")
     return entry
 
 
@@ -801,13 +960,16 @@ def phase_long(torch, dev, build):
 # ---------------------------------------------------------------------------
 
 
-def _profile_table(torch, prof, wall_ms, what, fname, rows=18):
+def _profile_table(torch, prof, wall_ms, what, fname, rows=18, ranges=()):
     """Log the device-busy share of a profiled window and print its top
     ops; -> the device-side (kernel) events. An operator row's self device
-    time repeats its kernels' rows, so only kernel rows are summed."""
+    time repeats its kernels' rows, so only kernel rows are summed; so
+    does the device-side row of a ``record_function`` range (its name in
+    ``ranges``), which is left out."""
     avg = prof.key_averages()
     kernels = [e for e in avg
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA and
+               e.key not in ranges]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"profile, {what}: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms "
         f"wall ({100 * busy_ms / wall_ms:.1f}%), "
@@ -900,6 +1062,215 @@ def phase_profile(torch):
         split[key] += t
     log("profile split (device ms over the window): " + ", ".join(
         f"{k} {v:.2f}" for k, v in split.items()))
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the training path — QATT steps, throttle, deploy, serve
+# ---------------------------------------------------------------------------
+
+
+def event_ms(torch, fn):
+    """CUDA-event time of one call of ``fn`` (work of tens of ms and more,
+    where the host's enqueue is hidden)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b), out
+
+
+def phase_train(torch, dev, build, cfg, *, batch=8, seq=2048, steps=4,
+                serve_tokens=8, rate=1e-6):
+    """QAT training with WOT throttling of ``cfg`` through the port's
+    ``launch.train.train`` on the kernel route, then deploy and serve.
+
+    ``steps - 1`` throttled steps (the first a warm-up), then a last
+    update with ``wot_throttle=False`` whose masters are throttled through
+    both routes: masters, int8 q and scales must be bit-equal, and every
+    leaf's q must meet the WOT constraint. The trained masters are deployed
+    (quantize-throttle + in-place encode) on both routes, byte-equal, and
+    ``serve_tokens`` greedy steps at batch 4 under ``in-place-fused`` are
+    served from the deployed weights clean and with correctable weight
+    faults only: bit-equal logits and tokens, each flipped block counted
+    once per step. -> (launch counts over the path, the trained params)."""
+    from repro_torch import tree
+    from repro_torch.core import wot
+    from repro_torch.data import synthetic
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import train
+    from repro_torch.protection.policy import ProtectionPolicy
+    from repro_torch.training import train as train_mod
+
+    lr, tok_per_step = 1e-4, batch * seq
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counts()
+    out = train(cfg, steps=steps - 1, batch=batch, seq=seq, lr=lr, seed=0,
+                chunk=2048, backend="cuda", device=dev, log=log)
+    params, opt = out["params"], out["opt_state"]
+    losses, step_ms = list(out["losses"]), list(out["step_ms"])
+    # the last step: the update without the throttle, then both routes
+    b = synthetic.token_batch(cfg.vocab_padded, batch, seq, seed=0,
+                              step=steps - 1)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    step = train_mod.make_train_step(cfg, lr=lr, wot_throttle=False,
+                                     chunk=2048, backend="cuda")
+    torch.cuda.synchronize()
+    upd_ms, (params, opt, loss) = event_ms(torch,
+                                           lambda: step(params, opt, b))
+    losses.append(float(loss))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = n_w = 0
+    thr_ms = {"cuda": 0.0, "torch": 0.0}
+    with torch.no_grad():
+        for path, w in tree.leaves_with_path(params):
+            if not wot.is_protected_weight(path, w):
+                continue
+            res = {}
+            for route in ("cuda", "torch"):   # w itself is not modified
+                ms, res[route] = event_ms(torch, lambda: wot.throttle_tensor(
+                    w, backend=route, with_q=True))
+                thr_ms[route] += ms
+            (kw, kq, ks), (pw, pq, ps) = res["cuda"], res["torch"]
+            name = tree.path_str(path)
+            same_scale = torch.equal(ks.view(torch.int32),
+                                     ps.view(torch.int32))
+            if not (torch.equal(kw.view(torch.int32), pw.view(torch.int32))
+                    and torch.equal(kq, pq) and same_scale):
+                fail(f"throttle of {name}: the kernel route differs from the "
+                     f"plain route")
+            if int(wot.count_large_in_protected(kq.reshape(-1))):
+                fail(f"{name}: throttled q breaks the WOT constraint")
+            moved += int((kw != w).sum())
+            n_w += w.numel()
+            w.copy_(kw)
+            del res, kw, kq, pw, pq
+    step_ms.append(upd_ms + thr_ms["cuda"])
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"training losses not finite: {losses}")
+    med = statistics.median(step_ms[1:])
+    log(f"training {cfg.name} x {cfg.n_layers} layers, batch {batch} x "
+        f"{seq}: losses {losses}; ms/step {[round(x, 2) for x in step_ms]} "
+        f"(the last: update {upd_ms:.2f} + kernel-route throttle "
+        f"{thr_ms['cuda']:.2f}); median of steps 2..{steps} {med:.2f} "
+        f"ms/step, {tok_per_step / med * 1e3:.1f} tokens/s; peak device "
+        f"memory {peak_gb:.2f} GB")
+    log(f"last step's throttle: masters, q and scales bit-equal on both "
+        f"routes; {moved} of {n_w} weights moved; WOT constraint holds on "
+        f"every protected leaf; kernel route {thr_ms['cuda']:.2f} ms, plain "
+        f"route {thr_ms['torch']:.2f} ms")
+    del opt, step, b
+    torch.cuda.empty_cache()
+
+    enc = {}
+    for route in ("cuda", "torch"):
+        enc[route] = ProtectionPolicy("in-place",
+                                      backend=route).encode_tree(params)
+    n_leaves = 0
+    for path, pt in tree.leaves_with_path(enc["cuda"]):
+        other = tree.get_path(enc["torch"], path)
+        if not hasattr(pt, "enc"):
+            continue
+        n_leaves += 1
+        if not (torch.equal(pt.enc, other.enc) and torch.equal(
+                pt.scale.view(torch.int32), other.scale.view(torch.int32))):
+            fail(f"deploy of {tree.path_str(path)}: encoded image or scale "
+                 f"differs between the routes")
+    del enc["torch"]
+    log(f"deploy: {n_leaves} encoded images and scales byte-equal on both "
+        f"routes")
+
+    kw = dict(backend="cuda", kv_policy="in-place-fused", batch=4,
+              tokens=serve_tokens, device=dev, weights=enc["cuda"], log=log)
+    clean = serve(cfg, **kw)
+    fixed = serve(cfg, fault_rate=rate, correctable_only=True, **kw)
+    counts = dict(build.COUNTS)
+    lg = clean["logits"]
+    if lg.shape != (serve_tokens, 4, cfg.vocab_padded) or \
+            not bool(torch.isfinite(lg.float()).all()):
+        fail(f"served logits: shape {tuple(lg.shape)} or non-finite values")
+    if clean["flags"] != {"corrected": 0, "due": 0, "kv_corrected": 0,
+                          "kv_due": 0}:
+        fail(f"clean serve of the trained weights reported faults: "
+             f"{clean['flags']}")
+    n_single = 0
+    for name, pos in fixed["weight_positions"].items():
+        _, c = torch.unique(pos // 64, return_counts=True)
+        if c.numel() and int(c.max()) > 1:
+            fail(f"{name}: a weight block took more than one flip")
+        n_single += int(c.numel())
+    ff = fixed["flags"]
+    if n_single == 0 or ff["corrected"] != serve_tokens * n_single or \
+            ff["due"] or ff["kv_due"]:
+        fail(f"trained-weight serve accounting {ff} != {serve_tokens} x "
+             f"{n_single} corrected blocks and no DUE")
+    if not (torch.equal(fixed["logits"], clean["logits"])
+            and torch.equal(fixed["tokens"], clean["tokens"])):
+        fail("every flip was correctable, yet the served logits differ from "
+             "the clean run")
+    log(f"served the trained weights: {serve_tokens} steps x batch 4, clean "
+        f"and correctable-only ({n_single} flipped blocks, {ff}) bit-equal; "
+        f"{statistics.median(clean['step_ms']):.2f} ms/step clean")
+    log(f"launch counts over the training path: {counts}")
+    with open(OUT_DIR / "chip_smoke_train.json", "w") as fh:
+        json.dump({"config": f"{cfg.name} n_layers={cfg.n_layers}",
+                   "batch": batch, "seq": seq, "losses": losses,
+                   "step_ms": step_ms, "median_ms": med,
+                   "tokens_per_s": tok_per_step / med * 1e3,
+                   "peak_gb": peak_gb, "throttle_ms": thr_ms,
+                   "moved": moved, "serve_step_ms": clean["step_ms"],
+                   "serve_flags": ff}, fh, indent=1)
+    del enc, clean, fixed
+    return counts, params
+
+
+def phase_train_profile(torch, dev, cfg, params, *, batch=8, seq=2048):
+    """One more throttled train step under ``torch.profiler``, from the
+    trained masters: device time split into projections (``aten::mm``),
+    attention matmuls (``aten::bmm``), the optimizer and the throttle (the
+    step's ``sgd_momentum`` and ``wot_throttle`` ranges), and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import synthetic
+    from repro_torch.training import optim
+    from repro_torch.training import train as train_mod
+    opt = optim.sgd_init(params)
+    step = train_mod.make_train_step(cfg, chunk=2048, backend="cuda")
+    b = synthetic.token_batch(cfg.vocab_padded, batch, seq, seed=0, step=9)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.time()
+        step(params, opt, b)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+    ranges = ("sgd_momentum", "wot_throttle")
+    kernels = _profile_table(torch, prof, wall_ms, "one full train step",
+                             "chip_smoke_train_profile.txt", ranges=ranges)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    split = {"projections (aten::mm)": 0.0,
+             "attention matmuls (aten::bmm)": 0.0,
+             "optimizer (sgd_momentum)": 0.0,
+             "throttle (wot_throttle)": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        if e.name in ("aten::mm", "aten::addmm"):
+            split["projections (aten::mm)"] += e.self_device_time_total / 1e3
+        elif e.name == "aten::bmm":
+            split["attention matmuls (aten::bmm)"] += \
+                e.self_device_time_total / 1e3
+        elif e.name in ranges:
+            key = next(k for k in split if e.name in k)
+            split[key] += e.device_time_total / 1e3
+    split["the rest (attention softmax, fake-quant, embedding, loss, glue)"] \
+        = busy - sum(split.values())
+    log("train-step profile split (device ms of "
+        f"{busy:.2f} busy): " + ", ".join(f"{k} {v:.2f}"
+                                          for k, v in split.items()))
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@ the same arrays. This module turns such arrays into the port's objects:
   reference's ``lm.init_params`` through ``np.asarray``) into tensors;
 * :func:`protected_from_numpy` — an encoded tree whose protected leaves are
   exported as dicts ``{"enc", "checks", "scale", "scheme_id",
-  "orig_shape"}`` into the port's ``ProtectedTensor`` leaves.
+  "orig_shape"}`` into the port's ``ProtectedTensor`` leaves;
+* :func:`sgd_state_from_numpy` — the SGD momentum tree into an
+  ``optim.SgdState``, so both packages can start training from the same
+  ``(params, opt_state)``.
 """
 from __future__ import annotations
 
@@ -48,3 +51,9 @@ def protected_from_numpy(tree, *, device=None):
     if isinstance(tree, dict):
         return {k: protected_from_numpy(v, device=dev) for k, v in tree.items()}
     return _tensor(tree, dev)
+
+
+def sgd_state_from_numpy(momentum, *, device=None):
+    """Nested dict of momentum arrays -> ``optim.SgdState`` on ``device``."""
+    from repro_torch.training.optim import SgdState
+    return SgdState(params_from_numpy(momentum, device=device))

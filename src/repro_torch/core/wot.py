@@ -1,13 +1,22 @@
 """WOT — Weight-distribution-Oriented Training constraint (paper §4.1).
 
-Counterpart of ``repro.core.wot`` (``throttle_q`` and
-``is_protected_weight``): in every 8-value block of a flattened quantized
-weight, the first seven values must lie in [-64, 63]; only the eighth may
-be large. That frees bit 6 of bytes 0..6 for the in-place check bits.
+Counterpart of ``repro.core.wot``: in every 8-value block of a flattened
+quantized weight, the first seven values must lie in [-64, 63]; only the
+eighth may be large. That frees bit 6 of bytes 0..6 for the in-place check
+bits. The QATT step (:func:`throttle_tensor`, :func:`throttle_tree`)
+quantizes the f32 masters, clamps, and writes the clamped values back into
+the masters; its quantize-and-clamp runs on the route ``backend`` picks
+(``"cuda"``: the ``quantize_throttle`` kernel).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+from repro_torch import tree
+
+from . import quant
 
 WOT_LO = -64
 WOT_HI = 63
@@ -23,6 +32,32 @@ def throttle_q(q_flat: torch.Tensor) -> torch.Tensor:
     blocks = out.view(-1, BLOCK)
     blocks[:, : BLOCK - 1].clamp_(WOT_LO, WOT_HI)
     return out[:n] if pad else out
+
+
+def as_blocks(w: torch.Tensor) -> torch.Tensor:
+    """Flatten and zero-pad to whole blocks -> (nblk, 8)."""
+    flat = w.reshape(-1)
+    pad = (-flat.shape[0]) % BLOCK
+    return (F.pad(flat, (0, pad)) if pad else flat).view(-1, BLOCK)
+
+
+def throttle_tensor(w: torch.Tensor, *, backend="torch", with_q=False):
+    """QATT throttling step on an f32 weight tensor: quantize, clamp
+    positions 0..6 of every block, and write the weights the clamp moved
+    back into the masters as ``q * scale`` (the others keep their f32
+    value), as the reference does.
+
+    The zero padding of a ragged tail changes neither the scale nor any
+    real value's ``q``. With ``with_q`` returns ``(w', q int8 (w.shape),
+    scale f32 ())``, else ``w'``.
+    """
+    from repro_torch.protection.backends import get_backend
+    n = w.numel()
+    qt, scale = get_backend(backend).quantize_throttle(as_blocks(w))
+    qt = qt.reshape(-1)[:n].reshape(w.shape)
+    q = (w / scale).round_().clamp_(-quant.QMAX, quant.QMAX)
+    out = torch.where(q == qt, w, qt.to(w.dtype) * scale)
+    return (out, qt, scale) if with_q else out
 
 
 _EXCLUDED_NAMES = {"b", "bq", "bk", "bv", "dt_bias", "A_log", "D", "a_param",
@@ -46,3 +81,48 @@ def is_protected_weight(path, leaf) -> bool:
         return False
     return not any(part in comp for comp in names
                    for part in _EXCLUDED_PATH_PARTS)
+
+
+def throttle_tree(params, predicate=None, *, backend="torch"):
+    """:func:`throttle_tensor` on every protected weight of a nested dict
+    (``predicate(path, leaf)``, default :func:`is_protected_weight`); other
+    leaves pass through. Returns a new tree."""
+    pred = predicate or is_protected_weight
+    return tree.map_with_path(
+        lambda path, w: throttle_tensor(w, backend=backend)
+        if pred(path, w) else w, params)
+
+
+# --------------------------- census / diagnostics ---------------------------
+
+
+def _large(q_flat: torch.Tensor) -> torch.Tensor:
+    blocks = as_blocks(q_flat)
+    return (blocks > WOT_HI) | (blocks < WOT_LO)
+
+
+def count_large_in_protected(q_flat: torch.Tensor) -> torch.Tensor:
+    """# of values outside [-64, 63] in positions 0..6 (paper Fig. 3)."""
+    return _large(q_flat)[:, : BLOCK - 1].sum()
+
+
+def large_position_histogram(q_flat: torch.Tensor) -> torch.Tensor:
+    """Per-byte-position histogram of large values (paper Fig. 1)."""
+    return _large(q_flat).sum(dim=0)
+
+
+def range_percentages(q_flat) -> dict:
+    """% of |q| in [0,32), [32,64), [64,128] (paper Table 1 rows)."""
+    if isinstance(q_flat, torch.Tensor):
+        q_flat = q_flat.cpu().numpy()
+    a = np.abs(np.asarray(q_flat).astype(np.int32))
+    n = max(a.size, 1)
+    return {
+        "[0,32)": float((a < 32).sum()) / n * 100,
+        "[32,64)": float(((a >= 32) & (a < 64)).sum()) / n * 100,
+        "[64,128]": float((a >= 64).sum()) / n * 100,
+    }
+
+
+def satisfies_constraint(q_flat: torch.Tensor) -> bool:
+    return int(count_large_in_protected(q_flat)) == 0

@@ -49,9 +49,14 @@ def default_backend(device) -> str:
 def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
           fault_rate: float = 0.0, correctable_only: bool = False,
           seed: int = 0, scheme: str = "in-place", backend=None,
-          kv_policy=None, device=None, dtype=torch.bfloat16,
+          kv_policy=None, device=None, dtype=torch.bfloat16, weights=None,
           log=print) -> dict:
     """Serve ``tokens`` greedy decode steps of a batch.
+
+    The weights are drawn at random from ``seed`` and encoded leaf by leaf,
+    unless ``weights`` gives an encoded tree to serve (e.g. the deployed
+    trained masters, ``ProtectionPolicy(...).encode_tree(params)``; it is
+    not modified).
 
     Without a prompt the batch decodes from position 0. With ``prompt_len``
     a random prompt of that many tokens per row, drawn from ``seed``, is
@@ -94,10 +99,14 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
     s = plan.summary()
     log(f"[serve] plan: backends {s['by_backend']}, {s['n_flat_padded']} "
         f"flat-padded leaves")
-    t0 = time.time()
-    enc = lm.init_params(cfg, seed, device=dev, leaf_fn=plan.encode_leaf)
-    _sync(dev)
-    log(f"[serve] drew and encoded the weights in {time.time() - t0:.1f}s")
+    if weights is None:
+        t0 = time.time()
+        enc = lm.init_params(cfg, seed, device=dev, leaf_fn=plan.encode_leaf)
+        _sync(dev)
+        log(f"[serve] drew and encoded the weights in "
+            f"{time.time() - t0:.1f}s")
+    else:
+        enc = weights
     weight_positions: dict = {}
     if fault_rate:
         gen = torch.Generator(device=dev)

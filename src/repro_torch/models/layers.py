@@ -1,8 +1,12 @@
 """Model building blocks of the dense decoder (pure functions over dicts).
 
 Counterpart of the dense subset of ``repro.models.layers``: norms, RoPE,
-single-token GQA attention, chunked causal attention, SwiGLU, embedding
-and logits. Where the reference routes fault flags through a module-level
+single-token GQA attention, full-sequence GQA attention (training and
+the cache-less forward), chunked causal attention, SwiGLU, embedding and
+logits. ``wt`` is the weight transform of QAT training (fake-quant): it
+applies to projection weights and the head only, never to the embedding
+lookup or to norms, and defaults to the identity so the serve paths are
+untouched. Where the reference routes fault flags through a module-level
 sink (``layers.record_flags``), the port hands each decode-at-use view the
 ``record`` method of a :class:`FlagRecorder` that the serve step creates
 per step and the model drains per layer, so the flags come back as values.
@@ -12,6 +16,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def Identity(w):
+    return w
+
 
 class FlagRecorder:
     """(corrected, due) accumulator of one serve step: every decode-at-use
@@ -162,7 +171,8 @@ def gqa_params_shape(cfg):
     return p
 
 
-def _proj(x, w, b=None):
+def _proj(x, w, b=None, wt=Identity):
+    w = wt(w)
     if getattr(w, "decode_at_use", False):
         y = w.matmul(x)  # decode-at-use view: fused kernel or inline decode
     else:
@@ -170,6 +180,30 @@ def _proj(x, w, b=None):
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def gqa_attention(p, x, cfg, *, positions, wt=Identity, causal=True,
+                  window=0, chunk=2048):
+    """Attention over a full sequence (training, cache-less forward).
+    x: (B, S, D); positions: (B, S) int."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _proj(x, p["wq"], p.get("bq"), wt).reshape(b, s, h, hd)
+    k = _proj(x, p["wk"], p.get("bk"), wt).reshape(b, s, kv, hd)
+    v = _proj(x, p["wv"], p.get("bv"), wt).reshape(b, s, kv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    rep = h // kv    # GQA broadcast kv -> h
+    k = k.repeat_interleave(rep, dim=2)
+    v = v.repeat_interleave(rep, dim=2)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    if causal:
+        o = chunked_causal_attention(q, k, v, chunk=chunk, window=window)
+    else:  # bidirectional (an encoder)
+        o, _, l = _attend_chunk(q, k, v, None, 1.0 / np.sqrt(hd))
+        o = o / torch.clamp(l, min=1e-30)[..., None].to(o.dtype)
+    o = o.transpose(1, 2).reshape(b, s, h * hd)
+    return _proj(o, p["wo"], None, wt)
 
 
 def gqa_decode(p, x, cfg, cache, *, pos):
@@ -208,14 +242,14 @@ def swiglu_params_shape(cfg, d_ff=None):
     return {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
 
 
-def swiglu(p, x):
-    g = F.silu(_proj(x, p["w_gate"]))
-    return _proj(g * _proj(x, p["w_up"]), p["w_down"])
+def swiglu(p, x, wt=Identity):
+    g = F.silu(_proj(x, p["w_gate"], None, wt))
+    return _proj(g * _proj(x, p["w_up"], None, wt), p["w_down"], None, wt)
 
 
 def embed(tokens, emb, dtype=torch.bfloat16):
     return emb.to(dtype)[tokens]
 
 
-def logits(x, head):
-    return _proj(x, head)
+def logits(x, head, wt=Identity):
+    return _proj(x, wt(head))

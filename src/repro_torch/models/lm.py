@@ -1,18 +1,20 @@
-"""Dense decoder LM: parameter init, KV cache, the decode step and the
-prefill into a paged KV cache.
+"""Dense decoder LM: parameter init, the cache-less full-sequence forward
+and its loss (training), KV cache, the decode step and the prefill into a
+paged KV cache.
 
 Counterpart of the dense family of ``repro.models.lm``. Per-layer params
 are stacked along a leading L axis, as in the reference; a Python loop over
 layers takes the place of ``lax.scan``. Other families (MoE, MLA, SSM,
-hybrid, enc-dec) and the cache-less full-sequence ``forward`` are not
-ported yet.
+hybrid, enc-dec) are not ported yet.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
+from repro_torch import tree
 
 from . import layers as L
 from .config import ArchConfig
@@ -60,19 +62,13 @@ def _leaf_specs(cfg: ArchConfig):
             yield ("layers", sub, name), (nl, *shp), _init_kind(name, shp)
 
 
-def _set(tree: dict, path: tuple, value) -> None:
-    for k in path[:-1]:
-        tree = tree.setdefault(k, {})
-    tree[path[-1]] = value
-
-
 def param_shapes(cfg: ArchConfig) -> dict:
     """The f32 parameter tree as ``ShapeDtype`` records (nothing
     allocated)."""
     from repro_torch.protection.plan import ShapeDtype
     out: dict = {}
     for path, shape, _ in _leaf_specs(cfg):
-        _set(out, path, ShapeDtype(tuple(shape), torch.float32))
+        tree.set_path(out, path, ShapeDtype(tuple(shape), torch.float32))
     return out
 
 
@@ -95,7 +91,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
             t = torch.zeros(shape, device=dev)
         else:
             t = torch.randn(shape, generator=gen, device=dev).mul_(std)
-        _set(out, path, leaf_fn(path, t) if leaf_fn is not None else t)
+        tree.set_path(out, path,
+                      leaf_fn(path, t) if leaf_fn is not None else t)
         del t
     return out
 
@@ -118,6 +115,78 @@ def _take(i: int, tree):
         return {k: _take(i, v) for k, v in tree.items()}
     layer = getattr(tree, "layer", None)
     return layer(i) if layer is not None else tree[i]
+
+
+def _unstack(sub, n: int) -> list:
+    """A stacked subtree -> its ``n`` per-layer subtrees. Tensors are
+    unbound once (their backward stacks the layer gradients in one
+    allocation, where indexing per layer would allocate a full-size zero
+    gradient per layer); other leaves slice themselves as in :func:`_take`."""
+    if isinstance(sub, dict):
+        per = {k: _unstack(v, n) for k, v in sub.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    if isinstance(sub, torch.Tensor):
+        return list(sub.unbind(0))
+    return [_take(i, sub) for i in range(n)]
+
+
+def _block_full(cfg: ArchConfig, lp, x, positions, wt, chunk):
+    """One dense decoder block over a full sequence."""
+    nk = cfg.norm
+    x = x + L.gqa_attention(lp["attn"], L.apply_norm(x, lp["ln1"], nk), cfg,
+                            positions=positions, wt=wt, chunk=chunk)
+    return x + L.swiglu(lp["mlp"], L.apply_norm(x, lp["ln2"], nk), wt)
+
+
+def forward(cfg: ArchConfig, params, tokens, *, wt=L.Identity,
+            dtype=torch.bfloat16, chunk: int = 2048, layer_transform=None,
+            collect_flags=False, collect_acts=False, prefix_embeds=None,
+            enc_embeds=None):
+    """tokens: (B, S) int -> logits (B, S, V). ``wt`` transforms each
+    projection weight and the head at use (QAT's fake-quant; per layer
+    slice, as the reference's scan applies it); ``layer_transform`` maps
+    each layer's param slice. With ``cfg.remat`` each layer is recomputed
+    in the backward pass (``torch.utils.checkpoint``) instead of keeping
+    its activations."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"forward for family {cfg.family!r} is not "
+                                  f"ported yet (dense only; the other "
+                                  f"families come with their own slice)")
+    if collect_flags or collect_acts:
+        raise NotImplementedError(
+            "collect_flags / collect_acts come with the cache-less "
+            "decode-at-use prefill and int8 calibration slices")
+    if prefix_embeds is not None or enc_embeds is not None:
+        raise NotImplementedError("prefix and encoder embeddings come with "
+                                  "the vlm and enc-dec families")
+    x = L.embed(tokens, params["embed"], dtype)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+
+    def blk(x, lp):
+        if layer_transform is not None:
+            lp = layer_transform(lp)
+        return _block_full(cfg, lp, x, positions, wt, chunk)
+
+    for lp in _unstack(params["layers"], n_scan_layers(cfg)):
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(blk, x, lp, use_reentrant=False)
+        else:
+            x = blk(x, lp)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm)
+    return L.logits(x, params["head"], wt)
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, wt=L.Identity,
+            dtype=torch.bfloat16, chunk: int = 2048):
+    """Causal-LM cross entropy: mean of the f32 ``logsumexp`` minus the
+    target logit. batch: {"tokens", "targets"} (B, S) int."""
+    logits = forward(cfg, params, batch["tokens"], wt=wt, dtype=dtype,
+                     chunk=chunk).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, batch["targets"].long()[..., None])[..., 0]
+    return (lse - tgt).mean()
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,

@@ -1,4 +1,5 @@
-"""Backend dispatch: route the in-place code's block compute.
+"""Backend dispatch: route the in-place code's block compute and the WOT
+quantize / throttle steps.
 
 Counterpart of ``repro.protection.backends``:
 
@@ -32,6 +33,14 @@ class Backend:
         """(..., 8) uint8 encoded -> (decoded (..., 8), single, double)."""
         raise NotImplementedError
 
+    def quantize_throttle(self, w_blocks: torch.Tensor):
+        """(nblk, 8) f32 -> (WOT-compliant q int8 (nblk, 8), scale f32 ())."""
+        raise NotImplementedError
+
+    def throttle(self, q_blocks: torch.Tensor) -> torch.Tensor:
+        """(nblk, 8) int8 -> WOT-throttled (nblk, 8) int8."""
+        raise NotImplementedError
+
 
 class TorchBackend(Backend):
     name = "torch"
@@ -41,6 +50,14 @@ class TorchBackend(Backend):
 
     def decode64(self, blocks):
         return ecc.decode64(blocks)
+
+    def quantize_throttle(self, w_blocks):
+        from repro_torch.kernels.quant_throttle import quantize_throttle_plain
+        return quantize_throttle_plain(w_blocks)
+
+    def throttle(self, q_blocks):
+        from repro_torch.kernels.throttle import throttle_plain
+        return throttle_plain(q_blocks)
 
 
 class CudaBackend(Backend):
@@ -56,6 +73,14 @@ class CudaBackend(Backend):
         flags = flags.reshape(blocks.shape[:-1])
         return (dec.reshape(blocks.shape), (flags & 1).bool(),
                 (flags & 2).bool())
+
+    def quantize_throttle(self, w_blocks):
+        from repro_torch.kernels.quant_throttle import quantize_throttle
+        return quantize_throttle(w_blocks)
+
+    def throttle(self, q_blocks):
+        from repro_torch.kernels.throttle import throttle
+        return throttle(q_blocks)
 
 
 BACKENDS = {"torch": TorchBackend, "cuda": CudaBackend}

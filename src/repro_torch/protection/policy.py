@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 
 from repro_torch import tree
-from repro_torch.core import faults, quant, wot
+from repro_torch.core import faults, wot
 
 from .backends import get_backend
 from .schemes import get_scheme
@@ -114,14 +114,14 @@ class ProtectionPolicy:
     def encode_leaf(self, w: torch.Tensor, scheme) -> ProtectedTensor:
         """float weight -> quantize -> WOT throttle -> scheme-encode."""
         scheme = get_scheme(scheme)
-        q, scale = quant.quantize(w)
-        q = wot.throttle_q(q.reshape(-1)).reshape(w.shape)
+        # quantize + WOT throttle on the backend's route over whole blocks:
+        # a ragged tail is zero-padded in f32, which changes neither the
+        # scale nor any real q, and quantizes to the flat layout's zero pad
+        q, scale = self.backend.quantize_throttle(wot.as_blocks(w))
         if w.ndim >= 1 and w.shape[-1] % BLOCK == 0:
-            q_img = q                         # same-shape layout
+            q_img = q.reshape(w.shape)        # same-shape layout
         else:
-            flat = q.reshape(-1)              # flat-padded layout
-            pad = (-flat.shape[0]) % BLOCK
-            q_img = torch.cat([flat, flat.new_zeros(pad)]) if pad else flat
+            q_img = q.reshape(-1)             # flat-padded layout
         enc, checks = scheme.encode(q_img, self.backend)
         return ProtectedTensor(enc=enc, checks=checks,
                                scale=scale.to(torch.float32),

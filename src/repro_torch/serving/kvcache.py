@@ -192,8 +192,9 @@ def _encode_kv(kf: torch.Tensor, policy: KVProtectionPolicy):
     scale = quant.compute_scale(kf32, dim=(-2, -1))           # (..., 1, 1)
     q, _ = quant.quantize(kf32, scale=scale)
     scheme = policy.scheme_obj
-    if scheme.requires_wot:
-        q = wot.throttle_q(q.reshape(-1)).reshape(q.shape)
+    if scheme.requires_wot:   # hd % 8 == 0: blocks run along head_dim
+        q = get_backend(policy.backend).throttle(
+            q.reshape(-1, wot.BLOCK)).reshape(q.shape)
     enc, checks = scheme.encode(q, policy.backend)
     return enc, checks, scale[..., 0, 0]
 

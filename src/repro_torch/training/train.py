@@ -1,0 +1,112 @@
+"""The QATT training step (paper §4.1): QAT forward and backward over
+fake-quantized weights with f32 masters, gradient accumulation folded into
+SGD momentum, then WOT throttling of the masters.
+
+Counterpart of ``qat_wt``, ``qat_wt_bf16``, ``_split_micro`` and
+``make_train_step`` of ``repro.training.train``. The throttle runs on the
+route ``backend`` picks (``"cuda"``: the ``quantize_throttle`` kernel on
+every protected leaf after every update). ``make_cnn_train_step`` waits
+for the CNN models.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch import tree
+from repro_torch.core import quant, wot
+from repro_torch.models import layers as L
+from repro_torch.models import lm
+from repro_torch.models.config import ArchConfig
+from repro_torch.protection.backends import get_backend
+
+
+def qat_wt(w):
+    """Weight transform of the QAT forward: fake-quant every >= 2-D float
+    tensor."""
+    if w.ndim >= 2 and w.is_floating_point():
+        return quant.fake_quant(w)
+    return w
+
+
+def qat_wt_bf16(w):
+    """Fake-quant in f32, then a bf16 cast before use."""
+    if w.ndim >= 2 and w.is_floating_point():
+        return quant.fake_quant(w).to(torch.bfloat16)
+    return w
+
+
+def _split_micro(batch: dict, n_micro: int) -> list:
+    """Split every (B, ...) array of ``batch`` into ``n_micro`` contiguous
+    row blocks -> list of ``n_micro`` batches."""
+    out = [dict() for _ in range(n_micro)]
+    for k, x in batch.items():
+        if x.shape[0] % n_micro:
+            raise ValueError(f"batch {x.shape[0]} is not a multiple of "
+                             f"{n_micro} microbatches")
+        for i, part in enumerate(x.split(x.shape[0] // n_micro)):
+            out[i][k] = part
+    return out
+
+
+def make_train_step(cfg: ArchConfig, *, qat: bool = True,
+                    wot_throttle: bool = True, lr: float = 1e-4,
+                    mu: float = 0.9, wd: float = 1e-4, chunk: int = 2048,
+                    bf16_weights: bool = True,
+                    loss_fn: Optional[Callable] = None, backend="torch"):
+    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+    loss)``.
+
+    The step updates the tensors of ``params`` and of the momentum IN PLACE
+    (the reference returns new arrays) and returns them. Each microbatch's
+    gradients are folded into the momentum and freed at once, so the peak
+    holds the masters, the momentum and one set of gradients. The fused
+    momentum keeps the reference's op order: ``m = mu*m``; per microbatch
+    ``m += g * (1/n)``; ``m += 2*wd*w``; ``w -= lr*m``; then the throttle.
+    The optimizer and the throttle run inside ``record_function`` ranges
+    named ``sgd_momentum`` and ``wot_throttle``, so a profile of a step
+    can split its device time.
+    """
+    wt = (qat_wt_bf16 if bf16_weights else qat_wt) if qat else L.Identity
+    lfn = loss_fn or (lambda p, b: lm.loss_fn(cfg, p, b, wt=wt, chunk=chunk))
+    be = get_backend(backend)
+
+    def train_step(params, opt_state, batch):
+        leaves = list(tree.leaves_with_path(params))
+        moms = [tree.get_path(opt_state.momentum, path) for path, _ in leaves]
+        inv = 1.0 / cfg.microbatch
+        with torch.profiler.record_function("sgd_momentum"), \
+                torch.no_grad():
+            for m in moms:
+                m.mul_(mu)
+        loss_sum = 0.0
+        for mb in _split_micro(batch, cfg.microbatch):
+            ps = [w.detach().requires_grad_() for _, w in leaves]
+            ptree: dict = {}
+            for (path, _), p in zip(leaves, ps):
+                tree.set_path(ptree, path, p)
+            loss = lfn(ptree, mb)
+            loss.backward()
+            with torch.profiler.record_function("sgd_momentum"), \
+                    torch.no_grad():
+                for m, p in zip(moms, ps):
+                    if p.grad is not None:   # None: the loss ignores p
+                        m += p.grad.to(m.dtype) * inv
+                    p.grad = None
+            loss_sum = loss_sum + loss.detach()
+            del ps, ptree, loss
+        with torch.profiler.record_function("sgd_momentum"), \
+                torch.no_grad():
+            for (_, w), m in zip(leaves, moms):
+                m += (2.0 * wd) * w
+                w -= lr * m.to(w.dtype)
+        if wot_throttle:   # wot.throttle_tree, leaf by leaf in place
+            with torch.profiler.record_function("wot_throttle"), \
+                    torch.no_grad():
+                for path, w in leaves:
+                    if wot.is_protected_weight(path, w):
+                        w.copy_(wot.throttle_tensor(w, backend=be))
+        return params, opt_state, loss_sum * inv
+
+    return train_step

@@ -30,3 +30,17 @@ def map_with_path(fn: Callable, tree, prefix: tuple = ()):
         return {k: map_with_path(fn, tree[k], prefix + (k,))
                 for k in sorted(tree)}
     return fn(prefix, tree)
+
+
+def get_path(tree, path: tuple):
+    """The leaf of a nested dict at ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def set_path(tree: dict, path: tuple, value) -> None:
+    """Set the leaf at ``path``, creating the dicts on the way."""
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value

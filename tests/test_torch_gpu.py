@@ -10,8 +10,10 @@ import pytest
 import torch
 
 from repro_torch.core import ecc
+from repro_torch.core import wot
 from repro_torch.kernels import (build, ecc_decode, ecc_encode, ecc_qmatmul,
-                                 flash_attention, paged_attention)
+                                 flash_attention, paged_attention,
+                                 quant_throttle, throttle)
 from repro_torch.protection.policy import ProtectionPolicy
 from repro_torch.serving import kvcache
 
@@ -144,3 +146,60 @@ def test_gpu_flash_attention_kernel_matches_plain(cuda, dtype, s, d):
     # round across a boundary, and the output rounds once
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(ko.float(), po.float(), rtol=tol, atol=tol)
+
+
+def _tie_blocks(nblk, dev, gen):
+    """f32 blocks whose quantization lands on exact rounding ties (scale
+    2^-7, w / scale = k + 0.5), +-63.5 and -64.5 around the WOT bounds,
+    and -0.0."""
+    k = torch.randint(-127, 127, (nblk, 8), generator=gen, device=dev).float()
+    k += 0.5
+    k[:, 0], k[:, 1], k[:, 2], k[:, 3] = 63.5, -64.5, -63.5, -0.0
+    k[0, 4] = 127.0
+    return k * 2.0 ** -7
+
+
+# 1 block, ragged sizes, and one leaf over 2^31 bytes (2^26 + 3 blocks of
+# 32 bytes: byte offsets past the int32 range)
+@pytest.mark.parametrize("nblk,kind", [(1, "normal"), (1037, "normal"),
+                                       (100_003, "ties"), (64, "zeros"),
+                                       (2 ** 26 + 3, "normal")])
+def test_gpu_quantize_throttle_kernel_matches_plain(cuda, nblk, kind):
+    gen = torch.Generator(device=cuda).manual_seed(nblk)
+    if kind == "ties":
+        w = _tie_blocks(nblk, cuda, gen)
+    elif kind == "zeros":
+        w = torch.zeros((nblk, 8), device=cuda)
+    else:
+        w = 3 * torch.randn((nblk, 8), generator=gen, device=cuda)
+    before = build.COUNTS["quantize_throttle"]
+    kq, ks = quant_throttle.quantize_throttle(w)
+    assert build.COUNTS["quantize_throttle"] == before + 1
+    pq, ps = quant_throttle.quantize_throttle_plain(w)
+    assert torch.equal(kq, pq)                       # byte for byte
+    assert ks.view(torch.int32).item() == ps.view(torch.int32).item()
+    assert int(wot.count_large_in_protected(kq.reshape(-1))) == 0
+
+
+@pytest.mark.parametrize("nblk", [1, 2048, 4_194_305, 2 ** 28 + 5])
+def test_gpu_throttle_kernel_matches_plain(cuda, nblk):
+    gen = torch.Generator(device=cuda).manual_seed(nblk)
+    q = torch.randint(-128, 128, (nblk, 8), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    q[0] = torch.tensor([-128, 127, -65, 64, -64, 63, 0, -128])
+    before = build.COUNTS["throttle"]
+    kq = throttle.throttle(q)
+    assert build.COUNTS["throttle"] == before + 1
+    assert torch.equal(kq, throttle.throttle_plain(q))
+
+
+@pytest.mark.parametrize("shape", [(5, 7), (2, 64, 96), (3, 13)])
+def test_gpu_throttle_tensor_and_encode_routes_agree(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    w = 3 * torch.randn(shape, generator=gen, device=cuda)
+    k = wot.throttle_tensor(w, backend="cuda", with_q=True)
+    p = wot.throttle_tensor(w, backend="torch", with_q=True)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    ke = ProtectionPolicy(backend="cuda").encode_leaf(w, "in-place")
+    pe = ProtectionPolicy(backend="torch").encode_leaf(w, "in-place")
+    assert torch.equal(ke.enc, pe.enc) and torch.equal(ke.scale, pe.scale)

@@ -12,8 +12,10 @@ import torch
 from repro import configs as jconfigs
 from repro_torch import configs, device
 from repro_torch.kernels import (ecc_decode, ecc_encode, ecc_qmatmul,
-                                 flash_attention, paged_attention)
+                                 flash_attention, paged_attention,
+                                 quant_throttle, throttle)
 from repro_torch.launch import serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import lm
 from repro_torch.serving import kvcache
 
@@ -48,7 +50,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
                  lambda: lm.init_cache(cfg, 1, 16),
                  lambda: kvcache.init_cache(cfg, 1, 16, kv_policy="in-place"),
                  lambda: serve.serve(cfg, tokens=1, log=lambda *_: None),
-                 lambda: serve.main(["--tokens", "1"])):
+                 lambda: serve.main(["--tokens", "1"]),
+                 lambda: launch_train.train(cfg, steps=1,
+                                            log=lambda *_: None),
+                 lambda: launch_train.main(["--steps", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
@@ -100,4 +105,10 @@ def test_wrappers_take_the_plain_route_for_cpu_tensors(monkeypatch):
     x = torch.randn(1, 2, 20, 8, generator=g)
     assert torch.equal(flash_attention.flash_attention(x, x, x),
                        flash_attention.flash_attention_plain(x, x, x))
+    w = torch.randn(13, 8, generator=g)
+    got, want = (quant_throttle.quantize_throttle(w),
+                 quant_throttle.quantize_throttle_plain(w))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    qb = blocks.view(torch.int8)
+    assert torch.equal(throttle.throttle(qb), throttle.throttle_plain(qb))
     assert build.COUNTS == before

@@ -22,6 +22,7 @@ from repro.serving import kvcache as jkv
 from repro.serving import protected as jprot
 from repro_torch import configs as tconfigs
 from repro_torch import convert
+from repro_torch.data import synthetic
 from repro_torch.serving import kvcache as tkv
 from repro_torch.serving import protected as tprot
 
@@ -133,3 +134,25 @@ def assert_flags_equal(ref, port):
         assert sorted(r) == sorted(p)
         for k in r:
             np.testing.assert_array_equal(p[k], r[k], err_msg=k)
+
+
+@functools.lru_cache(maxsize=None)
+def reference_params(arch, seed=0):
+    """The reference's smoke-config f32 params of ``arch`` as NumPy."""
+    cfg = configs.get_smoke(arch)
+    p = jax.jit(lambda k: jlm.init_params(cfg, k))(jax.random.PRNGKey(seed))
+    return jax.tree.map(np.asarray, p)
+
+
+def port_params(tree_np):
+    return convert.params_from_numpy(tree_np, device="cpu")
+
+
+def jax_params(tree_np):
+    return jax.tree.map(jnp.asarray, tree_np)
+
+
+def token_batch(arch, b, s, step=0):
+    """A (b, s) batch of the smoke config's vocabulary, seed 1."""
+    cfg = tconfigs.get_smoke(arch)
+    return synthetic.token_batch(cfg.vocab_padded, b, s, seed=1, step=step)
