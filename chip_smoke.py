@@ -33,7 +33,16 @@ d_model 4096, vocab 102400) at batch 4:
   masters are deployed (quantize-throttle and in-place encode) on both
   routes, byte-equal, and served 8 greedy steps at batch 4 under
   ``in-place-fused``, clean and with correctable weight faults only
-  (bit-equal logits and tokens).
+  (bit-equal logits and tokens);
+* guarded int8 serving (``in-place-fused``, 16 greedy steps, batch 4):
+  static activation scales calibrated through the cache-less prefill
+  (flash kernel, float ``ecc_qmatmul``), then static int8 serving through
+  the requantize epilogue with activation clamps and ABFT (clean, and with
+  correctable weight faults only: bit-equal), dynamic int8 with ABFT, the
+  CLI's float path with ``--abft --act-clamp``, and a 4 x 512-token int8
+  prefill under ``in-place-chunked``: no ABFT mismatch anywhere; the kernel
+  and plain routes of the int8 paths compared on a 2-layer full-width
+  model.
 
 Launch counts are set to 0 just before each path and read just after.
 Every phase raises on failure and the script exits nonzero; it prints no
@@ -50,7 +59,7 @@ or one train step (quantize_throttle: every protected leaf of the 8-layer
 model once): the sum over the launches of that call. ``bound_ms`` is
 max(bytes / 3.35 TB/s, ops / peak) with each input read once and each
 output written once (H100 SXM data-sheet rates: HBM 3.35 TB/s, dense bf16
-989 TFLOP/s).
+989 TFLOP/s, dense int8 1,979 TOP/s).
 """
 from __future__ import annotations
 
@@ -68,6 +77,7 @@ OUT_DIR = ROOT / "chiprun_out"
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 
 # tolerances (stated here, used below)
 QMM_RTOL = 2e-4     # |kernel - plain| <= QMM_RTOL * (|a| @ |w|) + 1e-6: both
@@ -155,8 +165,11 @@ def main():
     phase_train_profile(torch, dev, train_cfg, trained)
     del trained
     log(f"phase 7 profile took {time.time() - t0:.0f}s")
+    t0 = time.time()
+    guarded_counts = phase_guarded(torch, dev, build)
+    log(f"phase 8 (guarded int8 path) took {time.time() - t0:.0f}s")
     counts = {k: decode_counts[k] + long_counts[k] + train_counts[k]
-              for k in build.COUNTS}
+              + guarded_counts[k] for k in build.COUNTS}
     if sorted(entries) != sorted(counts):
         fail(f"kernels checked {sorted(entries)} != kernels counted "
              f"{sorted(counts)}")
@@ -169,7 +182,11 @@ def main():
               "chunked_page_attention", "throttle")),
             ("training", train_counts,
              ("quantize_throttle", "throttle", "ecc_encode", "ecc_decode",
-              "ecc_qmatmul", "fused_page_attention"))):
+              "ecc_qmatmul", "fused_page_attention")),
+            ("guarded int8", guarded_counts,
+             ("ecc_decode", "ecc_encode", "ecc_qmatmul", "flash_attention",
+              "fused_page_attention", "chunked_page_attention",
+              "throttle"))):
         missing = [k for k in needed if cnt[k] <= 0]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
@@ -217,11 +234,12 @@ class Timer:
         return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float = 0.0):
-    """Least time for the work: bytes at the HBM rate or bf16 operations at
-    the tensor-core peak, whichever is longer."""
+def bound_ms(nbytes: float, ops: float = 0.0, peak: float = BF16_FLOPS):
+    """Least time for the work: bytes at the HBM rate or operations at the
+    tensor-core peak (bf16 unless ``peak`` says otherwise), whichever is
+    longer."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / BF16_FLOPS
+    t_ops = ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -367,8 +385,9 @@ def phase_kernels(torch, dev):
         w_enc = ecc.encode64(wot_blocks(torch, dev, k * n // 8, gen))
         ns, nd = flip_blocks(torch, w_enc, 50, 20, gen)
         w_enc = w_enc.view(k, n)
-        ko, kfl = ecc_qmatmul.ecc_qmatmul(a, w_enc, scale)
-        po, pfl = ecc_qmatmul.ecc_qmatmul_plain(a, w_enc, scale)
+        ko, kfl = ecc_qmatmul.ecc_qmatmul(a, w_enc, scale, with_flags=True)
+        po, pfl = ecc_qmatmul.ecc_qmatmul_plain(a, w_enc, scale,
+                                                with_flags=True)
         if kfl.tolist() != pfl.tolist() or kfl.tolist() != [ns, nd]:
             fail(f"ecc_qmatmul flags {kfl.tolist()} vs plain {pfl.tolist()} "
                  f"vs injected {[ns, nd]} at {(b, k, n)}")
@@ -398,6 +417,7 @@ def phase_kernels(torch, dev):
         ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound"],
         bound_by="bytes", library_ms=tot["library_ms"])
     log(f"ecc_qmatmul (per step, 211 launches): {out['ecc_qmatmul']}")
+    check_qmatmul_paths(torch, dev, cfg, timer, gen)
 
     # -- kernel 4: fused page attention, 30 launches per step ---------------
     h, kvh, hd, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 64
@@ -455,6 +475,212 @@ def _decoded_bf16(torch, enc, sc):
     qv = ecc.decode64(enc.view(b, s, kv, hd // 8, 8))[0].view(torch.int8)
     return (qv.reshape(b, s, kv, hd).float() * sc[..., None, None]).to(
         torch.bfloat16).transpose(1, 2)
+
+
+def _bits(torch, t):
+    """A tensor's bit pattern, for bit-for-bit comparison."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+def _clamp_gap(torch, y, q=0.9, slack=0.0):
+    """A clamp bound at or above the ``q`` quantile of |y|, in the middle
+    of the first gap between neighbouring values wider than ``slack`` (the
+    most the kernel's and the plain version's float outputs differ), so
+    summation-order noise cannot move a value across it."""
+    v = y.float().abs().flatten().sort().values
+    i = int(q * (v.numel() - 1))
+    wide = ((v[i + 1:] - v[i:-1]) > slack).nonzero()
+    if not wide.numel():
+        fail(f"no gap wider than {slack} above the {q} quantile")
+    j = i + int(wide[0])
+    return float((v[j] + v[j + 1]) / 2)
+
+
+def check_qmatmul_paths(torch, dev, cfg, timer, gen):
+    """ecc_qmatmul's int8, requantize, ABFT, clamp and fault_bits paths
+    against the plain version on the card, at the full-width shapes: M = 4
+    against wq, w_up, w_down and the head, M = 2,048 against w_up (the int8
+    prefill, 64 row chunks), and a ragged (37, 1037, 1000); every weight
+    carries 50 single- and 20 double-flip blocks. Raw int8 (with and
+    without ABFT); the requantize epilogue with a scalar and a per-row
+    a_scale, with and without bias, to bf16 and to f32 (ABFT on), and with
+    a clamp; float bf16 with ABFT and a clamp. int32 accumulators and
+    requantized outputs must be bit-equal, the float output within
+    QMM_RTOL; flags, per-row mismatches and clamp hits, and the column
+    count equal, and no mismatch. Then ``fault_bits`` at every bit 0..30
+    on the int paths and 23..30 on the float path at the wq shape:
+    rows[0, 0] == 1 and col_mm == 1 on both. Timed per decode step (211
+    launches) and per prefill launch for five variants; the library call
+    is ``torch._int_mm`` on the decoded int8 weight where its shape rules
+    allow (M > 16), else ``torch.matmul`` of the decoded bf16 weight."""
+    from repro_torch.core import ecc
+    from repro_torch.kernels import ecc_qmatmul as Q
+    d, f, v, nl = cfg.d_model, cfg.d_ff, cfg.vocab_padded, cfg.n_layers
+    per_step = {(d, d): 4 * nl, (d, f): 2 * nl, (f, d): nl, (d, v): 1}
+    ws = torch.tensor(0.02, dtype=torch.float32, device=dev)
+    sc = torch.tensor(0.02, dtype=torch.float32, device=dev)
+    f32, bf16 = torch.float32, torch.bfloat16
+    timing = {}
+    for name, m, k, n in (("wq", 4, d, d), ("w_up", 4, d, f),
+                          ("w_down", 4, f, d), ("head", 4, d, v),
+                          ("w_up prefill", 2048, d, f),
+                          ("ragged", 37, 1037, 1000)):
+        w_enc = ecc.encode64(wot_blocks(torch, dev, k * n // 8, gen))
+        ns, nd = flip_blocks(torch, w_enc, 50, 20, gen)
+        w_enc = w_enc.view(k, n)
+        aq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                           dtype=torch.int8)
+        af = torch.randn((m, k), generator=gen, device=dev)
+        af[0] *= 64   # |acc[0, 0]| away from [1, 2): a flip of bit 30
+        af = af.to(bf16)  # must not make inf or NaN, which no check sees
+        rows = 0.005 + 0.045 * torch.rand((m, 1), generator=gen, device=dev)
+        bias = torch.randint(-5000, 5000, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        c_req = _clamp_gap(torch, Q.ecc_qmatmul_plain(
+            aq, w_enc, ws, a_scale=sc, out_dtype=f32))
+        po = Q.ecc_qmatmul_plain(af, w_enc, ws)
+        c_flt = _clamp_gap(torch, po, slack=4 * float(
+            (Q.ecc_qmatmul(af, w_enc, ws) - po).abs().max()))
+        del po
+        cases = {"int8": ((aq, w_enc), {}),
+                 "int8+abft": ((aq, w_enc), dict(with_abft=True))}
+        for form, a_s in (("scalar", sc), ("rows", rows)):
+            for b in (None, bias):
+                for odt in (bf16, f32):
+                    key = (f"requant {form}{'' if b is None else '+bias'} "
+                           f"{str(odt)[6:]}+abft")
+                    cases[key] = ((aq, w_enc, ws), dict(
+                        a_scale=a_s, bias=b, out_dtype=odt, with_abft=True))
+        cases["requant rows bf16+abft+clamp"] = ((aq, w_enc, ws), dict(
+            a_scale=rows[:, 0], with_abft=True, clamp=c_req))
+        cases["float+abft+clamp"] = ((af, w_enc, ws), dict(
+            with_abft=True, clamp=c_flt))
+        dec = ecc.decode64(w_enc.reshape(k, n // 8, 8))[0].reshape(k, n)
+        w_q = dec.view(torch.int8)
+        w_bf = (w_q.float() * ws).to(bf16)
+        for case, (args, kw) in cases.items():
+            got = Q.ecc_qmatmul(*args, with_flags=True, **kw)
+            want = Q.ecc_qmatmul_plain(*args, with_flags=True, **kw)
+            where = f"ecc_qmatmul {case} at {(m, k, n)}"
+            if got[1].tolist() != want[1].tolist() or \
+                    got[1].tolist() != [ns, nd]:
+                fail(f"{where}: flags {got[1].tolist()} vs plain "
+                     f"{want[1].tolist()} vs injected {[ns, nd]}")
+            if len(got) == 3:
+                (gr, gc), (pr, pc) = got[2], want[2]
+                if not torch.equal(gr, pr) or int(gc) != int(pc):
+                    fail(f"{where}: ABFT/clamp counts differ from the plain "
+                         f"version (rows {int((gr != pr).sum())} differ, "
+                         f"col {int(gc)} vs {int(pc)})")
+                if int(gr[:, 0].sum()) or int(gc):
+                    fail(f"{where}: ABFT false positive on a clean product")
+                if "clamp" in kw and not int(gr[:, 1].sum()):
+                    fail(f"{where}: the clamp was never hit")
+            if case.startswith("float"):
+                mag = args[0].float().abs() @ w_bf.float().abs()
+                e = (got[0] - want[0]).abs()
+                if bool((e > QMM_RTOL * mag + 1e-6).any()):
+                    fail(f"{where}: out of tolerance, max {float(e.max())}")
+            elif not torch.equal(_bits(torch, got[0]), _bits(torch, want[0])):
+                fail(f"{where}: {int((got[0] != want[0]).sum())} outputs "
+                     f"differ from the plain version")
+        log(f"ecc_qmatmul {name} {(m, k, n)}: {len(cases)} int8 / requantize "
+            f"/ guarded float cases equal the plain version (flags "
+            f"{[ns, nd]}, no ABFT mismatch)")
+        if name == "wq":
+            _check_fault_bits(torch, Q, aq, af, w_enc, ws, sc, gen)
+        if name == "ragged":
+            continue
+        variants = {
+            "float": ((af, w_enc, ws), {}),
+            "float+abft+clamp": ((af, w_enc, ws),
+                                 dict(with_abft=True, clamp=c_flt)),
+            "requant": ((aq, w_enc, ws), dict(a_scale=sc)),
+            "requant+abft+clamp": ((aq, w_enc, ws), dict(
+                a_scale=sc, with_abft=True, clamp=c_req)),
+            "int8": ((aq, w_enc), {})}
+        for var, (args, kw) in variants.items():
+            km = timer.ms(lambda: Q.ecc_qmatmul(*args, with_flags=True, **kw))
+            pm = timer.ms(lambda: Q.ecc_qmatmul_plain(*args, with_flags=True,
+                                                      **kw))
+            integer = not var.startswith("float")
+            if integer and m > 16:
+                lib, lib_name = (lambda: torch._int_mm(aq, w_q)), "_int_mm"
+            else:
+                lib, lib_name = (lambda: torch.matmul(af, w_bf)), "matmul"
+            lm_ = timer.ms(lib)
+            out_bytes = {"int8": 4, "requant": 2, "requant+abft+clamp": 2}.get(
+                var, 4)
+            bb, by = bound_ms(k * n + m * k * (1 if integer else 2)
+                              + m * n * out_bytes, 2 * m * k * n,
+                              INT8_OPS if integer else BF16_FLOPS)
+            if m == 4:
+                t = timing.setdefault(var, {"ms": 0.0, "plain_ms": 0.0,
+                                            "library_ms": 0.0,
+                                            "bound_ms": 0.0,
+                                            "bound_by": by,
+                                            "library": lib_name})
+                count = per_step[(k, n)]
+                t["ms"] += count * km
+                t["plain_ms"] += count * pm
+                t["library_ms"] += count * lm_
+                t["bound_ms"] += count * bb
+            else:
+                timing[f"{var} (M=2048, w_up)"] = {
+                    "ms": km, "plain_ms": pm, "library_ms": lm_,
+                    "bound_ms": bb, "bound_by": by, "library": lib_name}
+            log(f"ecc_qmatmul {var} {(m, k, n)}: kernel {km:.4f} ms, plain "
+                f"{pm:.4f} ms, {lib_name} {lm_:.4f} ms, bound {bb:.4f} ms "
+                f"({by})")
+        del w_enc, dec, w_q, w_bf, aq, af, cases, variants
+    for var, t in timing.items():
+        log(f"ecc_qmatmul {var}"
+            f"{'' if 'M=2048' in var else ' (per decode step, 211 launches)'}"
+            f": {t}")
+    with open(OUT_DIR / "chip_smoke_qmatmul.json", "w") as fh:
+        json.dump(timing, fh, indent=1)
+
+
+def _check_fault_bits(torch, Q, aq, af, w_enc, ws, sc, gen):
+    """fault_bits at every int bit on the raw int8 and requantize paths (at
+    the given full-width wq shape) and at every exponent bit on the float
+    path (at tests/test_abft.py's (16, 64, 64), then at the wq shape): the
+    kernel and the plain version give equal counts, and the flip is found
+    on row 0 and by the column check -- except that at the wq shape the
+    float row check (over all of N = 4,096, within 1e-4 of the |a|·|w|
+    checksum, as the reference's XLA route checks) cannot see a change of
+    one element by a factor 2 to 16 (bits 23-25); there only the column
+    check is required, and the row results are logged."""
+    from repro_torch.core import ecc
+    k = n = 64
+    w_small = ecc.encode64(wot_blocks(torch, af.device, k * n // 8, gen))
+    a_small = torch.randn((16, k), generator=gen, device=af.device)
+    a_small[0] *= 64
+    small = (a_small.to(torch.bfloat16), w_small.view(k, n), ws)
+    paths = (("int8", (aq, w_enc), {}, range(31), True),
+             ("requant", (aq, w_enc, ws), dict(a_scale=sc), range(31), True),
+             ("float (16, 64, 64)", small, {}, range(23, 31), True),
+             (f"float {(*af.shape, w_enc.shape[1])}", (af, w_enc, ws), {},
+              range(23, 31), False))
+    for name, args, kw, bits, need_row in paths:
+        row_hits = []
+        for bit in bits:
+            res = [fn(*args, with_abft=True, fault_bits=1 << bit, **kw)[1]
+                   for fn in (Q.ecc_qmatmul, Q.ecc_qmatmul_plain)]
+            (rows, col_mm), (prow, pcol) = res
+            if not torch.equal(rows, prow) or int(col_mm) != int(pcol):
+                fail(f"ecc_qmatmul {name}: fault_bits 1 << {bit}: counts "
+                     f"{rows[:, 0].tolist()}/{int(col_mm)} differ from the "
+                     f"plain version's {prow[:, 0].tolist()}/{int(pcol)}")
+            if int(col_mm) != 1 or int(rows[1:, 0].sum()) or (
+                    need_row and int(rows[0, 0]) != 1):
+                fail(f"ecc_qmatmul {name}: fault_bits 1 << {bit} not found "
+                     f"(rows {rows[:, 0].tolist()}, col {int(col_mm)})")
+            row_hits.append(int(rows[0, 0]))
+        log(f"ecc_qmatmul fault_bits, {name}: bits {bits.start}..."
+            f"{bits.stop - 1} all found by the column check, kernel equal to "
+            f"the plain version; row 0 flagged per bit {row_hits}")
 
 
 def check_chunked(torch, dev, cfg, timer, gen):
@@ -1271,6 +1497,280 @@ def phase_train_profile(torch, dev, cfg, params, *, batch=8, seq=2048):
     log("train-step profile split (device ms of "
         f"{busy:.2f} busy): " + ", ".join(f"{k} {v:.2f}"
                                           for k, v in split.items()))
+
+
+# ---------------------------------------------------------------------------
+# phase 8: guarded int8 serving — calibration, static / dynamic int8 with
+# ABFT and clamps, the CLI's guarded float path, an int8 prefill
+# ---------------------------------------------------------------------------
+
+
+PROJ_PATHS = tuple(f"layers/attn/{n}" for n in ("wq", "wk", "wv", "wo")) + \
+    tuple(f"layers/mlp/{n}" for n in ("w_gate", "w_up", "w_down")) + ("head",)
+
+
+def phase_guarded(torch, dev, build):
+    """Full-width deepseek-7b (30 layers), random weights from seed 0, batch
+    4, 16 greedy steps under ``in-place-fused`` on the kernel route:
+
+    1. static activation scales from 4 x 256 seeded tokens through the
+       cache-less prefill (flash kernel, float ``ecc_qmatmul``): a finite,
+       positive scale for every projection and the head;
+    2. static int8 serving (``with_act_quant("static", scales,
+       clamp=True).with_abft(True)``, ``act_quant="plan"``): no ABFT
+       mismatch; then the same with correctable weight faults at 1e-6:
+       logits and tokens bit-equal, each flipped block counted once per
+       step, still no mismatch;
+    3. dynamic int8 serving with ABFT: no mismatch;
+    4. the CLI path, ``serve(abft=True, act_clamp=True)`` with float
+       activations: no mismatch;
+    5. a static int8 prefill of 4 x 512 tokens under ``in-place-chunked``
+       (the requantize path at M = 2,048 in 64 row chunks), then 4 decode
+       steps;
+    6. the kernel and plain routes of paths 2 and 3 on a 2-layer full-width
+       model, from the same scales (``route_check``);
+    7. ms/step and tok/s of paths 2-4 beside phase 4's unguarded float
+       decode, and a profile of 4 static int8 decode steps.
+    -> launch counts over 1-5."""
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
+    from repro_torch.serving import protected
+
+    cfg = get("deepseek-7b")
+    tokens, batch, rate = 16, 4, 1e-6
+    torch.cuda.empty_cache()
+    plan = policy_mod.ProtectionPolicy(backend="cuda").plan(
+        lm.param_shapes(cfg))
+    enc = lm.init_params(cfg, 0, device=dev, leaf_fn=plan.encode_leaf)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    cal = torch.randint(0, cfg.vocab, (4, 256), generator=gen, device=dev)
+    build.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    scales = protected.calibrate_act_scales(cfg, enc, cal, plan=plan,
+                                            backend="cuda")
+    cal_s = time.time() - t0
+    cal_counts = dict(build.COUNTS)
+    if sorted(scales) != sorted(PROJ_PATHS) or not all(
+            math.isfinite(x) and x > 0 for x in scales.values()):
+        fail(f"calibration: scales {scales} (want a finite positive scale "
+             f"for each of {PROJ_PATHS})")
+    if cal_counts["flash_attention"] != cfg.n_layers or \
+            cal_counts["ecc_qmatmul"] != 7 * cfg.n_layers + 1:
+        fail(f"calibration did not run the flash and ecc_qmatmul kernels "
+             f"once per layer and projection: {cal_counts}")
+    log(f"calibrated {len(scales)} static activation scales from 4 x 256 "
+        f"tokens in {cal_s:.2f} s: " + ", ".join(
+            f"{p} {x:.4g}" for p, x in scales.items()))
+
+    kw = dict(backend="cuda", kv_policy="in-place-fused", batch=batch,
+              tokens=tokens, device="cuda", weights=enc, log=log)
+    static = dict(act_quant="static", scales=scales, act_clamp=True,
+                  abft=True)
+    runs, counts = {}, {}
+    for name, extra in (("static", static),
+                        ("static correctable-only",
+                         dict(static, fault_rate=rate,
+                              correctable_only=True)),
+                        ("dynamic", dict(act_quant="dynamic", abft=True)),
+                        ("float --abft --act-clamp",
+                         dict(abft=True, act_clamp=True))):
+        torch.cuda.empty_cache()
+        build.reset_counts()
+        runs[name] = serve(cfg, **extra, **kw)
+        counts[name] = dict(build.COUNTS)
+    torch.cuda.empty_cache()
+    build.reset_counts()
+    runs["static prefill"] = serve(
+        cfg, **static, **dict(kw, kv_policy="in-place-chunked", tokens=4,
+                              prompt_len=512))
+    counts["static prefill"] = dict(build.COUNTS)
+
+    for name, r in runs.items():
+        lg = r["logits"]
+        if lg.shape[1:] != (batch, cfg.vocab_padded) or \
+                not bool(torch.isfinite(lg.float()).all()):
+            fail(f"{name}: logits {tuple(lg.shape)} or non-finite values")
+        if r["abft"]["mismatches"]:
+            fail(f"{name}: {r['abft']['mismatches']} ABFT mismatches on a "
+                 f"clean compute (false positives)")
+        if "correctable" not in name and r["flags"] != {
+                "corrected": 0, "due": 0, "kv_corrected": 0, "kv_due": 0}:
+            fail(f"{name}: a clean run reported faults: {r['flags']}")
+        log(f"guarded {name}: ABFT {r['abft']} over the run, launches "
+            f"{counts[name]}")
+    pre = runs["static prefill"]
+    if not bool(torch.isfinite(pre["prefill_logits"].float()).all()):
+        fail("static int8 prefill: non-finite logits")
+    fixed, clean = runs["static correctable-only"], runs["static"]
+    n_single = 0
+    for name, pos in fixed["weight_positions"].items():
+        _, c = torch.unique(pos // 64, return_counts=True)
+        if c.numel() and int(c.max()) > 1:
+            fail(f"{name}: a weight block took more than one flip")
+        n_single += int(c.numel())
+    ff = fixed["flags"]
+    if n_single == 0 or ff["corrected"] != tokens * n_single or ff["due"] \
+            or ff["kv_due"]:
+        fail(f"static int8 correctable-only accounting {ff} != {tokens} x "
+             f"{n_single} corrected blocks and no DUE")
+    if not (torch.equal(fixed["logits"], clean["logits"])
+            and torch.equal(fixed["tokens"], clean["tokens"])):
+        fail("static int8: every flip was correctable, yet the logits "
+             "differ from the clean run")
+    log(f"static int8 correctable-only run: {n_single} single-flip blocks, "
+        f"{ff}; logits and tokens bit-equal to the clean run")
+    torch.cuda.empty_cache()
+    route_check(torch, dev, cal)
+
+    with open(OUT_DIR / "chip_smoke_serve.json") as fh:
+        base = json.load(fh)["clean"]
+    base_ms = statistics.median(base["step_ms"])
+    log(f"unguarded float decode (phase 4, clean): {base_ms:.2f} ms/step, "
+        f"{base['tok_per_s']:.1f} tok/s")
+    summary = {"calibration_s": cal_s, "scales": scales,
+               "float_unguarded_ms": base_ms}
+    for name, r in runs.items():
+        med = statistics.median(r["step_ms"])
+        log(f"guarded {name}: {med:.2f} ms/step median, "
+            f"{r['tok_per_s']:.1f} tok/s, clamp hits "
+            f"{r['abft']['clamp_hits']} over {len(r['step_ms'])} steps"
+            + (f"; prefill {batch} x 512 in {r['prefill_s']:.3f} s "
+               f"({r['prefill_tok_per_s']:.1f} tok/s)"
+               if "prefill_s" in r else ""))
+        summary[name] = {"step_ms": r["step_ms"], "median_ms": med,
+                         "tok_per_s": r["tok_per_s"], "abft": r["abft"],
+                         "flags": r["flags"], "launches": counts[name],
+                         **({"prefill_s": r["prefill_s"]}
+                            if "prefill_s" in r else {})}
+    with open(OUT_DIR / "chip_smoke_guarded.json", "w") as fh:
+        json.dump(summary, fh, indent=1)
+    profile_int8_decode(torch, dev, plan, enc, scales)
+    del enc
+    total = {k: cal_counts[k] + sum(c[k] for c in counts.values())
+             for k in build.COUNTS}
+    log(f"launch counts over the guarded int8 path: {total}")
+    return total
+
+
+def route_check(torch, dev, cal):
+    """Static int8 with clamps and ABFT, and dynamic int8 with ABFT, on a
+    2-layer full-width model with injected single and double flips, served
+    3 steps on the kernel route (``in-place-fused`` KV) and on the plain
+    route (``in-place`` KV) from the same scales: greedy tokens, flags and
+    ABFT rows equal, logits bit-equal."""
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
+    from repro_torch.serving import kvcache, protected
+
+    cfg = get("deepseek-7b").with_(n_layers=2)
+    plans = {r: policy_mod.ProtectionPolicy(backend=r).plan(
+        lm.param_shapes(cfg)) for r in ("cuda", "torch")}
+    enc = lm.init_params(cfg, 7, device=dev, leaf_fn=plans["cuda"].encode_leaf)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    enc, _ = policy_mod.inject_tree_device(enc, 1e-5, gen)
+    scales = protected.calibrate_act_scales(cfg, enc, cal, plan=plans["cuda"],
+                                            backend="cuda")
+    for mode in ("static", "dynamic"):
+        results = {}
+        for route, kvp in (("cuda", "in-place-fused"), ("torch", "in-place")):
+            if mode == "static":
+                plan = plans[route].with_act_quant(
+                    "static", scales, clamp=True).with_abft(True)
+                aq = "plan"
+            else:
+                plan, aq = plans[route].with_abft(True), "dynamic"
+            step = protected.make_serve_step(cfg, plan=plan, backend=route,
+                                             kv_policy=kvp, act_quant=aq)
+            cache = kvcache.init_cache(cfg, 4, 64, kv_policy=kvp, device=dev)
+            tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
+            logits, flags, toks = [], [], []
+            for t in range(3):
+                pos = torch.full((4,), t, dtype=torch.int32, device=dev)
+                lg, cache, fl = step(enc, cache, tok, pos)
+                tok = lg.argmax(dim=-1)
+                logits.append(lg)
+                toks.append(tok)
+                flags.append({k: v.tolist() for k, v in fl.items()})
+            results[route] = (torch.stack(logits), torch.stack(toks), flags)
+        (lk, tk, fk), (lp, tp, fp) = results["cuda"], results["torch"]
+        if fk != fp:
+            fail(f"{mode} int8, 2 layers: routes disagree on flags: cuda {fk}"
+                 f" vs torch {fp}")
+        if not torch.equal(tk, tp):
+            fail(f"{mode} int8, 2 layers: routes disagree on greedy tokens")
+        d = (lk.float() - lp.float()).abs()
+        if not torch.equal(_bits(torch, lk), _bits(torch, lp)):
+            fail(f"{mode} int8, 2 layers: kernel-route logits not bit-equal "
+                 f"to the plain route's ({int((lk != lp).sum())} differ, max "
+                 f"abs {float(d.max()):.4g})")
+        log(f"{mode} int8, 2 layers full width: kernel and plain routes give "
+            f"bit-equal logits, equal tokens and flags (layers "
+            f"{fk[0]['layers']}, ABFT rows {fk[0]['layers_abft']}, top ABFT "
+            f"{fk[0]['top_abft']})")
+    del enc
+
+
+def profile_int8_decode(torch, dev, plan, enc, scales):
+    """4 static int8 decode steps (clamps and ABFT, ``in-place-fused``) of
+    the full-width model under ``torch.profiler``: device time split into
+    the fused matmul (``qmatmul_kernel``), its ABFT compare
+    (``abft_compare_kernel``), activation quantization (the ``act_quant``
+    range) and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get
+    from repro_torch.serving import kvcache, protected
+
+    cfg, batch = get("deepseek-7b"), 4
+    torch.cuda.empty_cache()
+    plan = plan.with_act_quant("static", scales, clamp=True).with_abft(True)
+    step = protected.make_serve_step(cfg, plan=plan, backend="cuda",
+                                     kv_policy="in-place-fused",
+                                     act_quant="plan")
+    cache = kvcache.init_cache(cfg, batch, 64, kv_policy="in-place-fused",
+                               device=dev)
+    tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+    step(enc, cache, tok, torch.zeros((batch,), dtype=torch.int32,
+                                      device=dev))  # warm
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.time()
+        for t in range(1, 5):
+            pos = torch.full((batch,), t, dtype=torch.int32, device=dev)
+            logits, cache, _ = step(enc, cache, tok, pos)
+            tok = logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+    kernels = _profile_table(torch, prof, wall_ms,
+                             "4 full-width static int8 decode steps",
+                             "chip_smoke_int8_profile.txt",
+                             ranges=("act_quant",))
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    split = {"fused matmul (qmatmul_kernel)": 0.0,
+             "ABFT compare (abft_compare_kernel)": 0.0,
+             "activation quantization (act_quant)": 0.0}
+    for e in kernels:
+        for key in list(split)[:2]:
+            if key.split("(")[-1].rstrip(")") in e.key:
+                split[key] += e.self_device_time_total / 1e3
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and \
+                e.name == "act_quant":
+            split["activation quantization (act_quant)"] += \
+                e.device_time_total / 1e3
+    split["the rest (attention, KV codec, norms, embedding, glue)"] = \
+        busy - sum(split.values())
+    log(f"int8 decode profile split (device ms over 4 steps, {busy:.2f} "
+        f"busy of {wall_ms:.2f} wall): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in split.items()))
+    del cache
 
 
 if __name__ == "__main__":

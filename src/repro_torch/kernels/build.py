@@ -30,12 +30,14 @@ SOURCES = ("ecc_codec", "ecc_qmatmul", "paged_attention", "chunked_attention",
 HEADERS = ("secded64.cuh",)
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U = ctypes.c_uint
 # C entry point -> (source, argtypes)
 SIGNATURES = {
     "ecc_decode_launch": ("ecc_codec", [_P, _P, _P, _LL, _P]),
     "ecc_encode_launch": ("ecc_codec", [_P, _P, _LL, _P]),
-    "ecc_qmatmul_float_launch": ("ecc_qmatmul",
-                                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "ecc_qmatmul_launch": ("ecc_qmatmul",
+                           [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
+                            _P, _P, _P, _I, _I, _I, _U, _P]),
     "fused_page_attention_launch": ("paged_attention",
                                     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _I, _I, _I, _I, _F, _LL, _I, _P]),

@@ -8,7 +8,7 @@ corrected at the point of use.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
       --tokens 16 --batch 4 [--scheme in-place] [--backend torch|cuda] \\
       [--kv-policy in-place-fused|in-place-chunked] [--prompt-len 512] \\
-      [--fault-rate 1e-4] [--device cuda|cpu]
+      [--fault-rate 1e-4] [--abft] [--act-clamp] [--device cuda|cpu]
 
 The backend defaults to the kernels (``cuda``) on the card and to the
 plain route (``torch``) on the CPU. With ``--prompt-len`` a random prompt
@@ -16,10 +16,17 @@ drawn from the seed is prefilled into the paged KV cache first (needs a
 ``--kv-policy``), and decoding continues from it; the ``-chunked`` KV
 presets serve contexts past the strip kernel's shared-memory wall.
 
+``--abft`` verifies ABFT checksums inside every protected matmul;
+``--act-clamp`` calibrates per-leaf activation bounds from a seeded batch
+and clamps each matmul's output to them; mismatches and clamp hits are
+counted over the run. :func:`serve` also serves the int8 path
+(``act_quant="static"`` from the same calibration, or ``"dynamic"``),
+which the CLI does not offer, as the reference's does not.
+
 The CLI serves the smoke configs (``configs.get_smoke``), as the reference
 CLI does; :func:`serve` takes any config, e.g. the full-width
 ``configs.get("deepseek-7b")``. The fault smoke-check campaigns, burst
-mode, scrubbing and ABFT are not ported yet.
+mode and scrubbing are not ported yet.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import torch
 from repro_torch import configs
 from repro_torch import device as device_mod
 from repro_torch.models import lm
+from repro_torch.core import quant
 from repro_torch.protection import backends, policy as policy_mod, schemes
 from repro_torch.serving import kvcache, protected
 
@@ -50,7 +58,8 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
           fault_rate: float = 0.0, correctable_only: bool = False,
           seed: int = 0, scheme: str = "in-place", backend=None,
           kv_policy=None, device=None, dtype=torch.bfloat16, weights=None,
-          log=print) -> dict:
+          abft: bool = False, act_clamp: bool = False, act_quant=None,
+          scales=None, log=print) -> dict:
     """Serve ``tokens`` greedy decode steps of a batch.
 
     The weights are drawn at random from ``seed`` and encoded leaf by leaf,
@@ -68,11 +77,22 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
     64-bit code block (weights and KV), so an in-place run must give the
     clean run's logits bit for bit.
 
+    ``abft`` checks every protected matmul's accumulator against its ABFT
+    checksums; ``act_clamp`` clamps each matmul's output to the absmax its
+    activations reached on a calibration batch ((2, 16) tokens drawn from
+    ``seed + 7``), run on the clean weights before any fault is injected;
+    ``scales`` (``{leaf path: a_scale}``, as
+    :func:`~repro_torch.serving.protected.calibrate_act_scales` returns
+    them) skips the calibration. ``act_quant`` ("static" from the same
+    scales, or "dynamic") serves the projections over the int8 path.
+
     Returns a dict with ``tokens`` (T, B) and ``logits`` (T, B, V) of every
     step, the run's fault accounting ``flags`` (weight corrected/DUE from
     the ``top`` and ``layers`` rows, KV from ``layers_kv``, prefill
-    included), the flipped bit positions of each injected image
-    (``weight_positions``, ``kv_positions``), and the timings ``seconds``,
+    included), the run's ABFT totals ``abft`` (``mismatches``,
+    ``clamp_hits``; the ``*_abft`` rows), the flipped bit positions of each
+    injected image (``weight_positions``, ``kv_positions``), the calibrated
+    ``scales`` (or None), and the timings ``seconds``,
     ``tok_per_s`` and ``step_ms`` of the decode (host clock, each step
     ended by a device sync). With a prompt it also holds ``prompt`` (B, S),
     ``prefill_logits`` (B, S, V), ``prefill_s`` and ``prefill_tok_per_s``.
@@ -107,6 +127,32 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
             f"{time.time() - t0:.1f}s")
     else:
         enc = weights
+    if scales is None and (act_clamp or act_quant == "static"):
+        gen_c = torch.Generator(device=dev)
+        gen_c.manual_seed(seed + 7)
+        cal = torch.randint(0, cfg.vocab, (2, 16), generator=gen_c,
+                            device=dev)
+        t0 = time.time()
+        scales = protected.calibrate_act_scales(cfg, enc, cal,
+                                                plan=plan, backend=backend,
+                                                dtype=dtype)
+        log(f"[serve] calibrated {len(scales)} activation scales in "
+            f"{time.time() - t0:.2f}s")
+    if act_quant == "static":
+        plan = plan.with_act_quant("static", scales, clamp=act_clamp)
+    elif act_quant is not None:
+        plan = plan.with_act_quant(act_quant)
+    if abft or act_clamp:
+        clamps = None
+        if act_clamp and act_quant != "static":
+            clamps = {p: v * quant.QMAX for p, v in scales.items()}
+        # use-time knobs only: the encoded images stay valid
+        plan = plan.with_abft(abft, clamps=clamps)
+    if abft or act_clamp or act_quant:
+        s = plan.summary()
+        log(f"[serve] ABFT guard: {s['n_abft']} checksum-verified leaves, "
+            f"{s['n_clamped']} activation-clamped; activation quant "
+            f"{s['act_quant'] or 'none'}")
     weight_positions: dict = {}
     if fault_rate:
         gen = torch.Generator(device=dev)
@@ -116,8 +162,10 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
         n = sum(int(p.numel()) for p in weight_positions.values())
         log(f"[serve] injected {n} bit flips into the resident weight images")
 
+    aq = "plan" if act_quant else None
     step = protected.make_serve_step(cfg, plan=plan, backend=backend,
-                                     kv_policy=kvp, dtype=dtype)
+                                     kv_policy=kvp, dtype=dtype,
+                                     act_quant=aq)
     max_len = prompt_len + tokens if prompt_len else max(64, tokens * 2)
     cache = kvcache.init_cache(cfg, batch, max_len, kv_policy=kvp,
                                dtype=dtype, device=dev)
@@ -137,7 +185,7 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
                                generator=gen_p, device=dev)
         prefill = protected.make_prefill(cfg, plan=plan, backend=backend,
                                          kv_policy=kvp, dtype=dtype,
-                                         with_flags=True)
+                                         with_flags=True, act_quant=aq)
         _sync(dev)
         t0 = time.time()
         plogits, cache, pflags = prefill(enc, cache, prompt)
@@ -173,9 +221,14 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
         step_s.append(time.time() - t_step)
     dt = time.time() - t_run
     acc = {"corrected": 0, "due": 0, "kv_corrected": 0, "kv_due": 0}
+    guard = {"mismatches": 0, "clamp_hits": 0}
     for flags in step_flags:
         for k, v in flags.items():
             pair = v.reshape(-1, 2).sum(dim=0).tolist()
+            if k.endswith("_abft"):  # (mismatches, clamp hits), not ECC
+                guard["mismatches"] += pair[0]
+                guard["clamp_hits"] += pair[1]
+                continue
             pre = "kv_" if k == "layers_kv" else ""
             acc[pre + "corrected"] += pair[0]
             acc[pre + "due"] += pair[1]
@@ -190,10 +243,15 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
     if kvp is not None:
         log(f"[serve] KV decode-at-use accounting: {acc['kv_corrected']} "
             f"corrected, {acc['kv_due']} DUE")
+    if abft or act_clamp:
+        log(f"[serve] ABFT compute-fault accounting: {guard['mismatches']} "
+            f"checksum mismatches, {guard['clamp_hits']} activation clamp "
+            f"hits")
     toks = torch.stack(out_tok).cpu()
     log(f"[serve] sample continuation: {toks[:, 0].tolist()}")
     return {"tokens": toks, "logits": torch.stack(out_logits),
-            "flags": acc, "weight_positions": weight_positions,
+            "flags": acc, "abft": guard, "scales": scales,
+            "weight_positions": weight_positions,
             "kv_positions": kv_positions, "seconds": dt,
             "tok_per_s": tokens * batch / dt, "step_ms": ms, **extra}
 
@@ -220,13 +278,25 @@ def main(argv=None):
                     help="serve against the paged protected KV cache under "
                          "this preset; with --fault-rate, faults are also "
                          "injected into the live cache pools mid-run")
+    ap.add_argument("--abft", action="store_true",
+                    help="verify ABFT checksums inside every protected "
+                         "matmul (row/col sums vs the accumulator, same "
+                         "kernel pass); mismatches surface on the *_abft "
+                         "flags rows")
+    ap.add_argument("--act-clamp", action="store_true",
+                    help="calibrate per-leaf activation absmax bounds from "
+                         "a seeded batch and fuse the range clamps into "
+                         "the matmul epilogue; clamp hits ride the *_abft "
+                         "flags rows")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain route")
     args = ap.parse_args(argv)
-    serve(configs.get_smoke(args.arch), batch=args.batch, tokens=args.tokens,
-          prompt_len=args.prompt_len, fault_rate=args.fault_rate,
-          seed=args.seed, scheme=args.scheme, backend=args.backend,
-          kv_policy=args.kv_policy, device=args.device)
+    return serve(configs.get_smoke(args.arch), batch=args.batch,
+                 tokens=args.tokens, prompt_len=args.prompt_len,
+                 fault_rate=args.fault_rate, seed=args.seed,
+                 scheme=args.scheme, backend=args.backend,
+                 kv_policy=args.kv_policy, device=args.device,
+                 abft=args.abft, act_clamp=args.act_clamp)
 
 
 if __name__ == "__main__":

@@ -6,10 +6,11 @@ the cache-less forward), chunked causal attention, SwiGLU, embedding and
 logits. ``wt`` is the weight transform of QAT training (fake-quant): it
 applies to projection weights and the head only, never to the embedding
 lookup or to norms, and defaults to the identity so the serve paths are
-untouched. Where the reference routes fault flags through a module-level
-sink (``layers.record_flags``), the port hands each decode-at-use view the
-``record`` method of a :class:`FlagRecorder` that the serve step creates
-per step and the model drains per layer, so the flags come back as values.
+untouched. Where the reference routes fault flags, ABFT counts and
+calibration absmaxes through module-level sinks (``layers.record_flags``,
+``record_abft``, ``record_act``), the port hands each decode-at-use view
+the methods of a :class:`FlagRecorder` that the serve step creates per
+step and the model drains per layer, so they come back as values.
 """
 from __future__ import annotations
 
@@ -23,26 +24,57 @@ def Identity(w):
 
 
 class FlagRecorder:
-    """(corrected, due) accumulator of one serve step: every decode-at-use
-    view records into it, and the model drains it once per layer."""
+    """The per-step channels of one serve step, prefill or calibration
+    pass: every decode-at-use view records into it, and the model drains it
+    once per layer.
 
-    def __init__(self, device):
+    * (corrected, due) memory-fault counts: :meth:`record` / :meth:`drain`;
+    * with ``abft=True``, (checksum mismatches, clamp hits) of the guarded
+      matmuls: :meth:`record_abft` / :meth:`drain_abft`;
+    * the calibration channel, each matmul's activation absmax by leaf
+      path, kept as device tensors: :meth:`record_act` /
+      :meth:`drain_acts`."""
+
+    def __init__(self, device, *, abft: bool = False):
         self.device = device
+        self.abft = abft
         self._pairs: list = []
+        self._abft: list = []
+        self._acts: dict = {}
+
+    def _sum(self, pairs) -> torch.Tensor:
+        """Sum and clear recorded pairs -> (2,) int32, in one stack and one
+        reduction however many pairs there are."""
+        if not pairs:
+            return torch.zeros(2, dtype=torch.int32, device=self.device)
+        vals = torch.stack([torch.as_tensor(x).reshape(()).to(
+            device=self.device, dtype=torch.int32) for p in pairs for x in p])
+        pairs.clear()
+        return vals.view(-1, 2).sum(0, dtype=torch.int32)
 
     def record(self, corrected, due) -> None:
         self._pairs.append((corrected, due))
 
     def drain(self) -> torch.Tensor:
         """Sum and clear the recorded pairs -> (2,) int32."""
-        total = torch.zeros(2, dtype=torch.int32, device=self.device)
-        for c, d in self._pairs:
-            total = total + torch.stack([torch.as_tensor(c).reshape(()),
-                                         torch.as_tensor(d).reshape(())]
-                                        ).to(device=self.device,
-                                             dtype=torch.int32)
-        self._pairs.clear()
-        return total
+        return self._sum(self._pairs)
+
+    def record_abft(self, mismatches, clamp_hits) -> None:
+        self._abft.append((mismatches, clamp_hits))
+
+    def drain_abft(self) -> torch.Tensor:
+        """Sum and clear the (mismatches, clamp hits) pairs -> (2,) int32."""
+        return self._sum(self._abft)
+
+    def record_act(self, path: str, absmax) -> None:
+        prev = self._acts.get(path)
+        self._acts[path] = absmax if prev is None else torch.maximum(prev,
+                                                                     absmax)
+
+    def drain_acts(self) -> dict:
+        """Clear and return the recorded ``{leaf path: absmax}`` map."""
+        out, self._acts = self._acts, {}
+        return out
 
 
 # --------------------------------------------------------------------------
@@ -183,9 +215,11 @@ def _proj(x, w, b=None, wt=Identity):
 
 
 def gqa_attention(p, x, cfg, *, positions, wt=Identity, causal=True,
-                  window=0, chunk=2048):
+                  window=0, chunk=2048, attention="torch"):
     """Attention over a full sequence (training, cache-less forward).
-    x: (B, S, D); positions: (B, S) int."""
+    x: (B, S, D); positions: (B, S) int. ``attention`` routes the causal
+    attention: "torch" (:func:`chunked_causal_attention`) or "cuda" (the
+    flash kernel; no window)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _proj(x, p["wq"], p.get("bq"), wt).reshape(b, s, h, hd)
@@ -197,7 +231,13 @@ def gqa_attention(p, x, cfg, *, positions, wt=Identity, causal=True,
     k = k.repeat_interleave(rep, dim=2)
     v = v.repeat_interleave(rep, dim=2)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-    if causal:
+    if causal and attention == "cuda":
+        if window:
+            raise NotImplementedError("the flash kernel has no sliding "
+                                      "window")
+        from repro_torch.kernels import flash_attention
+        o = flash_attention.flash_attention(q, k, v)
+    elif causal:
         o = chunked_causal_attention(q, k, v, chunk=chunk, window=window)
     else:  # bidirectional (an encoder)
         o, _, l = _attend_chunk(q, k, v, None, 1.0 / np.sqrt(hd))

@@ -130,32 +130,43 @@ def _unstack(sub, n: int) -> list:
     return [_take(i, sub) for i in range(n)]
 
 
-def _block_full(cfg: ArchConfig, lp, x, positions, wt, chunk):
+def _block_full(cfg: ArchConfig, lp, x, positions, wt, chunk,
+                attention="torch"):
     """One dense decoder block over a full sequence."""
     nk = cfg.norm
     x = x + L.gqa_attention(lp["attn"], L.apply_norm(x, lp["ln1"], nk), cfg,
-                            positions=positions, wt=wt, chunk=chunk)
+                            positions=positions, wt=wt, chunk=chunk,
+                            attention=attention)
     return x + L.swiglu(lp["mlp"], L.apply_norm(x, lp["ln2"], nk), wt)
 
 
 def forward(cfg: ArchConfig, params, tokens, *, wt=L.Identity,
             dtype=torch.bfloat16, chunk: int = 2048, layer_transform=None,
-            collect_flags=False, collect_acts=False, prefix_embeds=None,
-            enc_embeds=None):
+            collect_flags=False, collect_acts=False, recorder=None,
+            attention="torch", prefix_embeds=None, enc_embeds=None):
     """tokens: (B, S) int -> logits (B, S, V). ``wt`` transforms each
     projection weight and the head at use (QAT's fake-quant; per layer
     slice, as the reference's scan applies it); ``layer_transform`` maps
     each layer's param slice. With ``cfg.remat`` each layer is recomputed
     in the backward pass (``torch.utils.checkpoint``) instead of keeping
-    its activations."""
+    its activations. ``attention`` routes the causal attention: "torch"
+    (``layers.chunked_causal_attention``) or "cuda" (the flash kernel).
+
+    ``collect_flags`` / ``collect_acts`` drain the ``recorder``
+    (:class:`layers.FlagRecorder`) once per layer, as the reference drains
+    its sinks per scanned layer, and return ``(logits, flags)``,
+    ``(logits, acts)`` or ``(logits, flags, acts)``: ``flags["layers"]``
+    (L, 2) per-layer (corrected, due), plus ``flags["layers_abft"]`` (L, 2)
+    (mismatches, clamp hits) when the recorder's ABFT channel is on;
+    ``acts["layers"]`` ``{leaf path: (L,) f32 absmax}``. The output head
+    records after the layers and stays in the recorder for the caller."""
     if cfg.family != "dense":
         raise NotImplementedError(f"forward for family {cfg.family!r} is not "
                                   f"ported yet (dense only; the other "
                                   f"families come with their own slice)")
-    if collect_flags or collect_acts:
-        raise NotImplementedError(
-            "collect_flags / collect_acts come with the cache-less "
-            "decode-at-use prefill and int8 calibration slices")
+    if (collect_flags or collect_acts) and recorder is None:
+        raise ValueError("collect_flags / collect_acts drain a recorder: "
+                         "pass layers.FlagRecorder")
     if prefix_embeds is not None or enc_embeds is not None:
         raise NotImplementedError("prefix and encoder embeddings come with "
                                   "the vlm and enc-dec families")
@@ -167,15 +178,29 @@ def forward(cfg: ArchConfig, params, tokens, *, wt=L.Identity,
     def blk(x, lp):
         if layer_transform is not None:
             lp = layer_transform(lp)
-        return _block_full(cfg, lp, x, positions, wt, chunk)
+        return _block_full(cfg, lp, x, positions, wt, chunk, attention)
 
+    layer_flags, layer_abft, layer_acts = [], [], []
     for lp in _unstack(params["layers"], n_scan_layers(cfg)):
         if cfg.remat and torch.is_grad_enabled():
             x = checkpoint(blk, x, lp, use_reentrant=False)
         else:
             x = blk(x, lp)
+        if collect_flags:
+            _drain_layer(recorder, layer_flags, layer_abft)
+        if collect_acts:
+            layer_acts.append(recorder.drain_acts())
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
-    return L.logits(x, params["head"], wt)
+    out = L.logits(x, params["head"], wt)
+    if not (collect_flags or collect_acts):
+        return out
+    extra = ()
+    if collect_flags:
+        extra += (_layer_rows(layer_flags, layer_abft),)
+    if collect_acts:
+        extra += ({"layers": {p: torch.stack([d[p] for d in layer_acts])
+                              for p in layer_acts[0]}},)
+    return (out, *extra)
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, wt=L.Identity,
@@ -197,10 +222,11 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
     Returns ``(logits (B,1,V), cache)``; the cache is updated in place. With
     a ``recorder`` (:class:`layers.FlagRecorder`) it also returns a flags
     dict: ``"layers"`` (L, 2) int32 per-layer (corrected, due) drained from
-    the recorder after each layer, and — for a paged protected KV cache
-    (marked by its ``"k_pages"`` pools, served under ``kv_policy``) —
-    ``"layers_kv"`` (L, 2) KV counts. The output head's flags stay in the
-    recorder for the caller to drain.
+    the recorder after each layer, ``"layers_abft"`` (L, 2) (checksum
+    mismatches, clamp hits) when the recorder's ABFT channel is on, and —
+    for a paged protected KV cache (marked by its ``"k_pages"`` pools,
+    served under ``kv_policy``) — ``"layers_kv"`` (L, 2) KV counts. The
+    output head's counts stay in the recorder for the caller to drain.
     """
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
@@ -212,7 +238,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
         if kvp is None:
             raise ValueError("cache is paged (k_pages present) but no "
                              "kv_policy was passed to decode_step")
-    layer_flags, kv_flags = [], []
+    layer_flags, kv_flags, abft_flags = [], [], []
     for i in range(n_scan_layers(cfg)):
         lp = _take(i, params["layers"])
         if layer_transform is not None:
@@ -227,16 +253,32 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
             o, _ = L.gqa_decode(lp["attn"], h, cfg, lc, pos=pos)
         x = x + o
         x = x + L.swiglu(lp["mlp"], L.apply_norm(x, lp["ln2"], cfg.norm))
-        if recorder is not None:
-            layer_flags.append(recorder.drain())
+        _drain_layer(recorder, layer_flags, abft_flags)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     logits = L.logits(x, params["head"])
     if recorder is None:
         return logits, cache
-    flags = {"layers": torch.stack(layer_flags)}
+    flags = _layer_rows(layer_flags, abft_flags)
     if paged:
         flags["layers_kv"] = torch.stack(kv_flags)
     return logits, cache, flags
+
+
+def _drain_layer(recorder, layer_flags: list, abft_flags: list) -> None:
+    """Drain one layer's (corrected, due) and, with the ABFT channel on,
+    its (mismatches, clamp hits) from ``recorder``."""
+    if recorder is None:
+        return
+    layer_flags.append(recorder.drain())
+    if recorder.abft:
+        abft_flags.append(recorder.drain_abft())
+
+
+def _layer_rows(layer_flags: list, abft_flags: list) -> dict:
+    flags = {"layers": torch.stack(layer_flags)}
+    if abft_flags:
+        flags["layers_abft"] = torch.stack(abft_flags)
+    return flags
 
 
 def prefill_with_cache(cfg: ArchConfig, params, cache, tokens, *,
@@ -250,7 +292,8 @@ def prefill_with_cache(cfg: ArchConfig, params, cache, tokens, *,
     reflect exactly the state later :func:`decode_step` calls read. Returns
     ``(logits (B, S, V), cache)``; with a ``recorder`` also a flags dict
     with ``"layers"`` (weight) and ``"layers_kv"`` (KV) per-layer
-    (corrected, due) rows, as :func:`decode_step` returns them.
+    (corrected, due) rows and, with the recorder's ABFT channel on,
+    ``"layers_abft"``, as :func:`decode_step` returns them.
     """
     from repro_torch.serving import kvcache
     if "k_pages" not in cache:
@@ -266,7 +309,7 @@ def prefill_with_cache(cfg: ArchConfig, params, cache, tokens, *,
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
-    layer_flags, kv_flags = [], []
+    layer_flags, kv_flags, abft_flags = [], [], []
     for i in range(n_scan_layers(cfg)):
         lp = _take(i, params["layers"])
         if layer_transform is not None:
@@ -279,11 +322,10 @@ def prefill_with_cache(cfg: ArchConfig, params, cache, tokens, *,
         x = x + o
         x = x + L.swiglu(lp["mlp"], L.apply_norm(x, lp["ln2"], cfg.norm))
         kv_flags.append(kvf)
-        if recorder is not None:
-            layer_flags.append(recorder.drain())
+        _drain_layer(recorder, layer_flags, abft_flags)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     logits = L.logits(x, params["head"])
     if recorder is None:
         return logits, cache
-    return logits, cache, {"layers": torch.stack(layer_flags),
+    return logits, cache, {**_layer_rows(layer_flags, abft_flags),
                            "layers_kv": torch.stack(kv_flags)}

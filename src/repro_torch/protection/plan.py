@@ -2,10 +2,11 @@
 
 Counterpart of ``repro.protection.plan`` for a single-scheme policy: built
 once from ``(policy, params)`` (tensors or :class:`ShapeDtype` records), it
-holds each leaf's :class:`LeafPlan` — scheme, layout, backend and stored
-bytes — and encodes a tree (or one leaf at a time, for models that do not
-fit twice in memory) under it. Presets, mesh specs, diffs, ABFT and
-activation-quant decisions are not ported yet.
+holds each leaf's :class:`LeafPlan` — scheme, layout, backend, stored
+bytes and the serve-time activation-quant, ABFT and clamp decisions — and
+encodes a tree (or one leaf at a time, for models that do not fit twice in
+memory) under it. Presets, mesh specs, diffs and autotune tiles are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch import tree
+from repro_torch.core import quant
 
 from .schemes import get_scheme
 
@@ -37,7 +39,16 @@ class ShapeDtype:
 
 @dataclasses.dataclass(frozen=True)
 class LeafPlan:
-    """One leaf's resolved decision (see the reference's field docs)."""
+    """One leaf's resolved decision (see the reference's field docs).
+
+    act_quant: None (float activations) | "dynamic" (per-token absmax) |
+               "static" (calibrated ``a_scale``), set by
+               :meth:`ProtectionPlan.with_act_quant`.
+    a_scale:   the calibrated static activation scale, or None.
+    abft:      verify ABFT checksums on this leaf's matmuls
+               (:meth:`ProtectionPlan.with_abft`).
+    clamp:     activation-range bound (absmax) of the epilogue output, hits
+               counted; None leaves the output unclipped."""
     path: str
     scheme_id: Optional[str]
     reason: str
@@ -49,6 +60,10 @@ class LeafPlan:
     pad_bytes: int
     check_bytes: int
     stored_bytes: int
+    act_quant: Optional[str] = None
+    a_scale: Optional[float] = None
+    abft: bool = False
+    clamp: Optional[float] = None
 
     @property
     def protected(self) -> bool:
@@ -120,7 +135,75 @@ class ProtectionPlan:
             "by_scheme": self.by_scheme(),
             "by_backend": self.by_backend(),
             "n_flat_padded": sum(lp.layout == "flat-padded" for lp in prot),
+            "act_quant": self._count(prot, "act_quant"),
+            "n_abft": sum(lp.abft for lp in prot),
+            "n_clamped": sum(lp.clamp is not None for lp in prot),
         }
+
+    @staticmethod
+    def _count(leaves, field) -> dict:
+        """{value: count} over truthy values of one LeafPlan field."""
+        out: dict = {}
+        for lp in leaves:
+            v = getattr(lp, field)
+            if v:
+                out[v] = out.get(v, 0) + 1
+        return out
+
+    def _matmul_leaf(self, lp) -> bool:
+        return lp.protected and len(lp.shape) >= 2
+
+    def with_act_quant(self, mode: str = "dynamic",
+                       scales: Optional[dict] = None, *,
+                       clamp: bool = False) -> "ProtectionPlan":
+        """A new plan whose protected matmul leaves (ndim >= 2) carry
+        activation-quant decisions for the int8 serve path: "dynamic"
+        (per-token absmax at use) for every one of them, or "static" for
+        exactly the leaves in ``scales`` (``{path: a_scale}`` from
+        ``serving.protected.calibrate_act_scales``). ``clamp=True`` (static
+        only) also sets each calibrated leaf's clamp to ``a_scale * 127``,
+        the absmax the scale came from."""
+        if mode not in ("static", "dynamic"):
+            raise ValueError(f"act-quant mode {mode!r}; one of "
+                             f"('static', 'dynamic')")
+        if mode == "static" and not scales:
+            raise ValueError("static activation quantization needs calibrated"
+                             " scales — run calibrate_act_scales() first")
+        if clamp and mode != "static":
+            raise ValueError("clamp ranges come from calibrated absmax — use "
+                             "mode='static' with calibrate_act_scales()")
+        scales = scales or {}
+        leaves = {}
+        for p, lp in self.leaves.items():
+            if not self._matmul_leaf(lp):
+                leaves[p] = lp
+            elif mode == "dynamic":
+                leaves[p] = dataclasses.replace(lp, act_quant="dynamic")
+            elif p in scales:
+                s = float(scales[p])
+                leaves[p] = dataclasses.replace(
+                    lp, act_quant="static", a_scale=s,
+                    clamp=s * quant.QMAX if clamp else lp.clamp)
+            else:
+                leaves[p] = lp
+        return ProtectionPlan(self.policy, leaves)
+
+    def with_abft(self, enabled: bool = True, *,
+                  clamps: Optional[dict] = None) -> "ProtectionPlan":
+        """A new plan whose protected matmul leaves verify ABFT checksums at
+        every use (``enabled``); ``clamps`` maps leaf paths to activation
+        bounds fused into the same epilogue (leaves not in it keep their
+        clamp)."""
+        clamps = clamps or {}
+        leaves = {}
+        for p, lp in self.leaves.items():
+            if not self._matmul_leaf(lp):
+                leaves[p] = lp
+            else:
+                leaves[p] = dataclasses.replace(
+                    lp, abft=bool(enabled),
+                    clamp=float(clamps[p]) if p in clamps else lp.clamp)
+        return ProtectionPlan(self.policy, leaves)
 
     def coverage(self):
         from .policy import CoverageEntry, CoverageReport

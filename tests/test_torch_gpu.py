@@ -69,11 +69,144 @@ def test_gpu_qmatmul_kernel_matches_plain(cuda, dtype, m, k, n):
     gen = torch.Generator(device=cuda).manual_seed(m + k + n)
     w, s = _encoded_weight(k, n, cuda, gen)
     a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
-    ko, kf = ecc_qmatmul.ecc_qmatmul(a, w, s)
-    po, pf = ecc_qmatmul.ecc_qmatmul_plain(a, w, s)
+    ko, kf = ecc_qmatmul.ecc_qmatmul(a, w, s, with_flags=True)
+    po, pf = ecc_qmatmul.ecc_qmatmul_plain(a, w, s, with_flags=True)
     assert kf.tolist() == pf.tolist() and kf.tolist() != [0, 0]
     # both sum the same f32 products in different orders
     torch.testing.assert_close(ko, po, rtol=1e-4, atol=1e-4)
+
+
+def _leaves(x) -> list:
+    """The tensors of a nested tuple, in order."""
+    if isinstance(x, tuple):
+        return [t for e in x for t in _leaves(e)]
+    return [x]
+
+
+def _assert_same(got, want):
+    """Every returned tensor equal byte for byte (dtype included)."""
+    got, want = _leaves(got), _leaves(want)
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y), (x, y)
+
+
+def _int8_case(m, k, n, dev, gen):
+    w, s = _encoded_weight(k, n, dev, gen)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    return a, w, s
+
+
+# ragged M, N and K; 37 and 70 rows take the M > 32 row chunks
+INT8_SHAPES = [(37, 200, 72), (4, 64, 8), (1, 520, 136), (9, 136, 64),
+               (70, 100, 136)]
+
+
+@pytest.mark.parametrize("kind", ["raw", "raw-abft", "scalar", "rows-bias",
+                                  "f32-abft", "f16-clamp-abft"])
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_gpu_qmatmul_int8_paths_match_plain(cuda, kind, m, k, n):
+    """The exact paths: int32 accumulators byte-equal, requantized outputs
+    bit-equal, flags, row and column counts and clamp hits equal."""
+    gen = torch.Generator(device=cuda).manual_seed(m * k + n)
+    a, w, s = _int8_case(m, k, n, cuda, gen)
+    rows = 0.01 + 0.04 * torch.rand((m, 1), generator=gen, device=cuda)
+    bias = torch.randint(-5000, 5000, (n,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    kw = {"raw": {}, "raw-abft": dict(with_abft=True),
+          "scalar": dict(a_scale=torch.tensor(0.02, device=cuda)),
+          "rows-bias": dict(a_scale=rows, bias=bias),
+          "f32-abft": dict(a_scale=rows[:, 0], out_dtype=torch.float32,
+                           with_abft=True),
+          "f16-clamp-abft": dict(a_scale=rows, out_dtype=torch.float16,
+                                 with_abft=True, clamp=2.0)}[kind]
+    args = (a, w) if kind.startswith("raw") else (a, w, s)
+    before = build.COUNTS["ecc_qmatmul"]
+    got = ecc_qmatmul.ecc_qmatmul(*args, with_flags=True, **kw)
+    assert build.COUNTS["ecc_qmatmul"] == before + 1
+    want = ecc_qmatmul.ecc_qmatmul_plain(*args, with_flags=True, **kw)
+    _assert_same(got, want)
+    assert got[1].tolist() != [0, 0]
+    if kind == "f16-clamp-abft":
+        assert int(got[2][0][:, 1].sum()) > 0        # the clamp hit
+    if "abft" in kind:                              # no false positive
+        assert int(got[2][0][:, 0].sum()) == 0 and int(got[2][1]) == 0
+
+
+def _clamp_between(y):
+    """A clamp bound near the 90% quantile of |y| in the widest gap among
+    its neighbours, so the kernel's and the plain version's summation
+    orders cannot put a value on the other side of it."""
+    v = y.abs().flatten().sort().values
+    i = int(0.9 * (v.numel() - 1))
+    lo, hi = max(i - 50, 0), min(i + 50, v.numel() - 1)
+    gaps = v[lo + 1:hi + 1] - v[lo:hi]
+    j = lo + int(gaps.argmax())
+    return float((v[j] + v[j + 1]) / 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(37, 200, 72), (4, 64, 8), (9, 136, 64)])
+def test_gpu_qmatmul_float_abft_clamp_match_plain(cuda, dtype, m, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(m + 7 * n)
+    w, s = _encoded_weight(k, n, cuda, gen)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    c = _clamp_between(ecc_qmatmul.ecc_qmatmul_plain(a, w, s))
+    ko, kf, (kr, kc) = ecc_qmatmul.ecc_qmatmul(a, w, s, with_flags=True,
+                                               with_abft=True, clamp=c)
+    po, pf, (pr, pc) = ecc_qmatmul.ecc_qmatmul_plain(
+        a, w, s, with_flags=True, with_abft=True, clamp=c)
+    assert kf.tolist() == pf.tolist()
+    assert torch.equal(kr, pr) and int(kc) == int(pc) == 0
+    assert int(kr[:, 1].sum()) > 0 and int(kr[:, 0].sum()) == 0
+    torch.testing.assert_close(ko, po, rtol=1e-4, atol=1e-4)
+    # the guarded output equals the unguarded one where nothing was clipped
+    plain = ecc_qmatmul.ecc_qmatmul(a, w, s)
+    assert torch.equal(ko[ko.abs() < c], plain[ko.abs() < c])
+
+
+@pytest.mark.parametrize("path", ["raw", "requant", "float"])
+def test_gpu_qmatmul_fault_bits_detected(cuda, path):
+    """Every int bit (0..30) on the int paths, every exponent bit (23..30)
+    on the float path, flipped into element (0, 0): rows[0, 0] == 1,
+    col_mm == 1, on the kernel and the plain version alike."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a, w, s = _int8_case(40, 96, 128, cuda, gen)
+    if path == "float":
+        a = torch.randn((40, 96), generator=gen, device=cuda)
+        a[0] *= 64   # |acc[0, 0]| away from [1, 2): no flip to inf / NaN
+    args = (a, w) if path == "raw" else (a, w, s)
+    kw = dict(a_scale=torch.tensor(0.02, device=cuda)) \
+        if path == "requant" else {}
+    for bit in (range(23, 31) if path == "float" else range(31)):
+        got = ecc_qmatmul.ecc_qmatmul(*args, with_abft=True,
+                                      fault_bits=1 << bit, **kw)
+        want = ecc_qmatmul.ecc_qmatmul_plain(*args, with_abft=True,
+                                             fault_bits=1 << bit, **kw)
+        rows, col_mm = got[1]
+        assert torch.equal(rows, want[1][0]) and int(col_mm) == int(want[1][1])
+        assert int(rows[0, 0]) == 1 and int(col_mm) == 1, bit
+        assert int(rows[1:, 0].sum()) == 0
+
+
+def test_gpu_qmatmul_head_width_row_sum_wraps(cuda):
+    """A head-width strip (N = 102,400) of extreme int8 values: its row sums
+    pass 2^31 and wrap; the kernel's unsigned sums and the plain version's
+    wrapped int64 sums agree, with no mismatch clean and the flip found."""
+    k, n = 256, 102400
+    q = torch.full((k, n), 63, dtype=torch.int8, device=cuda)
+    q[:, 7::8] = 127
+    w = ecc.encode64(q.view(torch.uint8).reshape(k, n // 8, 8)).reshape(k, n)
+    a = torch.full((4, k), 127, dtype=torch.int8, device=cuda)
+    acc = ecc_qmatmul.ecc_qmatmul(a, w)
+    assert int(acc.to(torch.int64).sum(1).max()) >= 2 ** 31
+    for bits in (0, 1 << 30):
+        got = ecc_qmatmul.ecc_qmatmul(a, w, with_abft=True, fault_bits=bits)
+        want = ecc_qmatmul.ecc_qmatmul_plain(a, w, with_abft=True,
+                                             fault_bits=bits)
+        _assert_same(got, want)
+        assert int(got[1][0][0, 0]) == int(got[1][1]) == int(bool(bits))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -43,7 +43,7 @@ def test_ecc_qmatmul_plain_matches_reference_f32(m, k, n):
     jw, jc, jd = jpolicy.decode_leaf_with_flags(jpt, jnp.float32)
     ref = np.asarray(jnp.asarray(a) @ jw)
     out, flags = ecc_qmatmul.ecc_qmatmul(_t(a), _t(enc),
-                                         torch.tensor(scale))
+                                         torch.tensor(scale), with_flags=True)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
     assert flags.tolist() == [int(jc), int(jd)]
     assert flags.tolist() != [0, 0]
@@ -62,13 +62,17 @@ def test_ecc_qmatmul_bf16_activations_round_weights_like_reference():
     jw = jpolicy.decode_leaf(jpt, jnp.bfloat16)
     ref = np.asarray(jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)
                      .astype(jnp.float32) @ jw.astype(jnp.float32))
-    out, _ = ecc_qmatmul.ecc_qmatmul(a, _t(enc), torch.tensor(scale))
+    out = ecc_qmatmul.ecc_qmatmul(a, _t(enc), torch.tensor(scale))
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
 def test_ecc_qmatmul_unported_paths_raise():
+    """Every path of the reference is ported; what still raises are the
+    reference's own argument guards (ecc_qmatmul.py:312-332)."""
     enc = torch.zeros((8, 8), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError):
-        ecc_qmatmul.ecc_qmatmul(torch.zeros((2, 8), dtype=torch.int8), enc)
-    with pytest.raises(NotImplementedError):
-        ecc_qmatmul.ecc_qmatmul(torch.zeros((2, 8)), enc, 1.0, with_abft=True)
+    q = torch.zeros((2, 8), dtype=torch.int8)
+    assert ecc_qmatmul.ecc_qmatmul(q, enc).dtype == torch.int32
+    with pytest.raises(ValueError, match="clamp"):
+        ecc_qmatmul.ecc_qmatmul(q, enc, clamp=1.0)
+    with pytest.raises(ValueError, match="w_scale"):
+        ecc_qmatmul.ecc_qmatmul(torch.zeros((2, 8)), enc, with_abft=True)

@@ -220,13 +220,13 @@ def test_chunked_policy_routes_decode_through_the_chunked_wrapper(
 
 
 def test_make_prefill_raises_on_unported_forms():
+    """The whole-tree decode ablation is the one unported form (the
+    cache-less prefill and ``act_quant`` are ported)."""
     cfg = tconfigs.get_smoke("deepseek-7b")
-    with pytest.raises(NotImplementedError, match="lm.forward"):
-        tprot.make_prefill(cfg)
     with pytest.raises(NotImplementedError, match="decode_at_use"):
         tprot.make_prefill(cfg, kv_policy="in-place", decode_at_use=False)
-    with pytest.raises(NotImplementedError, match="act_quant"):
-        tprot.make_prefill(cfg, kv_policy="in-place", act_quant="dynamic")
+    with pytest.raises(ValueError, match="act_quant"):
+        tprot.make_prefill(cfg, kv_policy="in-place", act_quant="sometimes")
     prefill = tprot.make_prefill(cfg, kv_policy="in-place")
     with pytest.raises(ValueError, match="paged cache"):
         prefill({}, {"k": None}, torch.zeros((1, 4), dtype=torch.long))

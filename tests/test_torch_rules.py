@@ -12,7 +12,7 @@ import torch
 from repro import configs as jconfigs
 from repro_torch import configs, device
 from repro_torch.kernels import (ecc_decode, ecc_encode, ecc_qmatmul,
-                                 flash_attention, paged_attention,
+                                 flash_attention, ops, paged_attention,
                                  quant_throttle, throttle)
 from repro_torch.launch import serve
 from repro_torch.launch import train as launch_train
@@ -30,6 +30,12 @@ def _imports(path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module or ""
+
+
+def test_scan_covers_the_kernel_modules():
+    scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for name in ("ref", "ops", "ecc_qmatmul", "build"):
+        assert f"src/repro_torch/kernels/{name}.py" in scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -66,6 +72,13 @@ def test_copied_configs_equal_the_reference(arch):
         assert mine.vocab_padded == ref.vocab_padded
 
 
+def _leaves(x) -> list:
+    """The tensors of a nested tuple, in order."""
+    if isinstance(x, tuple):
+        return [t for e in x for t in _leaves(e)]
+    return [x]
+
+
 def test_wrappers_take_the_plain_route_for_cpu_tensors(monkeypatch):
     """On a CPU tensor each wrapper returns exactly its plain version and
     never reaches the kernel build or the launch counters."""
@@ -85,9 +98,30 @@ def test_wrappers_take_the_plain_route_for_cpu_tensors(monkeypatch):
     a = torch.randn(3, 16, generator=g)
     w = blocks.reshape(16, 32)
     s = torch.tensor(0.01)
-    out, fl = ecc_qmatmul.ecc_qmatmul(a, w, s)
-    pout, pfl = ecc_qmatmul.ecc_qmatmul_plain(a, w, s)
+    out, fl = ecc_qmatmul.ecc_qmatmul(a, w, s, with_flags=True)
+    pout, pfl = ecc_qmatmul.ecc_qmatmul_plain(a, w, s, with_flags=True)
     assert torch.equal(out, pout) and torch.equal(fl, pfl)
+    # every other path of the fused matmul: raw int8, requantize (scalar
+    # and per-row scale, bias, out_dtype), ABFT, clamp, fault_bits
+    aq = torch.randint(-127, 128, (3, 16), generator=g, dtype=torch.int8)
+    rows = torch.rand(3, generator=g)
+    bias = torch.randint(-99, 99, (32,), generator=g, dtype=torch.int32)
+    for args, kw in (((aq, w), {}),
+                     ((aq, w), dict(with_abft=True, fault_bits=1 << 9)),
+                     ((aq, w, s), dict(a_scale=rows, bias=bias,
+                                       with_flags=True)),
+                     ((aq, w, s), dict(a_scale=s, out_dtype=torch.float16,
+                                       clamp=0.5, with_abft=True)),
+                     ((a, w, s), dict(with_abft=True, clamp=0.1,
+                                      fault_bits=1 << 27))):
+        got = ecc_qmatmul.ecc_qmatmul(*args, **kw)
+        want = ecc_qmatmul.ecc_qmatmul_plain(*args, **kw)
+        got, want = _leaves(got), _leaves(want)
+        assert len(got) == len(want) and all(
+            x.dtype == y.dtype and torch.equal(x, y)
+            for x, y in zip(got, want))
+    assert torch.equal(ops.qmatmul_protected(aq, w, s, s),
+                       ecc_qmatmul.ecc_qmatmul_plain(aq, w).float() * (s * s))
     q = torch.randn(2, 2, 1, 8, generator=g)
     ke = torch.randint(0, 256, (2, 16, 2, 8), generator=g, dtype=torch.uint8)
     sc = torch.rand(2, 16, generator=g)

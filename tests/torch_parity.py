@@ -23,11 +23,14 @@ from repro.serving import protected as jprot
 from repro_torch import configs as tconfigs
 from repro_torch import convert
 from repro_torch.data import synthetic
+from repro_torch.models import lm as tlm
+from repro_torch.protection import ProtectionPolicy as TProtectionPolicy
 from repro_torch.serving import kvcache as tkv
 from repro_torch.serving import protected as tprot
 
 BATCH, STEPS, MAX_LEN = 2, 3, 32
 FAULT_RATE = 2e-3
+CAL_SHAPE = (2, 16)   # calibration tokens of the int8 tests
 
 
 def export(enc):
@@ -156,3 +159,49 @@ def token_batch(arch, b, s, step=0):
     """A (b, s) batch of the smoke config's vocabulary, seed 1."""
     cfg = tconfigs.get_smoke(arch)
     return synthetic.token_batch(cfg.vocab_padded, b, s, seed=1, step=step)
+
+
+def seeded_tokens(cfg, shape, seed):
+    """int32 tokens of ``cfg``'s vocabulary from a NumPy seed."""
+    return np.random.default_rng(seed).integers(0, cfg.vocab, shape,
+                                                dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def calibrated_model(arch):
+    """(cfg, reference plan, exported encoded tree, the reference's f32
+    activation scales from ``CAL_SHAPE`` tokens of seed 3)."""
+    cfg, plan, _, enc = _reference_model(arch)
+    toks = jnp.asarray(seeded_tokens(cfg, CAL_SHAPE, 3))
+    scales = jprot.calibrate_act_scales(cfg, enc, toks, plan=plan,
+                                        backend="xla", dtype=jnp.float32,
+                                        chunk=16)
+    return cfg, plan, export(enc), scales
+
+
+def port_plan(arch):
+    """The port's default plan of ``arch``'s smoke config."""
+    cfg = tconfigs.get_smoke(arch)
+    return TProtectionPolicy().plan(tlm.param_shapes(cfg))
+
+
+def guarded(plan, scales, mode):
+    """(plan, act_quant) of one guarded serving mode, on either package."""
+    if mode == "static-clamp-abft":
+        return plan.with_act_quant("static", scales,
+                                   clamp=True).with_abft(True), "plan"
+    if mode == "static":
+        return plan.with_act_quant("static", scales), "static"
+    if mode == "dynamic-abft":
+        return plan.with_abft(True), "dynamic"
+    if mode == "float-abft-clamp":
+        return plan.with_abft(True, clamps={
+            p: s * 127 for p, s in scales.items()}), None
+    return plan, None
+
+
+def assert_flag_dict_equal(ref, got):
+    assert sorted(ref) == sorted(got)
+    for k in ref:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(ref[k]),
+                                      err_msg=k)
