@@ -42,7 +42,20 @@ d_model 4096, vocab 102400) at batch 4:
   CLI's float path with ``--abft --act-clamp``, and a 4 x 512-token int8
   prefill under ``in-place-chunked``: no ABFT mismatch anywhere; the kernel
   and plain routes of the int8 paths compared on a 2-layer full-width
-  model.
+  model;
+* burst serving through the request front-end
+  (``repro_torch.launch.serve.burst``: continuous batching over the paged
+  pool on 8 slots, two waves of twelve requests): clean twice (equal
+  deterministic telemetry), ``parity-zero-fused`` and
+  ``parity-zero-chunked`` with live KV flips (per-slot flags attributed
+  exactly, no DUE), ``in-place-chunked`` with prefix sharing and
+  copy-on-write (tokens of the run without sharing, the pool back at its
+  start), and ``in-place-fused`` with correctable KV flips only (tokens of
+  the clean run); with TTFT, TPOT, tok/s and a profile of eight steps.
+
+Phase 2 also holds the parity-zero decode and the per-slot flags of both
+paged-attention kernels to their plain versions at the burst's shapes, and
+phase 3 runs a 2-layer burst on both routes with the same pool flips.
 
 Launch counts are set to 0 just before each path and read just after.
 Every phase raises on failure and the script exits nonzero; it prints no
@@ -100,10 +113,18 @@ ORACLE_RTOL = 0.02
 # probability across a bf16 rounding boundary before PV (one ulp, 2^-8 p)
 # and the output rounds once (one ulp of |o|).
 FLASH_RTOL, FLASH_ATOL = 2.0 ** -6, 2e-3
+# the burst routes in f32 at 2 layers: the routes' K/V differ by int8
+# rounding (an f32 last-ulp difference in k can cross a quantization
+# boundary: one LSB of the token's absmax/127), which moved logits of
+# |logit| <= 5 by up to 0.015 on the card; greedy tokens may split only
+# where the top two logits lie this close
+ROUTE_F32_ATOL = 0.05
 # The training phase keeps every width and cuts deepseek-7b to 8 layers:
 # at 30 layers the f32 masters, the momentum and one gradient set alone
 # take 82.9 GB (12 B per parameter), more than the card's 80 GB.
 TRAIN_LAYERS = 8
+# The burst phase (9): eight slots of 16-token pages, 128 tokens each.
+BURST_SLOTS, BURST_MAX_LEN = 8, 128
 
 
 def fail(msg: str):
@@ -168,8 +189,11 @@ def main():
     t0 = time.time()
     guarded_counts = phase_guarded(torch, dev, build)
     log(f"phase 8 (guarded int8 path) took {time.time() - t0:.0f}s")
+    t0 = time.time()
+    burst_counts = phase_burst(torch, dev, build)
+    log(f"phase 9 (burst serving) took {time.time() - t0:.0f}s")
     counts = {k: decode_counts[k] + long_counts[k] + train_counts[k]
-              + guarded_counts[k] for k in build.COUNTS}
+              + guarded_counts[k] + burst_counts[k] for k in build.COUNTS}
     if sorted(entries) != sorted(counts):
         fail(f"kernels checked {sorted(entries)} != kernels counted "
              f"{sorted(counts)}")
@@ -185,6 +209,10 @@ def main():
               "ecc_qmatmul", "fused_page_attention")),
             ("guarded int8", guarded_counts,
              ("ecc_decode", "ecc_encode", "ecc_qmatmul", "flash_attention",
+              "fused_page_attention", "chunked_page_attention",
+              "throttle")),
+            ("burst", burst_counts,
+             ("ecc_decode", "ecc_encode", "ecc_qmatmul",
               "fused_page_attention", "chunked_page_attention",
               "throttle"))):
         missing = [k for k in needed if cnt[k] <= 0]
@@ -442,8 +470,10 @@ def phase_kernels(torch, dev):
         fail(f"fused_page_attention differs from its plain version in "
              f"{int((ko != po).sum())} outputs: max abs err {e}")
     kd_, vd_ = _decoded_bf16(torch, ke, ksc), _decoded_bf16(torch, ve, vsc)
-    mask = (torch.arange(s, device=dev)[None, :] <= pos[:, None])[:, None,
-                                                                   None, :]
+    # timed with every row at pos S - 1, where the bound's bytes and
+    # operations (all B * S tokens) are the work the kernel does
+    args = args[:-1] + (torch.full((b,), s - 1, dtype=torch.int32,
+                                   device=dev),)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     nbytes = (q.numel() * 2 + 2 * ke.numel() + 2 * ksc.numel() * 4 + 4 * b
               + q.numel() * 2 + b * kvh * 2 * 4)
@@ -456,12 +486,17 @@ def phase_kernels(torch, dev):
         plain_ms=cfg.n_layers * timer.ms(
             lambda: paged_attention.fused_page_attention_plain(*args)),
         bound_ms=cfg.n_layers * bb, bound_by=by,
-        library_ms=cfg.n_layers * timer.ms(
-            lambda: sdpa(q, kd_, vd_, attn_mask=mask)))
+        library_ms=cfg.n_layers * timer.ms(lambda: sdpa(q, kd_, vd_)))
     log(f"fused_page_attention (per step, 30 launches of B={b} H={h} S={s}): "
         f"{out['fused_page_attention']}")
     del args, ke, ve, kd_, vd_
     out["chunked_page_attention"] = check_chunked(torch, dev, cfg, timer, gen)
+    # the parity-zero decode and the per-slot flags of kernels 4 and 5, at
+    # the shapes of the burst phase (phase 9)
+    for name, pz in check_parity_zero(torch, dev, cfg, timer, gen).items():
+        out[name]["parity_zero"] = pz
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                       pz["max_abs_err"])
     out["flash_attention"] = check_flash(torch, dev, cfg, timer, gen)
     out["quantize_throttle"] = check_quant_throttle(torch, dev, timer, gen)
     out["throttle"] = check_throttle(torch, dev, timer, gen)
@@ -759,6 +794,129 @@ def check_chunked(torch, dev, cfg, timer, gen):
     return entry
 
 
+def _flip_check_bytes(torch, ch, every, gen):
+    """Flip one random bit of every ``every``-th check byte, in place."""
+    flat = ch.view(-1)
+    idx = torch.arange(0, flat.numel(), every, device=ch.device)
+    bits = torch.randint(0, 8, idx.shape, generator=gen, device=ch.device)
+    flat[idx] ^= (torch.ones_like(bits) << bits).to(torch.uint8)
+
+
+def _bad_bytes_truth(torch, clean, flipped, ch_clean, ch_flipped):
+    """Per-byte parity failures from the flips themselves: a byte is bad
+    when an odd number of its bits flipped XOR its check bit flipped
+    (independent of the decode under test). -> (B, S, KV, hd) bool."""
+    from repro_torch.core import ecc
+    par = ecc.byte_parity(clean ^ flipped).bool()
+    d = (ch_clean ^ ch_flipped).to(torch.int32)
+    shifts = torch.arange(8, dtype=torch.int32, device=d.device)
+    chk = ((d[..., None] >> shifts) & 1).bool().reshape(par.shape)
+    return par ^ chk
+
+
+def check_parity_zero(torch, dev, cfg, timer, gen):
+    """Both paged-attention kernels under ``scheme="parity-zero"`` at the
+    burst phase's shapes (B = BURST_SLOTS, S = BURST_MAX_LEN, KV 32, hd
+    128, bf16 q), data bytes AND check bytes flipped, ragged positions:
+    per-slot (2, B) rows and totals equal to the plain version's, the
+    corrected count equal to the bad bytes of valid tokens (counted from
+    the flips), DUE 0; the strip kernel bit-equal to its plain version,
+    the chunked kernel within CHUNKED_* of it and ORACLE_RTOL of the fp64
+    oracle. Timed per decode step (30 launches) at the path's last step
+    (every row at pos S - 1), as rows 4-5."""
+    from repro_torch.kernels import paged_attention
+    from repro_torch.serving import kvcache
+    b, s = BURST_SLOTS, BURST_MAX_LEN
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    policy = kvcache.get_kv_policy("parity-zero")
+    strips, truth = [], 0
+    pos = torch.tensor([127, 100, 64, 33, 16, 15, 1, 0][:b],
+                       dtype=torch.int32, device=dev)
+    valid = torch.arange(s, device=dev)[None, :] <= pos[:, None]
+    for every in (97, 131):
+        e, c, sc = kvcache._encode_kv(
+            torch.randn((b, s, kvh, hd), generator=gen, device=dev), policy)
+        e, c = e.contiguous(), c.contiguous()
+        e0, c0 = e.clone(), c.clone()
+        flip_blocks(torch, e.view(-1, 8), 300, 100, gen)
+        _flip_check_bytes(torch, c, every, gen)
+        bad = _bad_bytes_truth(torch, e0, e, c0, c)
+        truth += int((bad.sum((-2, -1)) * valid).sum())
+        strips += [e, c, sc]
+    q = torch.randn((b, h, 1, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    args = (q, strips[0], strips[1], strips[2], strips[3], strips[4],
+            strips[5], pos)
+    chunk = min(kvcache.get_kv_policy("parity-zero-chunked").chunk_pages *
+                policy.page_size, s)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kd_ = _decoded_parity_bf16(torch, *strips[0:3])
+    vd_ = _decoded_parity_bf16(torch, *strips[3:6])
+    last = args[:-1] + (torch.full((b,), s - 1, dtype=torch.int32,
+                                   device=dev),)
+    nbytes = (2 * q.numel() * 2 + 2 * b * s * kvh * hd
+              + 2 * b * s * kvh * hd // 8 + 2 * b * s * 4 + 4 * b
+              + b * kvh * 2 * 4)
+    bb, by = bound_ms(nbytes, 4 * b * h * s * hd)
+    n = cfg.n_layers
+    out = {}
+    for name, fn, plain, kw in (
+            ("fused_page_attention", paged_attention.fused_page_attention,
+             paged_attention.fused_page_attention_plain, {}),
+            ("chunked_page_attention", paged_attention.chunked_page_attention,
+             paged_attention.chunked_page_attention_plain,
+             dict(chunk_tokens=chunk))):
+        ko, rows = fn(*args, scheme="parity-zero", per_slot=True, **kw)
+        po, prow = plain(*args, scheme="parity-zero", per_slot=True, **kw)
+        _, tot = fn(*args, scheme="parity-zero", **kw)
+        if not torch.equal(rows, prow) or rows.shape != (2, b):
+            fail(f"{name} parity-zero per-slot rows {rows.tolist()} vs plain "
+                 f"{prow.tolist()}")
+        if tot.tolist() != rows.sum(1).tolist() or \
+                tot.tolist() != [truth, 0] or truth == 0:
+            fail(f"{name} parity-zero totals {tot.tolist()}: per-slot sum "
+                 f"{rows.sum(1).tolist()}, bad bytes of valid tokens "
+                 f"{truth}, DUE must be 0")
+        e = (ko.float() - po.float()).abs()
+        if name == "fused_page_attention":
+            if not torch.equal(ko, po):
+                fail(f"{name} parity-zero differs from its plain version in "
+                     f"{int((ko != po).sum())} outputs: max abs err "
+                     f"{float(e.max())}")
+        else:
+            if bool((e > CHUNKED_RTOL * po.float().abs()
+                     + CHUNKED_ATOL).any()):
+                fail(f"{name} parity-zero out of tolerance of its plain "
+                     f"version: max abs err {float(e.max())}")
+            oracle = paged_attention.oracle_page_attention(
+                *args, scheme="parity-zero")
+            oerr = float(abs(ko.double().cpu().numpy() - oracle).max())
+            if oerr > ORACLE_RTOL * float(abs(oracle).max()):
+                fail(f"{name} parity-zero {oerr} from the fp64 oracle")
+        # timed at the path's last step (every row at pos S - 1), where
+        # the bound's bytes and operations (all B * S tokens) are the work
+        run = lambda f=fn, k=kw: f(*last, scheme="parity-zero",
+                                   per_slot=True, **k)
+        prun = lambda f=plain, k=kw: f(*last, scheme="parity-zero",
+                                       per_slot=True, **k)
+        out[name] = dict(
+            ms=n * timer.ms(run), plain_ms=n * timer.ms(prun),
+            bound_ms=n * bb, bound_by=by, max_abs_err=float(e.max()),
+            library_ms=n * timer.ms(lambda: sdpa(q, kd_, vd_)))
+        log(f"{name} parity-zero (per step, 30 launches of B={b} H={h} "
+            f"S={s}): rows {rows.tolist()}, {truth} bad bytes of valid "
+            f"tokens; {out[name]}")
+    return out
+
+
+def _decoded_parity_bf16(torch, enc, ch, sc):
+    """Parity-zero (B, S, KV, hd) strip -> dequantized bf16 (B, KV, S, hd)."""
+    from repro_torch.core import ecc
+    qv = ecc.decode_parity8(enc, ch)[0].view(torch.int8)
+    return (qv.float() * sc[..., None, None]).to(torch.bfloat16).transpose(
+        1, 2)
+
+
 def check_flash(torch, dev, cfg, timer, gen):
     """flash_attention at the prefill's shape (B 4, H 32, S 2,048, hd 128,
     bf16; 30 launches per prefill) and at a ragged S, against its plain
@@ -1014,7 +1172,114 @@ def phase_routes(torch, dev):
                 float(diff.mean()) > E2E_MEAN_ATOL:
             fail(f"kernel route {name} logits out of tolerance of the plain "
                  f"route")
+    route_bursts(torch, dev, cfg, enc)
     del enc
+
+
+def _pool_flipper(torch, dev, keys, every=4, n=400, seed=100, extra=()):
+    """A ``before_step`` hook flipping ``n`` seeded bits of each pool in
+    ``keys`` (encoded pages and check planes) every ``every`` steps, in the
+    front-end's cache and in each cache of ``extra``: the same bits on
+    every cache and every front-end it is given to."""
+    from repro_torch.core import faults
+
+    def flip(fe):
+        if fe.step_no % every:
+            return
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + fe.step_no)
+        for key in keys:
+            pos = torch.randint(0, fe.cache[key].numel() * 8, (n,),
+                                generator=gen, device=dev)
+            for cache in (fe.cache, *extra):
+                faults.flip_positions_(cache[key].view(-1), pos)
+    return flip
+
+
+def _row_recorder(store: list):
+    """An ``after_step`` hook keeping each step's per-slot KV rows
+    (n_layers, 2, B) and the slots that served a request."""
+    def rec(fe):
+        store.append((fe.last_flags["layers_kv"].cpu(), fe.last_active))
+    return rec
+
+
+def route_bursts(torch, dev, cfg, enc):
+    """The burst path on both routes at 2 full-width layers, in f32, in
+    lockstep: one front-end drives the plain route (``parity-zero``, decode
+    then attend) and, with the same tokens and positions and its own copy
+    of the page tables, the kernel route (``parity-zero-fused`` or
+    ``-chunked``) on a cache of its own; the same flips hit both caches'
+    pages and check planes every 4 steps. At every step the kernel route's
+    (n_layers, 2, B) KV rows must equal the plain route's, its logits lie
+    within ROUTE_F32_ATOL of them, and its greedy token equal the plain
+    route's wherever the plain route's top logit leads the kernel route's
+    pick by more than ROUTE_F32_ATOL (a split inside that is a near-tie,
+    counted). Lockstep, because the two routes' K/V differ by int8
+    rounding (a last-ulp difference in k crosses a quantization boundary)
+    and two free-running bursts part at the first near-tie."""
+    import dataclasses
+
+    from repro_torch.serving import frontend, kvcache, protected
+    waves = frontend.make_waves(seed=1, n_waves=2, wave_size=12,
+                                prompt_len=(8, 24), max_new=(4, 8),
+                                gap_steps=8, vocab=cfg.vocab)
+    keys = ("k_pages", "v_pages", "k_checks", "v_checks")
+    per_slot = lambda name: dataclasses.replace(
+        kvcache.get_kv_policy(name), per_slot_flags=True)
+    plain_step = protected.make_serve_step(
+        cfg, backend="torch", kv_policy=per_slot("parity-zero"),
+        dtype=torch.float32)
+    npg = kvcache.pages_per_seq(BURST_MAX_LEN, 16)
+    for name in ("parity-zero-fused", "parity-zero-chunked"):
+        kstep = protected.make_serve_step(cfg, backend="cuda",
+                                          kv_policy=per_slot(name),
+                                          dtype=torch.float32)
+        kcache = kvcache.init_paged_cache(
+            cfg, BURST_SLOTS, BURST_MAX_LEN, name,
+            n_pages=BURST_SLOTS * (1 + npg), device=dev)
+        st = {"steps": 0, "ties": 0, "max_diff": 0.0, "corrected": 0}
+
+        def lockstep(weights, cache, tokens, pos):
+            kcache["kv_table"].copy_(cache["kv_table"])
+            lk, _, fk = kstep(weights, kcache, tokens, pos)
+            lp, cache, fp = plain_step(weights, cache, tokens, pos)
+            if not torch.equal(fk["layers_kv"], fp["layers_kv"]):
+                fail(f"route bursts: {name} per-slot KV rows "
+                     f"{fk['layers_kv'].sum(0).tolist()} differ from the "
+                     f"plain route's {fp['layers_kv'].sum(0).tolist()} at "
+                     f"step {st['steps']}")
+            lk, lp = lk[:, -1].float(), lp[:, -1].float()
+            st["max_diff"] = max(st["max_diff"],
+                                 float((lk - lp).abs().max()))
+            pick_k, pick_p = lk.argmax(-1), lp.argmax(-1)
+            for i in (pick_k != pick_p).nonzero().flatten().tolist():
+                lead = float(lp[i, pick_p[i]] - lp[i, pick_k[i]])
+                if lead > ROUTE_F32_ATOL:
+                    fail(f"route bursts: {name} picks token {int(pick_k[i])}"
+                         f" where the plain route's {int(pick_p[i])} leads "
+                         f"by {lead:.4g} (step {st['steps']}, slot {i})")
+                st["ties"] += 1
+            st["steps"] += 1
+            st["corrected"] += int(fp["layers_kv"][:, 0].sum())
+            return lp[:, None], cache, fp
+
+        _, summ, _ = frontend.run_burst(
+            cfg, enc, waves=waves, slots=BURST_SLOTS, max_len=BURST_MAX_LEN,
+            kv_policy="parity-zero", serve_step=lockstep,
+            dtype=torch.float32, backend="torch", device=dev,
+            before_step=_pool_flipper(torch, dev, keys, extra=(kcache,)))
+        if st["max_diff"] > ROUTE_F32_ATOL or st["corrected"] == 0 or \
+                summ["due"]["total"]:
+            fail(f"route bursts: {name} logits {st['max_diff']:.4g} from "
+                 f"the plain route (> {ROUTE_F32_ATOL}?), {st['corrected']} "
+                 f"corrected bytes, DUE {summ['due']['total']}")
+        log(f"2-layer full-width burst in lockstep, {name} (cuda) vs "
+            f"parity-zero (torch), f32: {st['steps']} steps, per-slot KV rows"
+            f" equal at every step ({st['corrected']} corrected bytes), "
+            f"logits within {st['max_diff']:.4g}, greedy tokens equal but "
+            f"for {st['ties']} near-ties within {ROUTE_F32_ATOL}")
+        del kcache
 
 
 # ---------------------------------------------------------------------------
@@ -1654,6 +1919,225 @@ def phase_guarded(torch, dev, build):
              for k in build.COUNTS}
     log(f"launch counts over the guarded int8 path: {total}")
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 9: burst serving through the request front-end, full width
+# ---------------------------------------------------------------------------
+
+
+def _burst_metrics(r) -> dict:
+    """The end-to-end numbers of one burst, from its telemetry."""
+    summ = r["summary"]
+    steps = [e["step_ms"] for e in r["events"] if e["event"] == "step"]
+    return {"finished": summ["requests"]["finished"],
+            "submitted": summ["requests"]["submitted"],
+            "steps": summ["steps"], "gen_tokens": summ["gen_tokens"],
+            # end to end: generated tokens over the burst's wall time
+            # (admission, finishes, telemetry and injection included);
+            # the roll-up's rate sums only the steps' own windows
+            "tok_per_s": summ["gen_tokens"] / r["seconds"],
+            "step_tok_per_s": summ["throughput"]["tokens_per_s"],
+            "ttft_s": summ["ttft_s"], "ttft_steps": summ["ttft_steps"],
+            "tpot_ms": summ["per_token_ms"],
+            "step_ms_median": statistics.median(steps),
+            "seconds": r["seconds"], "pool": summ["pool"],
+            "kv_corrected": summ["due"]["corrected_total"],
+            "kv_due": summ["due"]["total"], "sharing": summ["sharing"]}
+
+
+def _check_attribution(name, r, rows):
+    """Per-slot rows against the telemetry: the rows of active slots sum to
+    the finish events' per-request counts, all rows to the step events'
+    totals; no DUE, some corrected bytes."""
+    ev = r["events"]
+    fin = [e for e in ev if e["event"] == "finish"]
+    steps = [e for e in ev if e["event"] == "step"]
+    act = [0, 0]
+    every = [0, 0]
+    for kv, active in rows:
+        slot_rows = kv.sum(0)                          # (2, B)
+        for i in range(2):
+            every[i] += int(slot_rows[i].sum())
+            act[i] += sum(int(slot_rows[i, j]) for j in active)
+    per_req = [sum(e["kv_corrected"] for e in fin),
+               sum(e["kv_due"] for e in fin)]
+    per_step = [sum(e["kv_corrected"] for e in steps),
+                sum(e["kv_due"] for e in steps)]
+    if act != per_req or every != per_step or len(rows) != len(steps):
+        fail(f"{name}: per-slot rows of active slots {act} vs per-request "
+             f"{per_req}; all rows {every} vs step totals {per_step}")
+    if per_req[1] or per_step[1] or per_req[0] == 0:
+        fail(f"{name}: parity-zero must count corrected bytes and no DUE: "
+             f"{per_req}")
+    log(f"{name}: per-slot rows of active slots sum to the per-request "
+        f"counts {per_req}; all rows to the step totals {per_step}")
+
+
+class _step_profiler:
+    """``before_step`` / ``after_step`` hooks that run ``torch.profiler``
+    over ``steps`` front-end steps from step ``first`` (host work of the
+    front-end included) and report the device-busy share and top ops."""
+
+    def __init__(self, torch, first: int, steps: int):
+        from torch.profiler import ProfilerActivity, profile
+        self.torch, self.first, self.last = torch, first, first + steps
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.t0 = self.wall_ms = None
+
+    def before(self, fe):
+        if fe.step_no == self.first:
+            self.torch.cuda.synchronize()
+            self.prof.start()
+            self.t0 = time.time()
+
+    def after(self, fe):
+        if fe.step_no == self.last:        # step ``last - 1`` just ran
+            self.torch.cuda.synchronize()
+            self.wall_ms = 1e3 * (time.time() - self.t0)
+            self.prof.stop()
+
+    def report(self):
+        if self.wall_ms is None:
+            fail("the burst ended before its profiled window")
+        _profile_table(self.torch, self.prof, self.wall_ms,
+                       f"{self.last - self.first} full-width burst steps "
+                       f"(in-place-fused, {BURST_SLOTS} slots)",
+                       "chip_smoke_burst_profile.txt")
+
+
+def phase_burst(torch, dev, build):
+    """Full-width deepseek-7b (30 layers, bf16) through
+    ``repro_torch.launch.serve.burst``: two waves of twelve requests on
+    BURST_SLOTS slots of BURST_MAX_LEN tokens.
+
+    a. ``in-place-fused``, clean, twice: equal deterministic views;
+    b. ``parity-zero-fused``, weight flips once and live KV flips every
+       4 steps: per-slot KV attribution exact, DUE 0, corrected > 0;
+    c. ``parity-zero-chunked``, the same;
+    d. ``in-place-chunked`` over a 32-token shared prefix (two full pages;
+       suffixes of 0-16 tokens, so a prompt may end on the shared boundary
+       and copy on write) with prefix sharing: a cow event, the pool's
+       free count back at its start once the prefix cache is dropped, the
+       tokens of the same burst without sharing;
+    e. ``in-place-fused`` with weight and KV flips of one bit per code
+       block: the tokens of (a)."""
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import burst
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
+    from repro_torch.serving import frontend, telemetry
+
+    cfg = get("deepseek-7b")
+    waves = frontend.make_waves(seed=0, n_waves=2, wave_size=12,
+                                prompt_len=(8, 48), max_new=(4, 16),
+                                gap_steps=16, vocab=cfg.vocab)
+    shared = frontend.make_waves(seed=0, n_waves=2, wave_size=12,
+                                 prompt_len=(0, 16), max_new=(4, 16),
+                                 gap_steps=16, shared_prefix_len=32,
+                                 vocab=cfg.vocab)
+    plan = policy_mod.ProtectionPolicy(backend="cuda").plan(
+        lm.param_shapes(cfg))
+    t0 = time.time()
+    enc = lm.init_params(cfg, 0, device=dev, leaf_fn=plan.encode_leaf)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"burst phase: drew and encoded full-width weights in "
+        f"{time.time() - t0:.1f}s")
+    kw = dict(slots=BURST_SLOTS, max_len=BURST_MAX_LEN, backend="cuda",
+              device=dev, weights=enc, log=log)
+    rate = 1e-6
+    runs, rows = {}, {}
+    build.reset_counts()
+    runs["a"] = burst(cfg, waves=waves, kv_policy="in-place-fused", **kw)
+    # the replay also profiles eight steps in the middle of the burst
+    profiled = _step_profiler(torch, first=40, steps=8)
+    runs["a2"] = burst(cfg, waves=waves, kv_policy="in-place-fused",
+                       before_step=profiled.before, after_step=profiled.after,
+                       **kw)
+    for name, kvp in (("b", "parity-zero-fused"),
+                      ("c", "parity-zero-chunked")):
+        rows[name] = []
+        runs[name] = burst(cfg, waves=waves, kv_policy=kvp,
+                           fault_rate=rate, seed=3,
+                           after_step=_row_recorder(rows[name]), **kw)
+        del runs[name]["weights"]      # the injected copy: free it now
+    fes = set()      # the sharing run's front-end, for its allocator
+    runs["d"] = burst(cfg, waves=shared, kv_policy="in-place-chunked",
+                      prefix_sharing=True, after_step=fes.add, **kw)
+    runs["d0"] = burst(cfg, waves=shared, kv_policy="in-place-chunked", **kw)
+    runs["e"] = burst(cfg, waves=waves, kv_policy="in-place-fused",
+                      fault_rate=rate, correctable_only=True, seed=5, **kw)
+    del runs["e"]["weights"]
+    counts = dict(build.COUNTS)
+    log(f"launch counts over the burst runs: {counts}")
+
+    a = runs["a"]
+    if a["summary"]["requests"]["finished"] != len(waves) or \
+            a["summary"]["due"]["corrected_total"] or \
+            a["summary"]["pool"]["leaked_pages"]:
+        fail(f"clean burst: {a['summary']['requests']}, "
+             f"{a['summary']['due']}, {a['summary']['pool']}")
+    if telemetry.deterministic_view(a["events"]) != \
+            telemetry.deterministic_view(runs["a2"]["events"]) or \
+            a["results"] != runs["a2"]["results"]:
+        fail("two clean bursts of the same seed differ in their "
+             "deterministic views")
+    log("clean burst replayed: deterministic views and tokens equal")
+    for name in ("b", "c"):
+        _check_attribution(f"burst {name}", runs[name], rows[name])
+    d, d0 = runs["d"], runs["d0"]
+    cows = [e for e in d["events"] if e["event"] == "cow"]
+    (fe,) = fes
+    start = d["summary"]["pool"]["initial_free"]
+    dropped = fe.drop_prefix_cache()
+    if not cows or fe.allocator.free_count != start or \
+            fe.allocator.live_count != 0:
+        fail(f"prefix-sharing burst: {len(cows)} cow events, free pages "
+             f"{fe.allocator.free_count} after dropping {dropped} cached "
+             f"(start {start})")
+    if d["results"] != d0["results"] or \
+            d["summary"]["sharing"]["pages_shared"] == 0:
+        fail("prefix sharing changed the tokens (or shared nothing)")
+    log(f"prefix-sharing burst: {len(cows)} cow events, "
+        f"{d['summary']['sharing']['pages_shared']} pages shared, "
+        f"{d['summary']['steps']} steps against {d0['summary']['steps']} "
+        f"without sharing, tokens equal; pool back to {start} free pages")
+    e = runs["e"]["summary"]["due"]
+    w = [sum(ev[k] for ev in runs["e"]["events"] if ev["event"] == "step")
+         for k in ("w_corrected", "w_due")]
+    if runs["e"]["results"] != a["results"] or e["total"] or \
+            e["corrected_total"] == 0 or w[1] or w[0] == 0:
+        fail(f"correctable-only burst: KV {e}, weights corrected/DUE {w}, "
+             f"tokens equal to the clean burst: "
+             f"{runs['e']['results'] == a['results']}")
+    log(f"correctable-only burst: {e['corrected_total']} corrected KV "
+        f"blocks and {w[0]} corrected weight blocks over the steps, no DUE, "
+        f"tokens equal to the clean burst")
+    profiled.report()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    metrics = {}
+    for name, r in runs.items():
+        m = metrics[name] = _burst_metrics(r)
+        log(f"burst {name} ({smi}): {m['finished']}/{m['submitted']} "
+            f"requests in {m['steps']} steps, {m['gen_tokens']} tokens, "
+            f"{m['tok_per_s']:.2f} tok/s over {m['seconds']:.2f} s of wall "
+            f"({m['step_tok_per_s']:.2f} over the steps' windows), TTFT "
+            f"p50/p99 "
+            f"{m['ttft_s']['p50']:.3f}/{m['ttft_s']['p99']:.3f} s, TPOT "
+            f"p50/p99 {m['tpot_ms']['p50']:.2f}/{m['tpot_ms']['p99']:.2f} "
+            f"ms, median {m['step_ms_median']:.2f} ms/step, pool "
+            f"{m['pool']['initial_free']} free at start, peak "
+            f"{m['pool']['peak_pages_in_use']} in use, "
+            f"{m['pool']['leaked_pages']} leaked")
+    with open(OUT_DIR / "chip_smoke_burst.json", "w") as fh:
+        json.dump({"card": smi, "runs": metrics}, fh, indent=1)
+    del enc, runs, fes
+    torch.cuda.empty_cache()
+    return counts
 
 
 def route_check(torch, dev, cal):

@@ -1,9 +1,12 @@
 """In-place SEC-DED (64,57,1) codec: tables and the plain PyTorch version.
 
-Counterpart of ``repro.core.ecc`` (the in-place code only; ``secded72`` and
-parity-per-byte come with the schemes that use them). The 7 check bits of
-each 8-byte block live in bit 6 of bytes 0..6, which WOT-constrained int8
-weights leave free (bit 6 == bit 7 there).
+Counterpart of ``repro.core.ecc``: the in-place (64,57,1) code, the
+standard (72,64,1) SEC-DED baseline (``encode72``/``decode72``, one check
+byte per 8-byte block, stored out of place) and the parity-per-byte
+"Parity Zero" baseline (``encode_parity8``/``decode_parity8``, one check
+byte per 8 data bytes). The 7 check bits of each in-place block live in
+bit 6 of bytes 0..6, which WOT-constrained int8 weights leave free (bit 6
+== bit 7 there).
 
 Code construction: GF(2)^7 has exactly 64 odd-weight vectors; each is the
 parity-check column of one bit of the 64-bit word, the seven weight-1
@@ -165,6 +168,101 @@ def decode64(blocks: torch.Tensor):
     """
     dec, single, double = decode64_words(_words(blocks))
     return _bytes(dec), single, double
+
+
+# ---------------------------------------------------------------------------
+# (72, 64, 1) standard SEC-DED baseline
+# ---------------------------------------------------------------------------
+
+
+def _build_cols72() -> np.ndarray:
+    """COLS72[g] = 8-bit column of data bit g (g in [0, 64)); the check
+    columns are the 8 weight-1 vectors (the separate check byte)."""
+    vals = [v for v in _odd_weight_values(8) if bin(v).count("1") >= 3]
+    if len(vals) < 64:
+        raise AssertionError(len(vals))
+    return np.asarray(vals[:64], dtype=np.uint8)
+
+
+COLS72 = _build_cols72()
+ROWMASK72 = np.zeros((8, 8), dtype=np.uint8)
+for _k in range(8):
+    for _g in range(64):
+        if (COLS72[_g] >> _k) & 1:
+            ROWMASK72[_k, _g // 8] |= np.uint8(1 << (_g % 8))
+COLS72_BYBYTE = COLS72.reshape(8, 8)
+ROWMASK72_PACKED = tuple(
+    int(np.frombuffer(ROWMASK72[k].tobytes(), "<u8")[0]) for k in range(8))
+
+
+def _tables72(device) -> dict:
+    key = str(device)
+    t = _TABLE_CACHE.get(("72", key))
+    if t is None:
+        flip = [0] * 256
+        for g in range(64):
+            flip[int(COLS72[g])] = _as_int64(1 << g)
+        t = {"rowmask": [_as_int64(m) for m in ROWMASK72_PACKED],
+             "flip": torch.tensor(flip, dtype=torch.int64, device=device)}
+        _TABLE_CACHE[("72", key)] = t
+    return t
+
+
+def _syndrome72(words: torch.Tensor) -> torch.Tensor:
+    syn = torch.zeros_like(words)
+    for k, m in enumerate(_tables72(words.device)["rowmask"]):
+        syn |= _parity64(words & m) << k
+    return syn
+
+
+def encode72(blocks: torch.Tensor) -> torch.Tensor:
+    """The check byte of each 8-byte data block: (..., 8) uint8 -> (...,)
+    uint8."""
+    return _syndrome72(_words(blocks)).to(torch.uint8)
+
+
+def decode72(blocks: torch.Tensor, checks: torch.Tensor):
+    """Standard SEC-DED decode -> ``(data (..., 8) uint8, single (...,)
+    bool, double (...,) bool)``. A single-error syndrome that names no data
+    bit (a flip in the check byte) leaves the data as it is."""
+    words = _words(blocks)
+    syn = _syndrome72(words) ^ checks.to(torch.int64)
+    single = _parity64(syn).bool()
+    double = (syn != 0) & ~single
+    corrected = words ^ _tables72(words.device)["flip"][syn]
+    return _bytes(corrected), single, double
+
+
+# ---------------------------------------------------------------------------
+# parity-per-byte ("Parity Zero") baseline
+# ---------------------------------------------------------------------------
+
+
+def byte_parity(data: torch.Tensor) -> torch.Tensor:
+    """Parity of each byte of a uint8 tensor -> uint8 0/1."""
+    x = data ^ (data >> 4)
+    x = x ^ (x >> 2)
+    return (x ^ (x >> 1)) & 1
+
+
+def encode_parity8(data: torch.Tensor) -> torch.Tensor:
+    """One parity bit per byte, 8 bytes' parities packed into one check
+    byte (byte j's parity is bit ``j % 8`` of check byte ``j // 8``).
+
+    data: (..., n) uint8 with n % 8 == 0 -> (..., n // 8) uint8."""
+    par = byte_parity(data).to(torch.int32)
+    grouped = par.reshape(*par.shape[:-1], -1, BLOCK_BYTES)
+    shifts = torch.arange(BLOCK_BYTES, dtype=torch.int32, device=data.device)
+    return (grouped << shifts).sum(-1).to(torch.uint8)
+
+
+def decode_parity8(data: torch.Tensor, checks: torch.Tensor):
+    """Detect parity mismatches and zero the mismatching bytes (the paper's
+    "zero") -> ``(data, bad (..., n) bool)``."""
+    diff = (encode_parity8(data) ^ checks).to(torch.int32)   # (..., n // 8)
+    shifts = torch.arange(BLOCK_BYTES, dtype=torch.int32, device=data.device)
+    bad = ((diff[..., None] >> shifts) & 1).bool().reshape(data.shape)
+    return torch.where(bad, torch.zeros_like(data), data), bad
 
 
 def to_blocks(flat_bytes: torch.Tensor) -> torch.Tensor:

@@ -50,12 +50,16 @@ BLOCK_BITS = 64  # one (64,57,1) code block
 
 
 def flip_positions_(flat: torch.Tensor, positions: torch.Tensor, *,
-                    one_per_block: bool = False) -> torch.Tensor:
+                    one_per_block: bool = False,
+                    hit_blocks=None) -> torch.Tensor:
     """XOR the given global bit positions into a flat uint8 tensor IN PLACE
     and return the positions that stay flipped (drawn an odd number of
     times), sorted. With ``one_per_block`` only the lowest of those that
     fall in one 64-bit code block is flipped, so every flip is one the
-    (64,57,1) code corrects."""
+    (64,57,1) code corrects. ``hit_blocks``, a bool tensor over the image's
+    64-bit blocks, carries that guarantee across repeated injections: a
+    block already marked takes no new flip, and every flipped block is
+    marked (in place)."""
     uniq, counts = torch.unique(positions, return_counts=True)
     live = uniq[counts % 2 == 1]
     if one_per_block and live.numel():
@@ -63,6 +67,9 @@ def flip_positions_(flat: torch.Tensor, positions: torch.Tensor, *,
         first = torch.ones_like(live, dtype=torch.bool)
         first[1:] = blk[1:] != blk[:-1]
         live = live[first]
+    if hit_blocks is not None and live.numel():
+        live = live[~hit_blocks[live // BLOCK_BITS]]
+        hit_blocks[live // BLOCK_BITS] = True
     if live.numel():
         byte_idx, inv = torch.unique(live // 8, return_inverse=True)
         bits = torch.ones_like(live) << (live % 8)
@@ -73,9 +80,10 @@ def flip_positions_(flat: torch.Tensor, positions: torch.Tensor, *,
 
 
 def inject_torch(stored: torch.Tensor, rate: float,
-                 generator: torch.Generator, *, one_per_block: bool = False):
-    """Device injection at a Python-float rate (``one_per_block``: see
-    :func:`flip_positions_`).
+                 generator: torch.Generator, *, one_per_block: bool = False,
+                 hit_blocks=None):
+    """Device injection at a Python-float rate (``one_per_block`` and
+    ``hit_blocks``: see :func:`flip_positions_`).
 
     -> ``(flipped copy of stored, positions)`` where ``positions`` (int64,
     sorted) are the global bit positions of the flat image that end up
@@ -86,5 +94,6 @@ def inject_torch(stored: torch.Tensor, rate: float,
     n = n_faults(n_bits, rate)
     pos = torch.randint(0, n_bits, (n,), generator=generator,
                         device=stored.device, dtype=torch.int64)
-    live = flip_positions_(flat, pos, one_per_block=one_per_block)
+    live = flip_positions_(flat, pos, one_per_block=one_per_block,
+                           hit_blocks=hit_blocks)
     return flat.reshape(stored.shape), live

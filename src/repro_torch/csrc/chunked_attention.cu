@@ -13,8 +13,11 @@
 // sequential chunk axis is a loop inside the CTA, and chunks wholly past
 // pos are never read. Per chunk the CTA
 //   1. loads the chunk's encoded K and V blocks as 64-bit words (four
-//      loads in flight per thread), decodes them (secded64.cuh; the faulty
-//      scheme passes bytes through) into int8 in shared memory, and counts
+//      loads in flight per thread), decodes them into int8 in shared
+//      memory (scheme 1, in-place: secded64.cuh, flags per block; scheme
+//      2, parity-zero: parity8.cuh with the block's check byte from the
+//      (B, S, KV, hd/8) check strips, each bad byte zeroed and counted as
+//      corrected; scheme 0, faulty, passes bytes through), and counts
 //      (corrected, DUE) over valid tokens (<= pos) in registers;
 //   2. scores: one warp per (head, token), lanes over hd, the f32 dot of
 //      q (f32) with float(k) * k_scale, times 1/sqrt(hd); tokens past pos
@@ -48,6 +51,7 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "parity8.cuh"
 #include "secded64.cuh"
 
 namespace {
@@ -87,8 +91,10 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 chunked_attention_kernel(const T* __restrict__ q,
                          const uint8_t* __restrict__ ke,
+                         const uint8_t* __restrict__ kch,
                          const float* __restrict__ ksc,
                          const uint8_t* __restrict__ ve,
+                         const uint8_t* __restrict__ vch,
                          const float* __restrict__ vsc,
                          const int* __restrict__ pos_arr, T* __restrict__ out,
                          int* __restrict__ flags, int S, int KV, int H, int hd,
@@ -130,15 +136,19 @@ chunked_attention_kernel(const T* __restrict__ q,
     // 1. load and decode the chunk's K and V blocks
     for (int i0 = tid; i0 < nblk; i0 += THREADS * UNROLL) {
       uint64_t wk[UNROLL], wv[UNROLL];
+      uint32_t ck[UNROLL], cv[UNROLL];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int i = i0 + u * THREADS;
         if (i < nblk) {
           const int t = i / nb, j = i % nb;
-          const int64_t off =
-              (((int64_t)b * S + base + t) * KV + g) * hd + 8 * j;
-          wk[u] = *reinterpret_cast<const uint64_t*>(ke + off);
-          wv[u] = *reinterpret_cast<const uint64_t*>(ve + off);
+          const int64_t tok = ((int64_t)b * S + base + t) * KV + g;
+          wk[u] = *reinterpret_cast<const uint64_t*>(ke + tok * hd + 8 * j);
+          wv[u] = *reinterpret_cast<const uint64_t*>(ve + tok * hd + 8 * j);
+          if (scheme == 2) {
+            ck[u] = kch[tok * nb + j];
+            cv[u] = vch[tok * nb + j];
+          }
         }
       }
 #pragma unroll
@@ -155,6 +165,11 @@ chunked_attention_kernel(const T* __restrict__ q,
               my_cor += (int)((fk & 1u) + (fv & 1u));
               my_due += (int)((fk >> 1) + (fv >> 1));
             }
+          } else if (scheme == 2) {
+            int bk, bv;  // parity-zero counts bad BYTES, never a DUE
+            k = parity8::decode(k, ck[u], &bk);
+            v = parity8::decode(v, cv[u], &bv);
+            if (base + t <= pos) my_cor += bk + bv;
           }
           *reinterpret_cast<uint64_t*>(kq + (size_t)t * hd + 8 * j) = k;
           *reinterpret_cast<uint64_t*>(vq + (size_t)t * hd + 8 * j) = v;
@@ -236,39 +251,43 @@ chunked_attention_kernel(const T* __restrict__ q,
 }
 
 template <typename T>
-int launch(const void* q, const void* ke, const void* ksc, const void* ve,
-           const void* vsc, const void* pos, void* out, void* flags, int B,
-           int S, int KV, int H, int hd, int chunk, int scheme, float sm_scale,
-           size_t smem, cudaStream_t stream) {
+int launch(const void* q, const void* ke, const void* kch, const void* ksc,
+           const void* ve, const void* vch, const void* vsc, const void* pos,
+           void* out, void* flags, int B, int S, int KV, int H, int hd,
+           int chunk, int scheme, float sm_scale, size_t smem,
+           cudaStream_t stream) {
   auto kern = chunked_attention_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(B, KV), THREADS, smem, stream>>>(
-      (const T*)q, (const uint8_t*)ke, (const float*)ksc, (const uint8_t*)ve,
-      (const float*)vsc, (const int*)pos, (T*)out, (int*)flags, S, KV, H, hd,
-      chunk, scheme, sm_scale);
+      (const T*)q, (const uint8_t*)ke, (const uint8_t*)kch, (const float*)ksc,
+      (const uint8_t*)ve, (const uint8_t*)vch, (const float*)vsc,
+      (const int*)pos, (T*)out, (int*)flags, S, KV, H, hd, chunk, scheme,
+      sm_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q_bf16: 1 when q/out are bfloat16, 0 when float32. scheme: 0 faulty
-// (bytes pass through), 1 in-place. chunk: tokens per chunk (<= S).
-// smem: dynamic shared bytes; must equal the layout above.
+// (bytes pass through), 1 in-place, 2 parity-zero (kch/vch: the (B, S, KV,
+// hd/8) check strips; NULL for the other schemes). chunk: tokens per chunk
+// (<= S). smem: dynamic shared bytes; must equal the layout above.
 extern "C" int chunked_page_attention_launch(
-    const void* q, const void* ke, const void* ksc, const void* ve,
-    const void* vsc, const void* pos, void* out, void* flags, int B, int S,
-    int KV, int H, int hd, int chunk, int scheme, float sm_scale,
-    long long smem, int q_bf16, void* stream) {
-  if (chunk < 1 || hd % 8 || H % KV ||
+    const void* q, const void* ke, const void* kch, const void* ksc,
+    const void* ve, const void* vch, const void* vsc, const void* pos,
+    void* out, void* flags, int B, int S, int KV, int H, int hd, int chunk,
+    int scheme, float sm_scale, long long smem, int q_bf16, void* stream) {
+  if (chunk < 1 || hd % 8 || H % KV || scheme < 0 || scheme > 2 ||
+      (scheme == 2 && (!kch || !vch)) ||
       (size_t)smem != smem_layout_bytes(chunk, hd, H / KV))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (q_bf16)
-    return launch<__nv_bfloat16>(q, ke, ksc, ve, vsc, pos, out, flags, B, S,
-                                 KV, H, hd, chunk, scheme, sm_scale,
-                                 (size_t)smem, s);
-  return launch<float>(q, ke, ksc, ve, vsc, pos, out, flags, B, S, KV, H, hd,
-                       chunk, scheme, sm_scale, (size_t)smem, s);
+    return launch<__nv_bfloat16>(q, ke, kch, ksc, ve, vch, vsc, pos, out,
+                                 flags, B, S, KV, H, hd, chunk, scheme,
+                                 sm_scale, (size_t)smem, s);
+  return launch<float>(q, ke, kch, ksc, ve, vch, vsc, pos, out, flags, B, S,
+                       KV, H, hd, chunk, scheme, sm_scale, (size_t)smem, s);
 }

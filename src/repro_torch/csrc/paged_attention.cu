@@ -8,8 +8,10 @@
 // memory.
 //
 // Design: grid (B, KV), one CTA per (batch row, KV group). The CTA decodes
-// its K and V strips (secded64.cuh; the faulty scheme passes bytes
-// through), dequantizes each token with its scale in f32 and rounds to the
+// its K and V strips (scheme 1, in-place: secded64.cuh, flags per block;
+// scheme 2, parity-zero: parity8.cuh over the (B, S, KV, hd/8) check
+// strips, each bad byte zeroed and counted as corrected; scheme 0, faulty,
+// passes bytes through), dequantizes each token with its scale in f32 and rounds to the
 // query's type, and keeps both strips in shared memory. It then mirrors the
 // op order of the reference (repro/kernels/paged_attention.py:105-131, and
 // layers.decode_attention it is held to): the score dot accumulates in f32
@@ -27,6 +29,7 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "parity8.cuh"
 #include "secded64.cuh"
 
 namespace {
@@ -59,19 +62,23 @@ __device__ __forceinline__ float warp_max(float v) {
 
 template <typename T>
 __device__ void decode_strip(const uint8_t* __restrict__ enc,
+                             const uint8_t* __restrict__ chk,
                              const float* __restrict__ sc, T* dst, int b,
                              int g, int S, int KV, int hd, int pos,
                              int scheme, int* cnt) {
   const int nb = hd / 8;
   for (int i = threadIdx.x; i < S * nb; i += blockDim.x) {
     const int s = i / nb, j = i % nb;
-    uint64_t w = *reinterpret_cast<const uint64_t*>(
-        enc + (((int64_t)b * S + s) * KV + g) * hd + 8 * j);
+    const int64_t tok = ((int64_t)b * S + s) * KV + g;
+    uint64_t w = *reinterpret_cast<const uint64_t*>(enc + tok * hd + 8 * j);
     uint32_t f = 0;
+    int bad = 0;
     if (scheme == 1) w = secded64::decode(w, &f);
-    if (f && s <= pos) {
+    else if (scheme == 2) w = parity8::decode(w, chk[tok * nb + j], &bad);
+    if ((f || bad) && s <= pos) {
       if (f & 1u) atomicAdd(&cnt[0], 1);
       if (f & 2u) atomicAdd(&cnt[1], 1);
+      if (bad) atomicAdd(&cnt[0], bad);  // parity-zero counts bad BYTES
     }
     const float scale = sc[(int64_t)b * S + s];
 #pragma unroll
@@ -85,8 +92,10 @@ __device__ void decode_strip(const uint8_t* __restrict__ enc,
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 page_attention_kernel(const T* __restrict__ q, const uint8_t* __restrict__ ke,
+                      const uint8_t* __restrict__ kch,
                       const float* __restrict__ ksc,
                       const uint8_t* __restrict__ ve,
+                      const uint8_t* __restrict__ vch,
                       const float* __restrict__ vsc,
                       const int* __restrict__ pos_arr, T* __restrict__ out,
                       int* __restrict__ flags, int S, int KV, int H, int hd,
@@ -104,8 +113,8 @@ page_attention_kernel(const T* __restrict__ q, const uint8_t* __restrict__ ke,
   if (tid < 2) cnt[tid] = 0;
   __syncthreads();
 
-  decode_strip(ke, ksc, ks, b, g, S, KV, hd, pos, scheme, cnt);
-  decode_strip(ve, vsc, vs, b, g, S, KV, hd, pos, scheme, cnt);
+  decode_strip(ke, kch, ksc, ks, b, g, S, KV, hd, pos, scheme, cnt);
+  decode_strip(ve, vch, vsc, vs, b, g, S, KV, hd, pos, scheme, cnt);
   __syncthreads();
 
   // scores: one warp per (head r, token s)
@@ -147,35 +156,39 @@ page_attention_kernel(const T* __restrict__ q, const uint8_t* __restrict__ ke,
 }
 
 template <typename T>
-int launch(const void* q, const void* ke, const void* ksc, const void* ve,
-           const void* vsc, const void* pos, void* out, void* flags, int B,
-           int S, int KV, int H, int hd, int scheme, float sm_scale,
-           size_t smem, cudaStream_t stream) {
+int launch(const void* q, const void* ke, const void* kch, const void* ksc,
+           const void* ve, const void* vch, const void* vsc, const void* pos,
+           void* out, void* flags, int B, int S, int KV, int H, int hd,
+           int scheme, float sm_scale, size_t smem, cudaStream_t stream) {
   auto kern = page_attention_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(B, KV), THREADS, smem, stream>>>(
-      (const T*)q, (const uint8_t*)ke, (const float*)ksc, (const uint8_t*)ve,
-      (const float*)vsc, (const int*)pos, (T*)out, (int*)flags, S, KV, H, hd,
-      scheme, sm_scale);
+      (const T*)q, (const uint8_t*)ke, (const uint8_t*)kch, (const float*)ksc,
+      (const uint8_t*)ve, (const uint8_t*)vch, (const float*)vsc,
+      (const int*)pos, (T*)out, (int*)flags, S, KV, H, hd, scheme, sm_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q_bf16: 1 when q/out are bfloat16, 0 when float32. scheme: 0 faulty
-// (bytes pass through), 1 in-place. smem: dynamic shared bytes, computed
-// by the wrapper as 2*S*hd*sizeof(T) + rep*S*4.
+// (bytes pass through), 1 in-place, 2 parity-zero (kch/vch: the (B, S, KV,
+// hd/8) check strips; NULL for the other schemes). smem: dynamic shared
+// bytes, computed by the wrapper as 2*S*hd*sizeof(T) + rep*S*4.
 extern "C" int fused_page_attention_launch(
-    const void* q, const void* ke, const void* ksc, const void* ve,
-    const void* vsc, const void* pos, void* out, void* flags, int B, int S,
-    int KV, int H, int hd, int scheme, float sm_scale, long long smem,
-    int q_bf16, void* stream) {
+    const void* q, const void* ke, const void* kch, const void* ksc,
+    const void* ve, const void* vch, const void* vsc, const void* pos,
+    void* out, void* flags, int B, int S, int KV, int H, int hd, int scheme,
+    float sm_scale, long long smem, int q_bf16, void* stream) {
+  if (scheme < 0 || scheme > 2 || (scheme == 2 && (!kch || !vch)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (q_bf16)
-    return launch<__nv_bfloat16>(q, ke, ksc, ve, vsc, pos, out, flags, B, S,
-                                 KV, H, hd, scheme, sm_scale, (size_t)smem, s);
-  return launch<float>(q, ke, ksc, ve, vsc, pos, out, flags, B, S, KV, H, hd,
-                       scheme, sm_scale, (size_t)smem, s);
+    return launch<__nv_bfloat16>(q, ke, kch, ksc, ve, vch, vsc, pos, out,
+                                 flags, B, S, KV, H, hd, scheme, sm_scale,
+                                 (size_t)smem, s);
+  return launch<float>(q, ke, kch, ksc, ve, vch, vsc, pos, out, flags, B, S,
+                       KV, H, hd, scheme, sm_scale, (size_t)smem, s);
 }

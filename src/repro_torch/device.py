@@ -18,3 +18,8 @@ def resolve(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch route on the CPU")
     return dev
+
+
+def default_backend(device) -> str:
+    """The kernels on the card, the plain route on the CPU."""
+    return "cuda" if torch.device(device).type == "cuda" else "torch"

@@ -8,7 +8,8 @@ corrected at the point of use.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
       --tokens 16 --batch 4 [--scheme in-place] [--backend torch|cuda] \\
       [--kv-policy in-place-fused|in-place-chunked] [--prompt-len 512] \\
-      [--fault-rate 1e-4] [--abft] [--act-clamp] [--device cuda|cpu]
+      [--fault-rate 1e-4] [--abft] [--act-clamp] [--device cuda|cpu] \\
+      [--burst [--burst-out DIR]]
 
 The backend defaults to the kernels (``cuda``) on the card and to the
 plain route (``torch``) on the CPU. With ``--prompt-len`` a random prompt
@@ -23,14 +24,22 @@ counted over the run. :func:`serve` also serves the int8 path
 (``act_quant="static"`` from the same calibration, or ``"dynamic"``),
 which the CLI does not offer, as the reference's does not.
 
+``--burst`` replays a seeded two-wave workload through the request
+front-end (:mod:`repro_torch.serving.frontend`: continuous batching over
+the paged pool, per-request fault attribution) instead of the fixed batch,
+and prints the telemetry roll-up; ``--burst-out DIR`` also writes the
+telemetry JSONL, the per-request CSV and the summary JSON. :func:`burst`
+is the same path as a function.
+
 The CLI serves the smoke configs (``configs.get_smoke``), as the reference
-CLI does; :func:`serve` takes any config, e.g. the full-width
-``configs.get("deepseek-7b")``. The fault smoke-check campaigns, burst
-mode and scrubbing are not ported yet.
+CLI does; :func:`serve` and :func:`burst` take any config, e.g. the
+full-width ``configs.get("deepseek-7b")``. The fault smoke-check campaigns
+and scrubbing are not ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
 import time
 
@@ -49,9 +58,7 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def default_backend(device) -> str:
-    """The kernels on the card, the plain route on the CPU."""
-    return "cuda" if device.type == "cuda" else "torch"
+default_backend = device_mod.default_backend
 
 
 def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
@@ -256,6 +263,107 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
             "tok_per_s": tokens * batch / dt, "step_ms": ms, **extra}
 
 
+def burst(cfg, *, batch: int = 4, tokens: int = 16, seed: int = 0,
+          waves=None, slots=None, max_len=None,
+          kv_policy="in-place", scheme: str = "in-place", backend=None,
+          device=None, weights=None, fault_rate: float = 0.0,
+          correctable_only: bool = False,
+          prefix_sharing: bool = False, out_dir=None, before_step=None,
+          after_step=None, log=print) -> dict:
+    """Serve a seeded burst through the request front-end and roll it up.
+
+    The workload defaults to the reference CLI's: ``make_waves(seed,
+    n_waves=2, wave_size=batch, prompt_len=(4, 8), max_new=(4, tokens),
+    gap_steps=6)`` on ``slots = max(2, batch // 2)`` slots with ``max_len =
+    max(32, 2 * tokens)``; ``waves``, ``slots`` and ``max_len`` override
+    it. Weights are drawn from ``seed`` and encoded under ``scheme`` unless
+    ``weights`` gives an encoded tree (not modified). ``fault_rate`` is
+    injected once into the resident weights before serving (at most one
+    flip per block with ``correctable_only``), and into the live KV pools
+    every 4 steps, as the reference CLI injects both. ``out_dir`` gets
+    ``telemetry.jsonl``, ``requests.csv`` and ``summary.json``;
+    ``before_step(fe)`` / ``after_step(fe)`` reach the front-end around
+    each step (:func:`~repro_torch.serving.frontend.run_burst`).
+
+    Returns ``{"events", "summary", "results", "seconds", "weights",
+    "weight_positions"}``: the telemetry events, the roll-up, ``{rid:
+    tokens}``, the wall time of the burst and the (injected) weights.
+    """
+    from repro_torch.serving import frontend, telemetry
+
+    dev = device_mod.resolve(device)
+    if backend is None:
+        backend = default_backend(dev)
+    kvp = kvcache.get_kv_policy(kv_policy or "in-place")
+    if waves is None:
+        waves = frontend.make_waves(seed=seed, n_waves=2, wave_size=batch,
+                                    vocab=cfg.vocab, prompt_len=(4, 8),
+                                    max_new=(4, tokens), gap_steps=6)
+    slots = max(2, batch // 2) if slots is None else slots
+    max_len = max(32, tokens * 2) if max_len is None else max_len
+    log(f"[serve] burst: {cfg.name} (d_model {cfg.d_model}, {cfg.n_layers} "
+        f"layers), {len(waves)} requests on {slots} slots, max_len "
+        f"{max_len}, KV {kv_policy}, scheme={scheme}, backend={backend}, "
+        f"device={dev}")
+    if dev.type == "cuda" and (backend == "cuda" or kvp.fused):
+        from repro_torch.kernels import build
+        build.load_all()
+    plan = policy_mod.ProtectionPolicy(default_scheme=scheme,
+                                       backend=backend).plan(
+        lm.param_shapes(cfg))
+    enc = weights
+    if enc is None:
+        t0 = time.time()
+        enc = lm.init_params(cfg, seed, device=dev, leaf_fn=plan.encode_leaf)
+        _sync(dev)
+        log(f"[serve] drew and encoded the weights in "
+            f"{time.time() - t0:.1f}s")
+    weight_positions: dict = {}
+    if fault_rate:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        enc, weight_positions = policy_mod.inject_tree_device(
+            enc, fault_rate, gen, one_per_block=correctable_only)
+        log("[serve] injected faults into the resident weight images")
+    tpath = None
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        tpath = os.path.join(out_dir, "telemetry.jsonl")
+    _sync(dev)
+    t0 = time.time()
+    events, summ, results = frontend.run_burst(
+        cfg, enc, plan=plan, waves=waves, slots=slots, max_len=max_len,
+        kv_policy=kvp, fault_rate=fault_rate, fault_seed=seed,
+        correctable_only=correctable_only, telemetry_path=tpath,
+        prefix_sharing=prefix_sharing,
+        before_step=before_step, after_step=after_step, backend=backend,
+        device=dev)
+    _sync(dev)
+    dt = time.time() - t0
+    r, t, d, p = (summ["requests"], summ["throughput"], summ["due"],
+                  summ["pool"])
+    log(f"[serve] burst ({kv_policy} KV): {r['finished']}/{r['submitted']} "
+        f"requests in {summ['steps']} steps "
+        f"({t['tokens_per_step']:.2f} tok/step); "
+        f"{summ['gen_tokens']} tokens in {dt:.2f}s of wall "
+        f"({summ['gen_tokens'] / dt:.2f} tok/s)")
+    log(f"[serve] TTFT p50/p95/p99: {summ['ttft_steps']['p50']}/"
+        f"{summ['ttft_steps']['p95']}/{summ['ttft_steps']['p99']} steps; "
+        f"per-token p99 {summ['per_token_ms']['p99']:.2f}ms")
+    log(f"[serve] KV faults: {d['corrected_total']} corrected, "
+        f"{d['total']} DUE ({d['requests_with_due']} requests); "
+        f"pages leaked {p['leaked_pages']}")
+    if out_dir:
+        telemetry.write_requests_csv(events,
+                                     os.path.join(out_dir, "requests.csv"))
+        telemetry.write_summary(summ, os.path.join(out_dir, "summary.json"))
+        log(f"[serve] wrote {out_dir}/telemetry.jsonl, requests.csv, "
+            f"summary.json")
+    return {"events": events, "summary": summ, "results": results,
+            "seconds": dt, "weights": enc,
+            "weight_positions": weight_positions}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b", choices=configs.ARCH_IDS)
@@ -288,9 +396,26 @@ def main(argv=None):
                          "a seeded batch and fuse the range clamps into "
                          "the matmul epilogue; clamp hits ride the *_abft "
                          "flags rows")
+    ap.add_argument("--burst", action="store_true",
+                    help="serve a seeded burst workload through the "
+                         "request-level front-end (continuous batching, "
+                         "admission control, telemetry summary) instead of "
+                         "the fixed-batch loop; uses --kv-policy (default "
+                         "in-place), --fault-rate for the weights and the "
+                         "live KV pools, and --seed for the workload")
+    ap.add_argument("--burst-out", default=None, metavar="DIR",
+                    help="with --burst: write telemetry JSONL + requests "
+                         "CSV + summary JSON here")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain route")
     args = ap.parse_args(argv)
+    if args.burst:
+        return burst(configs.get_smoke(args.arch), batch=args.batch,
+                     tokens=args.tokens, seed=args.seed,
+                     kv_policy=args.kv_policy or "in-place",
+                     scheme=args.scheme, backend=args.backend,
+                     device=args.device, fault_rate=args.fault_rate,
+                     out_dir=args.burst_out)
     return serve(configs.get_smoke(args.arch), batch=args.batch,
                  tokens=args.tokens, prompt_len=args.prompt_len,
                  fault_rate=args.fault_rate, seed=args.seed,

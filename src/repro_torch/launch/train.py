@@ -34,9 +34,7 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def default_backend(device) -> str:
-    """The kernels on the card, the plain route on the CPU."""
-    return "cuda" if device.type == "cuda" else "torch"
+default_backend = device_mod.default_backend
 
 
 def train(cfg, *, steps: int = 30, batch: int = 8, seq: int = 64,

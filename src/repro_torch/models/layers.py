@@ -30,27 +30,33 @@ class FlagRecorder:
 
     * (corrected, due) memory-fault counts: :meth:`record` / :meth:`drain`;
     * with ``abft=True``, (checksum mismatches, clamp hits) of the guarded
-      matmuls: :meth:`record_abft` / :meth:`drain_abft`;
+      matmuls: :meth:`record_abft` / :meth:`drain_abft` — scalars, or with
+      ``abft_rows=B`` per-slot (B,) rows that drain to (2, B), as the
+      reference's per-slot ABFT sink;
     * the calibration channel, each matmul's activation absmax by leaf
       path, kept as device tensors: :meth:`record_act` /
       :meth:`drain_acts`."""
 
-    def __init__(self, device, *, abft: bool = False):
+    def __init__(self, device, *, abft: bool = False, abft_rows=None):
         self.device = device
         self.abft = abft
+        self.abft_rows = abft_rows
         self._pairs: list = []
         self._abft: list = []
         self._acts: dict = {}
 
-    def _sum(self, pairs) -> torch.Tensor:
-        """Sum and clear recorded pairs -> (2,) int32, in one stack and one
-        reduction however many pairs there are."""
+    def _sum(self, pairs, rows=None) -> torch.Tensor:
+        """Sum and clear recorded pairs -> (2,) int32, or (2, rows) when
+        each entry is a (rows,) vector, in one stack and one reduction
+        however many pairs there are."""
+        shape = () if rows is None else (rows,)
         if not pairs:
-            return torch.zeros(2, dtype=torch.int32, device=self.device)
-        vals = torch.stack([torch.as_tensor(x).reshape(()).to(
+            return torch.zeros((2, *shape), dtype=torch.int32,
+                               device=self.device)
+        vals = torch.stack([torch.as_tensor(x).reshape(shape).to(
             device=self.device, dtype=torch.int32) for p in pairs for x in p])
         pairs.clear()
-        return vals.view(-1, 2).sum(0, dtype=torch.int32)
+        return vals.view(-1, 2, *shape).sum(0, dtype=torch.int32)
 
     def record(self, corrected, due) -> None:
         self._pairs.append((corrected, due))
@@ -63,8 +69,9 @@ class FlagRecorder:
         self._abft.append((mismatches, clamp_hits))
 
     def drain_abft(self) -> torch.Tensor:
-        """Sum and clear the (mismatches, clamp hits) pairs -> (2,) int32."""
-        return self._sum(self._abft)
+        """Sum and clear the (mismatches, clamp hits) pairs -> (2,) int32,
+        or (2, abft_rows) per-slot rows."""
+        return self._sum(self._abft, self.abft_rows)
 
     def record_act(self, path: str, absmax) -> None:
         prev = self._acts.get(path)

@@ -23,8 +23,11 @@ Counts come back through callbacks of the step's
 due)``, ``record_abft(mismatches, clamp_hits)``, and ``observe(absmax)``,
 each float activation's absmax as a device tensor (the calibration hook).
 ``models.layers._proj`` recognizes the view by its ``decode_at_use``
-attribute. Per-slot ABFT attribution (``abft_per_slot``) comes with the
-KV cache's per-slot flags and the front-end.
+attribute. With ``abft_per_slot`` the view reports the per-row
+(mismatches, clamp hits) vectors instead of totals: a decode step's output
+rows are its batch slots, so the request front-end attributes compute
+faults to requests (the column-check count, which no row owns, is then
+not reported, as in the reference).
 """
 from __future__ import annotations
 
@@ -70,6 +73,8 @@ class ProtectedWeight:
     abft:        verify ABFT checksums on every matmul.
     clamp:       activation absmax bound of the epilogue output, or None.
     record_abft: ``record_abft(mismatches, clamp_hits)`` callback.
+    abft_per_slot: report per-row (M,) vectors to ``record_abft`` instead
+                 of scalar totals.
     """
 
     decode_at_use = True  # the marker layers._proj dispatches on
@@ -87,10 +92,6 @@ class ProtectedWeight:
                              f"(None, 'static', 'dynamic')")
         if act_quant == "static" and a_scale is None:
             raise ValueError("act_quant='static' needs a calibrated a_scale")
-        if abft_per_slot:
-            raise NotImplementedError("per-slot ABFT attribution comes with "
-                                      "the KV cache's per_slot_flags and the "
-                                      "front-end")
         self.pt = pt
         self.backend = get_backend(backend)
         self.fuse = can_fuse(pt, self.backend)
@@ -98,6 +99,7 @@ class ProtectedWeight:
         self.a_scale = a_scale
         self.abft = bool(abft)
         self.clamp = None if clamp is None else float(clamp)
+        self.abft_per_slot = bool(abft_per_slot)
         self._record = record
         self._record_abft = record_abft
         self._observe = observe
@@ -120,9 +122,14 @@ class ProtectedWeight:
             self._record(corrected, due)
 
     def record_abft(self, row_mm, clamp_hits, col_mm):
-        """Report (mismatches, clamp hits): the mismatch total adds the
-        column-check count to the per-row counts."""
-        if self._record_abft is not None:
+        """Report (mismatches, clamp hits): per-row vectors when the serve
+        step wants per-slot attribution, else totals, where the mismatch
+        total adds the column-check count to the per-row counts."""
+        if self._record_abft is None:
+            return
+        if self.abft_per_slot:
+            self._record_abft(row_mm, clamp_hits)
+        else:
             self._record_abft(row_mm.sum() + col_mm, clamp_hits.sum())
 
     def astype(self, dtype):

@@ -148,10 +148,16 @@ def decode_leaf_with_flags(pt: ProtectedTensor, dtype=torch.bfloat16, *,
 
 
 def inject_tree_device(enc_tree, rate: float, generator: torch.Generator,
-                       *, one_per_block: bool = False):
+                       *, one_per_block: bool = False, hit_blocks=None):
     """On-device memory-fault injection into every ProtectedTensor's stored
     image (``faults.inject_torch`` per leaf, in tree order; with
-    ``one_per_block`` at most one flip lands in each 64-bit block).
+    ``one_per_block`` at most one flip lands in each 64-bit block). A leaf
+    with check bytes is injected as ONE image ``enc ‖ checks`` (flattened
+    and joined), as the reference injects it: the check bytes sit in the
+    same fault-prone memory. ``hit_blocks``, a dict kept across calls,
+    holds per leaf path the blocks flipped so far (see
+    ``faults.flip_positions_``): with ``one_per_block`` repeated injections
+    then never put a second flip into a block.
 
     -> ``(new_tree, {path: flipped global bit positions of that image})``.
     """
@@ -160,12 +166,25 @@ def inject_tree_device(enc_tree, rate: float, generator: torch.Generator,
     def inj(path, pt):
         if not is_protected_tensor(pt):
             return pt
-        if pt.checks is not None:
-            raise NotImplementedError("schemes with check bytes are not "
-                                      "ported yet")
-        enc, pos = faults.inject_torch(pt.enc, rate, generator,
-                                       one_per_block=one_per_block)
-        positions[path_str(path)] = pos
-        return dataclasses.replace(pt, enc=enc)
+        key = path_str(path)
+        enc = pt.enc.reshape(-1)
+        image = enc if pt.checks is None else torch.cat(
+            [enc, pt.checks.reshape(-1)])
+        hits = None
+        if hit_blocks is not None:
+            if key not in hit_blocks:
+                hit_blocks[key] = torch.zeros(
+                    -(-image.numel() * 8 // faults.BLOCK_BITS),
+                    dtype=torch.bool, device=image.device)
+            hits = hit_blocks[key]
+        image, positions[key] = faults.inject_torch(
+            image, rate, generator, one_per_block=one_per_block,
+            hit_blocks=hits)
+        if pt.checks is None:
+            return dataclasses.replace(pt, enc=image.reshape(pt.enc.shape))
+        n = enc.numel()
+        return dataclasses.replace(
+            pt, enc=image[:n].reshape(pt.enc.shape),
+            checks=image[n:].reshape(pt.checks.shape))
 
     return tree.map_with_path(inj, enc_tree), positions

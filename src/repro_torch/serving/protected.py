@@ -44,9 +44,11 @@ class _Router:
     act_quant: None (float activations) | "dynamic" | "static" (applied to
     every capable leaf; "static" to the calibrated ones) | "plan" (each
     leaf's ``LeafPlan.act_quant``). calibrate=True runs the float path and
-    records each matmul's activation absmax by leaf path."""
+    records each matmul's activation absmax by leaf path. abft_per_slot
+    makes every guarded view report per-row (per-slot) ABFT vectors."""
 
-    def __init__(self, plan, backend, *, act_quant=None, calibrate=False):
+    def __init__(self, plan, backend, *, act_quant=None, calibrate=False,
+                 abft_per_slot=False):
         if act_quant not in (None, "static", "dynamic", "plan"):
             raise ValueError(f"act_quant {act_quant!r}; one of "
                              f"(None, 'static', 'dynamic', 'plan')")
@@ -54,6 +56,7 @@ class _Router:
         self.backend = get_backend(backend)
         self.act_quant = act_quant
         self.calibrate = calibrate
+        self.abft_per_slot = abft_per_slot
 
     def _leaf(self, path: str):
         return self.plan.leaves.get(path) if self.plan is not None else None
@@ -104,7 +107,7 @@ class _Router:
         return ProtectedWeight(
             pt, be, record=recorder.record, act_quant=aq, a_scale=a_scale,
             abft=abft, clamp=clamp, record_abft=recorder.record_abft,
-            observe=(functools.partial(recorder.record_act, path)
+            abft_per_slot=self.abft_per_slot, observe=(functools.partial(recorder.record_act, path)
                      if self.calibrate else None))
 
 
@@ -199,18 +202,25 @@ def make_serve_step(cfg: ArchConfig, *, plan=None, dtype=torch.bfloat16,
     (``kv_policy``) ``"layers_kv"`` (L, 2). When the plan guards leaves
     (``plan.with_abft`` or clamps) the flags also carry (checksum
     mismatches, clamp hits) rows: ``"top_abft"`` (2,) and
-    ``"layers_abft"`` (L, 2). ``attention_impl`` ("strip" | "chunked")
-    overrides the resolved KV policy's attention routing — the switch onto
-    the page-chunked kernel for long contexts. ``act_quant`` (None |
+    ``"layers_abft"`` (L, 2). Under a KV policy with ``per_slot_flags``
+    the KV rows are (L, 2, B) and the ABFT rows per slot as well:
+    ``"top_abft"`` (2, B), ``"layers_abft"`` (L, 2, B) (the request
+    front-end's per-request attribution). ``attention_impl`` ("strip" |
+    "chunked") overrides the resolved KV policy's attention routing — the
+    switch onto the page-chunked kernel for long contexts. ``act_quant`` (None |
     "dynamic" | "static" | "plan") serves the projections over the int8
     path (see :class:`_Router`).
     """
     kvp = _kv_policy(kv_policy, attention_impl, backend)
-    router = _Router(plan, backend, act_quant=act_quant)
+    per_slot = kvp is not None and kvp.per_slot_flags
+    router = _Router(plan, backend, act_quant=act_quant,
+                     abft_per_slot=per_slot)
     track_abft = router.any_abft
 
     def serve_step(enc_params, cache, tokens, pos):
-        recorder = L.FlagRecorder(tokens.device, abft=track_abft)
+        recorder = L.FlagRecorder(
+            tokens.device, abft=track_abft,
+            abft_rows=tokens.shape[0] if per_slot else None)
         params = _use_tree(enc_params, router, dtype, recorder)
         top = recorder.drain()
         logits, cache, flags = lm.decode_step(

@@ -155,7 +155,10 @@ def test_chunked_wrapper_validation():
     with pytest.raises(ValueError, match="chunk_tokens"):
         paged_attention.chunked_page_attention(q, ke, None, sc, ke, None, sc,
                                                pos, chunk_tokens=0)
-    with pytest.raises(NotImplementedError, match="parity-zero"):
+    with pytest.raises(ValueError, match="KV scheme"):
+        paged_attention.chunked_page_attention(q, ke, None, sc, ke, None, sc,
+                                               pos, scheme="secded72")
+    with pytest.raises(ValueError, match="check strips"):
         paged_attention.chunked_page_attention(q, ke, None, sc, ke, None, sc,
                                                pos, scheme="parity-zero")
     before = build.COUNTS["chunked_page_attention"]
@@ -182,7 +185,7 @@ def test_get_kv_policy_resolves_like_the_reference(name):
 
 
 def test_policy_validation_and_unknown_names():
-    for name in ("flash", "in-place-flash", "parity-zero-chunked"):
+    for name in ("flash", "in-place-flash", "secded72-chunked"):
         with pytest.raises(ValueError):
             kvcache.get_kv_policy(name)
     kvp = kvcache.get_kv_policy("in-place")

@@ -263,6 +263,106 @@ def test_gpu_chunked_attention_kernel_matches_plain(cuda, dtype, scheme, s,
     torch.testing.assert_close(ko.float(), po.float(), rtol=tol, atol=tol)
 
 
+def _parity_strips(b, s, kv, hd, dev, gen):
+    """Parity-zero K/V strips with flipped data AND check bytes."""
+    pol = kvcache.get_kv_policy("parity-zero")
+    out = []
+    for every in (7, 11):
+        e, c, sc = kvcache._encode_kv(
+            torch.randn((b, s, kv, hd), generator=gen, device=dev), pol)
+        _flip(e.view(-1, 8), every, gen)
+        c.view(-1)[::every + 2] ^= 1 << torch.randint(
+            0, 8, (c.view(-1)[::every + 2].numel(),), generator=gen,
+            device=dev).to(torch.uint8)
+        out += [e, c, sc]
+    return out
+
+
+def _bad_valid_bytes(ke, kc, ve, vc, pos):
+    """Bad bytes (parity mismatches) of valid (<= pos) tokens."""
+    s = ke.shape[1]
+    valid = (torch.arange(s, device=ke.device)[None, :] <= pos[:, None])
+    return sum(int((ecc.decode_parity8(e, c)[1].sum((-2, -1)) * valid).sum())
+               for e, c in ((ke, kc), (ve, vc)))
+
+
+@pytest.mark.parametrize("per_slot", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_page_attention_parity_zero_matches_plain(cuda, dtype, per_slot):
+    """The strip kernel's parity-zero path: output as close to its plain
+    version as the in-place path's, flags equal, the corrected count = bad
+    bytes of valid tokens, DUE 0; per-slot rows (2, B) sum to the
+    totals."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, h, kv, s, hd = 3, 4, 2, 48, 16
+    ke, kc, ksc, ve, vc, vsc = _parity_strips(b, s, kv, hd, cuda, gen)
+    q = torch.randn((b, h, 1, hd), generator=gen, device=cuda).to(dtype)
+    pos = torch.tensor([47, 20, 0], device=cuda)
+    args = (q, ke, kc, ksc, ve, vc, vsc, pos)
+    before = build.COUNTS["fused_page_attention"]
+    ko, kf = paged_attention.fused_page_attention(
+        *args, scheme="parity-zero", per_slot=per_slot)
+    assert build.COUNTS["fused_page_attention"] == before + 1
+    po, pf = paged_attention.fused_page_attention_plain(
+        *args, scheme="parity-zero", per_slot=per_slot)
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(ko.float(), po.float(), rtol=tol, atol=tol)
+    assert torch.equal(kf, pf) and kf.dtype == torch.int32
+    assert tuple(kf.shape) == ((2, b) if per_slot else (2,))
+    tot = kf.sum(-1) if per_slot else kf
+    assert tot.tolist() == [_bad_valid_bytes(ke, kc, ve, vc, pos), 0]
+    assert int(tot[0]) > 0
+
+
+@pytest.mark.parametrize("per_slot", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,chunk", [(100, 32), (48, 16)])
+def test_gpu_chunked_attention_parity_zero_matches_plain(cuda, dtype, s,
+                                                         chunk, per_slot):
+    gen = torch.Generator(device=cuda).manual_seed(s + chunk + 1)
+    b, h, kv, hd = 3, 4, 2, 16
+    ke, kc, ksc, ve, vc, vsc = _parity_strips(b, s, kv, hd, cuda, gen)
+    q = torch.randn((b, h, 1, hd), generator=gen, device=cuda).to(dtype)
+    pos = torch.tensor([s - 1, s // 2, 0], device=cuda)
+    args = (q, ke, kc, ksc, ve, vc, vsc, pos)
+    ko, kf = paged_attention.chunked_page_attention(
+        *args, scheme="parity-zero", chunk_tokens=chunk, per_slot=per_slot)
+    po, pf = paged_attention.chunked_page_attention_plain(
+        *args, scheme="parity-zero", chunk_tokens=chunk, per_slot=per_slot)
+    assert torch.equal(kf, pf)
+    tot = kf.sum(-1) if per_slot else kf
+    assert tot.tolist() == [_bad_valid_bytes(ke, kc, ve, vc, pos), 0]
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(ko.float(), po.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kernel", ["strip", "chunked"])
+@pytest.mark.parametrize("scheme", ["faulty", "in-place"])
+def test_gpu_attention_per_slot_rows_match_plain(cuda, kernel, scheme):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    b, h, kv, s, hd = 4, 4, 2, 32, 16
+    pol = kvcache.KVProtectionPolicy(scheme=scheme)
+    ke, _, ksc = kvcache._encode_kv(
+        torch.randn((b, s, kv, hd), generator=gen, device=cuda), pol)
+    ve, _, vsc = kvcache._encode_kv(
+        torch.randn((b, s, kv, hd), generator=gen, device=cuda), pol)
+    _flip(ke.view(-1, 8), 5, gen)
+    _flip(ve.view(-1, 8), 9, gen)
+    q = torch.randn((b, h, 1, hd), generator=gen, device=cuda)
+    args = (q, ke, None, ksc, ve, None, vsc,
+            torch.tensor([31, 12, 3, 0], device=cuda))
+    fn, plain = ((paged_attention.fused_page_attention,
+                  paged_attention.fused_page_attention_plain)
+                 if kernel == "strip" else
+                 (paged_attention.chunked_page_attention,
+                  paged_attention.chunked_page_attention_plain))
+    _, rows = fn(*args, scheme=scheme, per_slot=True)
+    _, prow = plain(*args, scheme=scheme, per_slot=True)
+    _, tot = fn(*args, scheme=scheme)
+    assert torch.equal(rows, prow) and tuple(rows.shape) == (2, b)
+    assert torch.equal(rows.sum(1, dtype=torch.int32), tot)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 # 128: whole tiles; 100 and 1: a ragged S
 @pytest.mark.parametrize("s,d", [(128, 16), (100, 64), (1, 128), (200, 128),

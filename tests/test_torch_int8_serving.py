@@ -124,14 +124,26 @@ def test_protected_weight_raw_int8_needs_static_scale():
 
 
 def test_protected_weight_observe_records_device_absmax():
-    _, tpt, x = _leaf(8)
+    jpt, tpt, x = _leaf(8)
     seen = []
     ProtectedWeight(tpt, "torch", observe=seen.append).matmul(
         torch.from_numpy(x))
     assert isinstance(seen[0], torch.Tensor) and seen[0].ndim == 0
     assert float(seen[0]) == float(np.abs(x).max())
-    with pytest.raises(NotImplementedError, match="per_slot"):
-        ProtectedWeight(tpt, "torch", abft=True, abft_per_slot=True)
+    # per-slot attribution: per-row (mismatches, clamp hits) vectors, as
+    # the reference's view reports them
+    rows, jrows = [], []
+    x2 = torch.from_numpy(x[:, 0])                       # (3, k): 3 slots
+    ProtectedWeight(tpt, "torch", abft=True, clamp=0.05, abft_per_slot=True,
+                    record_abft=lambda m, h: rows.append((m, h))).matmul(x2)
+    JProtectedWeight(jpt, "xla", abft=True, clamp=0.05, abft_per_slot=True,
+                     record_abft=lambda m, h: jrows.append((m, h))).matmul(
+        jnp.asarray(x[:, 0]))
+    (m, h), ((jm, jh),) = rows[0], jrows
+    assert tuple(m.shape) == tuple(h.shape) == (3,)
+    np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(h.numpy(), np.asarray(jh))
+    assert int(h.sum()) > 0
 
 
 # ---------------------------------------------------------------------------

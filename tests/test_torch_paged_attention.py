@@ -89,9 +89,13 @@ def test_paged_attention_faulty_scheme_and_budget():
         q, _t(raw.view(np.uint8)), None, _t(sc), _t(raw.view(np.uint8)), None,
         _t(sc), pos, scheme="faulty")
     assert flags.tolist() == [0, 0] and o.shape == (b, h, 1, hd)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="KV scheme"):
         paged_attention.fused_page_attention(
-            q, None, None, None, None, None, None, pos, scheme="parity-zero")
+            q, None, None, None, None, None, None, pos, scheme="secded72")
+    with pytest.raises(ValueError, match="check strips"):
+        paged_attention.fused_page_attention(
+            q, _t(raw.view(np.uint8)), None, _t(sc), _t(raw.view(np.uint8)),
+            None, _t(sc), pos, scheme="parity-zero")
     assert paged_attention.smem_bytes(64, 128, 1, torch.bfloat16) == \
         2 * 64 * 128 * 2 + 64 * 4
 

@@ -17,7 +17,7 @@ from repro_torch.kernels import (ecc_decode, ecc_encode, ecc_qmatmul,
 from repro_torch.launch import serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import lm
-from repro_torch.serving import kvcache
+from repro_torch.serving import frontend, kvcache
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -36,6 +36,8 @@ def test_scan_covers_the_kernel_modules():
     scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for name in ("ref", "ops", "ecc_qmatmul", "build"):
         assert f"src/repro_torch/kernels/{name}.py" in scanned
+    for name in ("frontend", "telemetry", "kvcache", "protected"):
+        assert f"src/repro_torch/serving/{name}.py" in scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -57,6 +59,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
                  lambda: kvcache.init_cache(cfg, 1, 16, kv_policy="in-place"),
                  lambda: serve.serve(cfg, tokens=1, log=lambda *_: None),
                  lambda: serve.main(["--tokens", "1"]),
+                 lambda: serve.burst(cfg, log=lambda *_: None),
+                 lambda: serve.main(["--burst"]),
+                 lambda: frontend.ServingFrontend(cfg, {}),
+                 lambda: frontend.run_burst(cfg, {}, waves=[]),
                  lambda: launch_train.train(cfg, steps=1,
                                             log=lambda *_: None),
                  lambda: launch_train.main(["--steps", "1"])):
@@ -136,6 +142,19 @@ def test_wrappers_take_the_plain_route_for_cpu_tensors(monkeypatch):
     po, pf = paged_attention.chunked_page_attention_plain(
         q, ke, None, sc, ke, None, sc, pos, chunk_tokens=8)
     assert torch.equal(o, po) and torch.equal(f, pf)
+    # the parity-zero scheme over check strips, per-slot rows
+    ch = torch.randint(0, 256, (2, 16, 2, 1), generator=g, dtype=torch.uint8)
+    pz = (q, ke, ch, sc, ke, ch, sc, pos)
+    for wrapped, plain, kw in (
+            (paged_attention.fused_page_attention,
+             paged_attention.fused_page_attention_plain, {}),
+            (paged_attention.chunked_page_attention,
+             paged_attention.chunked_page_attention_plain,
+             dict(chunk_tokens=8))):
+        o, f = wrapped(*pz, scheme="parity-zero", per_slot=True, **kw)
+        po, pf = plain(*pz, scheme="parity-zero", per_slot=True, **kw)
+        assert torch.equal(o, po) and torch.equal(f, pf)
+        assert tuple(f.shape) == (2, 2)
     x = torch.randn(1, 2, 20, 8, generator=g)
     assert torch.equal(flash_attention.flash_attention(x, x, x),
                        flash_attention.flash_attention_plain(x, x, x))
