@@ -54,8 +54,13 @@ d_model 4096, vocab 102400) at batch 4:
   the clean run); with TTFT, TPOT, tok/s and a profile of eight steps.
 
 Phase 2 also holds the parity-zero decode and the per-slot flags of both
-paged-attention kernels to their plain versions at the burst's shapes, and
-phase 3 runs a 2-layer burst on both routes with the same pool flips.
+paged-attention kernels to their plain versions at the burst's shapes;
+flash attention at head_dim 256 (B 4, H 8, S 2,048 and a ragged S) in
+bf16 (tensor cores) and f32 (CUDA cores), with its TFLOP/s beside SDPA's;
+and the float ``ecc_qmatmul`` at every weight shape for the decode step
+(M = 4), the burst step (M = 8) and the 4 x 2,048 prefill (M = 8,192),
+flags exact and a split-K launch repeated bit for bit. Phase 3 runs a
+2-layer burst on both routes with the same pool flips.
 
 Launch counts are set to 0 just before each path and read just after.
 Every phase raises on failure and the script exits nonzero; it prints no
@@ -72,7 +77,8 @@ or one train step (quantize_throttle: every protected leaf of the 8-layer
 model once): the sum over the launches of that call. ``bound_ms`` is
 max(bytes / 3.35 TB/s, ops / peak) with each input read once and each
 output written once (H100 SXM data-sheet rates: HBM 3.35 TB/s, dense bf16
-989 TFLOP/s, dense int8 1,979 TOP/s).
+989 TFLOP/s, dense int8 1,979 TOP/s, f32 without tensor cores 67
+TFLOP/s).
 """
 from __future__ import annotations
 
@@ -91,6 +97,7 @@ OUT_DIR = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
+F32_FLOPS = 67e12     # CUDA cores, no tensor cores
 
 # tolerances (stated here, used below)
 QMM_RTOL = 2e-4     # |kernel - plain| <= QMM_RTOL * (|a| @ |w|) + 1e-6: both
@@ -402,53 +409,11 @@ def phase_kernels(torch, dev):
     del raw
 
     # -- kernel 3: every projection and the head, 211 launches per step -----
-    d, f, v, nl = cfg.d_model, cfg.d_ff, cfg.vocab_padded, cfg.n_layers
-    b = 4
-    per_step = [((d, d), 4 * nl), ((d, f), 2 * nl), ((f, d), nl), ((d, v), 1)]
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound": 0.0}
-    err = 0.0
-    scale = torch.tensor(0.02, dtype=torch.float32, device=dev)
-    for (k, n), count in per_step:
-        a = torch.randn((b, k), generator=gen, device=dev).to(torch.bfloat16)
-        w_enc = ecc.encode64(wot_blocks(torch, dev, k * n // 8, gen))
-        ns, nd = flip_blocks(torch, w_enc, 50, 20, gen)
-        w_enc = w_enc.view(k, n)
-        ko, kfl = ecc_qmatmul.ecc_qmatmul(a, w_enc, scale, with_flags=True)
-        po, pfl = ecc_qmatmul.ecc_qmatmul_plain(a, w_enc, scale,
-                                                with_flags=True)
-        if kfl.tolist() != pfl.tolist() or kfl.tolist() != [ns, nd]:
-            fail(f"ecc_qmatmul flags {kfl.tolist()} vs plain {pfl.tolist()} "
-                 f"vs injected {[ns, nd]} at {(b, k, n)}")
-        dec = ecc.decode64(w_enc.reshape(k, n // 8, 8))[0].reshape(k, n)
-        w_bf = (dec.view(torch.int8).float() * scale).to(torch.bfloat16)
-        mag = a.float().abs() @ w_bf.float().abs()
-        e = (ko - po).abs()
-        if bool((e > QMM_RTOL * mag + 1e-6).any()):
-            fail(f"ecc_qmatmul out of tolerance at {(b, k, n)}: max "
-                 f"{float(e.max())}")
-        err = max(err, float(e.max()))
-        km = timer.ms(lambda: ecc_qmatmul.ecc_qmatmul(a, w_enc, scale))
-        pm = timer.ms(lambda: ecc_qmatmul.ecc_qmatmul_plain(a, w_enc, scale))
-        lm_ = timer.ms(lambda: torch.matmul(a, w_bf))
-        bb, _ = bound_ms(b * k * 2 + k * n + b * n * 4 + 4, 2 * b * k * n)
-        log(f"ecc_qmatmul {(b, k, n)} x{count}: kernel {km:.4f} ms, plain "
-            f"{pm:.4f} ms, torch.matmul(bf16 decoded) {lm_:.4f} ms, bound "
-            f"{bb:.4f} ms, max abs err {float(e.max()):.3g}")
-        tot["ms"] += count * km
-        tot["plain_ms"] += count * pm
-        tot["library_ms"] += count * lm_
-        tot["bound"] += count * bb
-        del a, w_enc, dec, w_bf, mag, ko, po
-    out["ecc_qmatmul"] = dict(
-        source="src/repro_torch/csrc/ecc_qmatmul.cu",
-        replaces="src/repro/kernels/ecc_qmatmul.py:393", max_abs_err=err,
-        ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound"],
-        bound_by="bytes", library_ms=tot["library_ms"])
-    log(f"ecc_qmatmul (per step, 211 launches): {out['ecc_qmatmul']}")
+    out["ecc_qmatmul"] = check_qmatmul_mixes(torch, dev, cfg, timer, gen)
     check_qmatmul_paths(torch, dev, cfg, timer, gen)
 
     # -- kernel 4: fused page attention, 30 launches per step ---------------
-    h, kvh, hd, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 64
+    b, h, kvh, hd, s = 4, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 64
     policy = kvcache.get_kv_policy("in-place-fused")
     kf_ = torch.randn((b, s, kvh, hd), generator=gen, device=dev)
     vf_ = torch.randn((b, s, kvh, hd), generator=gen, device=dev)
@@ -501,6 +466,99 @@ def phase_kernels(torch, dev):
     out["quantize_throttle"] = check_quant_throttle(torch, dev, timer, gen)
     out["throttle"] = check_throttle(torch, dev, timer, gen)
     return out
+
+
+def check_qmatmul_mixes(torch, dev, cfg, timer, gen):
+    """The float path of ecc_qmatmul (bf16 activations) at every weight
+    shape of the serve paths, each weight with 50 single- and 20
+    double-flip blocks: the decode step at batch 4 (the entry; 211
+    launches), the burst's decode step at its 8 slots, and the prefill of
+    4 x 2,048 tokens (M = 8,192; 30 x 7 projections and the head). At each
+    shape the flags equal the injected counts and the plain version's, and
+    the output is within QMM_RTOL of the plain version; a split-K launch
+    repeated gives the same bits. Times summed per step / per prefill
+    against the bound (bytes at decode, operations at prefill) and
+    ``torch.matmul`` over the bf16 weight decoded beforehand."""
+    from repro_torch.core import ecc
+    from repro_torch.kernels import ecc_qmatmul
+    d, f, v, nl = cfg.d_model, cfg.d_ff, cfg.vocab_padded, cfg.n_layers
+    per_step = [((d, d), 4 * nl), ((d, f), 2 * nl), ((f, d), nl), ((d, v), 1)]
+    mixes = {4: "decode step, batch 4", 8: "burst step, 8 slots",
+             8192: "prefill, 4 x 2,048 tokens"}
+    tot = {m: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bound_ms": 0.0, "ops": 0.0} for m in mixes}
+    err = 0.0
+    scale = torch.tensor(0.02, dtype=torch.float32, device=dev)
+    for (k, n), count in per_step:
+        w_enc = ecc.encode64(wot_blocks(torch, dev, k * n // 8, gen))
+        ns, nd = flip_blocks(torch, w_enc, 50, 20, gen)
+        w_enc = w_enc.view(k, n)
+        dec = ecc.decode64(w_enc.reshape(k, n // 8, 8))[0].reshape(k, n)
+        w_bf = (dec.view(torch.int8).float() * scale).to(torch.bfloat16)
+        del dec
+        for m in mixes:
+            a = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            plan = ecc_qmatmul.plan_launch(m, n, k, a.dtype)
+            ko, kfl = ecc_qmatmul.ecc_qmatmul(a, w_enc, scale,
+                                              with_flags=True)
+            po, pfl = ecc_qmatmul.ecc_qmatmul_plain(a, w_enc, scale,
+                                                    with_flags=True)
+            if kfl.tolist() != pfl.tolist() or kfl.tolist() != [ns, nd]:
+                fail(f"ecc_qmatmul flags {kfl.tolist()} vs plain "
+                     f"{pfl.tolist()} vs injected {[ns, nd]} at {(m, k, n)}")
+            diff = (ko - po).abs()
+            del po
+            e = float(diff.max())
+            err = max(err, e)
+            diff -= QMM_RTOL * (a.float().abs() @ w_bf.float().abs())
+            if bool((diff > 1e-6).any()):
+                fail(f"ecc_qmatmul out of tolerance at {(m, k, n)}: max abs "
+                     f"err {e}")
+            del diff
+            if plan.splits > 1:
+                again = ecc_qmatmul.ecc_qmatmul(a, w_enc, scale)
+                if not torch.equal(_bits(torch, again), _bits(torch, ko)):
+                    fail(f"ecc_qmatmul split-K ({plan.splits} splits) at "
+                         f"{(m, k, n)}: a repeated launch differs")
+            del ko
+            km = timer.ms(lambda: ecc_qmatmul.ecc_qmatmul(a, w_enc, scale))
+            pm = timer.ms(lambda: ecc_qmatmul.ecc_qmatmul_plain(a, w_enc,
+                                                                scale))
+            lm_ = timer.ms(lambda: torch.matmul(a, w_bf))
+            ops = 2 * m * k * n
+            bb, by = bound_ms(m * k * 2 + k * n + m * n * 4 + 4, ops)
+            log(f"ecc_qmatmul {(m, k, n)} x{count} ({plan.regime}, "
+                f"{plan.ctas} CTAs, {plan.splits} splits): kernel "
+                f"{km:.4f} ms ({ops / km / 1e9:.1f} TFLOP/s), plain "
+                f"{pm:.4f} ms, torch.matmul(bf16 decoded) {lm_:.4f} ms, "
+                f"bound {bb:.4f} ms ({by}), max abs err {e:.3g}")
+            t = tot[m]
+            t["ms"] += count * km
+            t["plain_ms"] += count * pm
+            t["library_ms"] += count * lm_
+            t["bound_ms"] += count * bb
+            t["ops"] += count * ops
+            t["bound_by"] = by
+            del a
+        del w_enc, w_bf
+    mix = {}
+    for m, what in mixes.items():
+        t = tot[m]
+        mix[m] = dict(ms=t["ms"], plain_ms=t["plain_ms"],
+                      library_ms=t["library_ms"], bound_ms=t["bound_ms"],
+                      bound_by=t["bound_by"],
+                      tflops=t["ops"] / t["ms"] / 1e9,
+                      library_tflops=t["ops"] / t["library_ms"] / 1e9)
+        log(f"ecc_qmatmul float, {what} (M = {m}, 211 launches): {mix[m]}")
+    entry = dict(source="src/repro_torch/csrc/ecc_qmatmul.cu",
+                 replaces="src/repro/kernels/ecc_qmatmul.py:393",
+                 max_abs_err=err, **{k: mix[4][k] for k in (
+                     "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms")},
+                 burst_m8=mix[8], prefill_m8192=mix[8192])
+    log(f"ecc_qmatmul (per step, 211 launches): {entry}")
+    return entry
 
 
 def _decoded_bf16(torch, enc, sc):
@@ -920,40 +978,62 @@ def _decoded_parity_bf16(torch, enc, ch, sc):
 def check_flash(torch, dev, cfg, timer, gen):
     """flash_attention at the prefill's shape (B 4, H 32, S 2,048, hd 128,
     bf16; 30 launches per prefill) and at a ragged S, against its plain
-    version; library yardstick SDPA with ``is_causal=True``."""
+    version; then at head_dim 256 (a paligemma-like B 4, H 8, S 2,048, and
+    a ragged S) in bf16 (tensor cores) and f32 (CUDA cores). Library
+    yardstick SDPA with ``is_causal=True``; achieved TFLOP/s of both over
+    the causal triangle's operations."""
     from repro_torch.kernels import flash_attention
-    h, hd = cfg.n_heads, cfg.head_dim
-    err = 0.0
-    entry = None
-    for b, s in ((4, 2048), (1, 1000)):
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def check(b, h, s, hd, dtype):
         q, k, v = (torch.randn((b, h, s, hd), generator=gen, device=dev).to(
-            torch.bfloat16) for _ in range(3))
+            dtype) for _ in range(3))
         ko = flash_attention.flash_attention(q, k, v)
         po = flash_attention.flash_attention_plain(q, k, v)
         e = (ko.float() - po.float()).abs()
         if bool((e > FLASH_RTOL * po.float().abs() + FLASH_ATOL).any()):
             fail(f"flash_attention out of tolerance of its plain version at "
-                 f"{(b, h, s, hd)}: max abs err {float(e.max())}")
-        err = max(err, float(e.max()))
-        log(f"flash_attention {(b, h, s, hd)}: max abs err vs plain "
+                 f"{(b, h, s, hd)} {dtype}: max abs err {float(e.max())}")
+        log(f"flash_attention {(b, h, s, hd)} {dtype}: max abs err vs plain "
             f"{float(e.max()):.3g}, mean {float(e.mean()):.3g}")
-        if entry is None:
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            km = timer.ms(lambda: flash_attention.flash_attention(q, k, v))
-            pm = timer.ms(lambda: flash_attention.flash_attention_plain(q, k,
-                                                                        v))
-            lm_ = timer.ms(lambda: sdpa(q, k, v, is_causal=True))
-            ops = 4 * b * h * hd * s * (s + 1) // 2   # QK^T and PV, causal
-            bb, by = bound_ms(4 * b * h * s * hd * 2, ops)
-            n = cfg.n_layers
-            entry = dict(source="src/repro_torch/csrc/flash_attention.cu",
-                         replaces="src/repro/kernels/flash_attention.py:87",
-                         ms=n * km, plain_ms=n * pm, bound_ms=n * bb,
-                         bound_by=by, library_ms=n * lm_)
-            log(f"flash_attention per launch: kernel {km:.4f} ms, plain "
-                f"{pm:.4f} ms, sdpa(causal) {lm_:.4f} ms, bound {bb:.4f} ms "
-                f"({ops / km / 1e9:.1f} TFLOP/s achieved)")
-        del q, k, v, ko, po, e
+        return (q, k, v), float(e.max())
+
+    def timed(qkv):
+        q = qkv[0]
+        b, h, s, hd = q.shape
+        km = timer.ms(lambda: flash_attention.flash_attention(*qkv))
+        pm = timer.ms(lambda: flash_attention.flash_attention_plain(*qkv))
+        lm_ = timer.ms(lambda: sdpa(*qkv, is_causal=True))
+        ops = 4 * b * h * hd * s * (s + 1) // 2   # QK^T and PV, causal
+        bb, by = bound_ms(4 * b * h * s * hd * q.element_size(), ops,
+                          BF16_FLOPS if q.dtype == torch.bfloat16
+                          else F32_FLOPS)
+        log(f"flash_attention {(b, h, s, hd)} {q.dtype} per launch: kernel "
+            f"{km:.4f} ms ({ops / km / 1e9:.1f} TFLOP/s), plain {pm:.4f} ms, "
+            f"sdpa(causal) {lm_:.4f} ms ({ops / lm_ / 1e9:.1f} TFLOP/s), "
+            f"bound {bb:.4f} ms ({by})")
+        return dict(ms=km, plain_ms=pm, bound_ms=bb, bound_by=by,
+                    library_ms=lm_, tflops=ops / km / 1e9,
+                    library_tflops=ops / lm_ / 1e9)
+
+    h, hd = cfg.n_heads, cfg.head_dim
+    qkv, err = check(4, h, 2048, hd, torch.bfloat16)
+    one = timed(qkv)
+    n = cfg.n_layers
+    entry = dict(source="src/repro_torch/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention.py:87",
+                 **{k: n * one[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "library_ms")},
+                 bound_by=one["bound_by"], tflops=one["tflops"],
+                 library_tflops=one["library_tflops"])
+    del qkv
+    err = max(err, check(1, h, 1000, hd, torch.bfloat16)[1])
+    entry["head_dim_256"] = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv, e = check(4, 8, 2048, 256, dtype)
+        err = max(err, e, check(1, 8, 1000, 256, dtype)[1])
+        entry["head_dim_256"][str(dtype)[6:]] = timed(qkv)
+        del qkv
     entry["max_abs_err"] = err
     log(f"flash_attention (per prefill, 30 launches of (4, 32, 2048, 128)): "
         f"{entry}")
@@ -1473,6 +1553,22 @@ def _profile_table(torch, prof, wall_ms, what, fname, rows=18, ranges=()):
     return kernels
 
 
+# the device kernels of csrc/ecc_qmatmul.cu, as torch.profiler names them
+QMM_KERNELS = ("::tc_kernel<", "::fma_kernel<", "::finish_kernel<")
+
+
+def _kernel_split(kernels, groups):
+    """Device ms of the profiled kernel rows per group, a row counted in
+    the first group one of whose name fragments it contains."""
+    split = dict.fromkeys(groups, 0.0)
+    for e in kernels:
+        key = next((k for k, frags in groups.items()
+                    if any(f in e.key for f in frags)), None)
+        if key is not None:
+            split[key] += e.self_device_time_total / 1e3
+    return split
+
+
 def phase_profile(torch):
     """Profile 4 decode steps of the full-width kernel route, built as
     ``serve`` builds it, and then one full-width prefill of a 2,048-token
@@ -1541,16 +1637,16 @@ def phase_profile(torch):
     kernels = _profile_table(
         torch, prof, wall_ms, f"one full-width prefill ({pre_ms:.0f} ms of "
         f"wall) + 2 chunked decode steps", "chip_smoke_prefill_profile.txt")
-    split = {"projections (qmatmul_kernel)": 0.0,
-             "prefill attention (flash_kernel)": 0.0,
-             "decode attention (chunked_attention_kernel)": 0.0,
-             "KV encode (encode_kernel)": 0.0,
-             "KV and embedding decode (decode_kernel)": 0.0, "other": 0.0}
-    for e in kernels:
-        t = e.self_device_time_total / 1e3
-        key = next((k for k in split if k.split("(")[-1].rstrip(")") in
-                    e.key), "other")
-        split[key] += t
+    split = _kernel_split(kernels, {
+        "projections (ecc_qmatmul)": QMM_KERNELS,
+        "prefill attention (flash_attention)": ("::flash_tc_kernel<",
+                                                "::flash_f32_kernel<"),
+        "decode attention (chunked_attention_kernel)": (
+            "chunked_attention_kernel",),
+        "KV encode (encode_kernel)": ("::encode_kernel",),
+        "KV and embedding decode (decode_kernel)": ("::decode_kernel",)})
+    split["other"] = sum(e.self_device_time_total for e in kernels) / 1e3 \
+        - sum(split.values())
     log("profile split (device ms over the window): " + ", ".join(
         f"{k} {v:.2f}" for k, v in split.items()))
 
@@ -2203,7 +2299,7 @@ def route_check(torch, dev, cal):
 def profile_int8_decode(torch, dev, plan, enc, scales):
     """4 static int8 decode steps (clamps and ABFT, ``in-place-fused``) of
     the full-width model under ``torch.profiler``: device time split into
-    the fused matmul (``qmatmul_kernel``), its ABFT compare
+    the fused matmul (``ecc_qmatmul``'s kernels), its ABFT compare
     (``abft_compare_kernel``), activation quantization (the ``act_quant``
     range) and the rest."""
     from torch.profiler import ProfilerActivity, profile
@@ -2237,13 +2333,10 @@ def profile_int8_decode(torch, dev, plan, enc, scales):
                              "chip_smoke_int8_profile.txt",
                              ranges=("act_quant",))
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    split = {"fused matmul (qmatmul_kernel)": 0.0,
-             "ABFT compare (abft_compare_kernel)": 0.0,
-             "activation quantization (act_quant)": 0.0}
-    for e in kernels:
-        for key in list(split)[:2]:
-            if key.split("(")[-1].rstrip(")") in e.key:
-                split[key] += e.self_device_time_total / 1e3
+    split = _kernel_split(kernels, {
+        "fused matmul (ecc_qmatmul)": QMM_KERNELS,
+        "ABFT compare (abft_compare_kernel)": ("abft_compare_kernel",)})
+    split["activation quantization (act_quant)"] = 0.0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CPU and \
                 e.name == "act_quant":

@@ -2,33 +2,56 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (its _kernel and the _norm_kernel second pass). q, k, v, out: (BH, S, D)
-// row-major. At prefill shapes it does 2*BH*S^2*D flops over the causal
-// triangle against 4*BH*S*D*sizeof(T) bytes, so it is bound by its
-// operations; keeping the score tile and the (m, l, o) state on chip keeps
-// the S^2 scores out of device memory, which is what the kernel is for.
+// row-major, D in {16, 32, 64, 128, 256}. At prefill shapes it does
+// 2*BH*S^2*D flops over the causal triangle against 4*BH*S*D*sizeof(T)
+// bytes, so it is bound by its operations (H100: 989 TFLOP/s dense bf16 on
+// the tensor cores, 67 TFLOP/s f32 on the CUDA cores); keeping the score
+// tile and the (m, l, o) state on chip keeps the S^2 scores out of device
+// memory, which is what the kernel is for.
 //
-// Design: grid (ceil(S/64), BH), one CTA of 256 threads per (query tile of
-// BQ = 64 rows, batch-head); the CTAs of the late, heavy query tiles are
-// launched first. The TPU's sequential key-tile axis is a loop inside the
-// CTA that stops at the causal diagonal: key tile kt runs while
-// kt*BK <= last query row. Per key tile (BK = 64 keys) the CTA stages K and
-// V in shared memory as f32 (rows padded to D+1 floats, so column reads hit
-// distinct banks); each thread owns a 4x4 micro-tile of the 64x64 score
-// tile (rows ty+16i, keys tx+16j) and a 4x(D/16) micro-tile of the output
-// (rows ty+16i, dims tx+16j) in registers. It mirrors the reference's op
-// order: s = q.k with f32 accumulation (bf16 products are exact in f32) and
-// no rounding, times 1/sqrt(D), -1e30 where the key is after the query;
-// m_new = max(m, rowmax); p = exp(s - m_new); alpha = exp(m - m_new);
-// l = l*alpha + sum p; pv = round(p, T) @ v in f32; o = o*alpha + pv. The
-// row reductions run over the 16 lanes of a half-warp. At the end
-// out = o / max(l, 1e-30), rounded once to T: one kernel computes what the
-// TPU's two passes compute. A ragged S is masked: key rows past S load as
-// 0 and are causally invisible to every real query; query rows past S are
-// not written.
+// Both routes share the grid and the arithmetic: grid (ceil(S/64), BH),
+// one CTA per (query tile of BQ = 64 rows, batch-head), the CTAs of the
+// late, heavy query tiles launched first. The TPU's sequential key-tile
+// axis is a loop inside the CTA over key tiles of BK = 64 up to and
+// including the diagonal tile; tiles past it are never loaded, and only
+// the diagonal tile is masked. Per key tile the op order is the plain
+// version's: s = q.k with f32 accumulation (bf16 products are exact in
+// f32), s * (1/sqrt(D)) after the dot, -1e30 where the key is after the
+// query; m_new = max(m, rowmax); p = exp(s - m_new) (expf, no exp2 fold);
+// alpha = exp(m - m_new); l = l*alpha + sum p; o = o*alpha + round(p, T) @ v
+// in f32. At the end out = o / max(l, 1e-30), rounded once to T: one
+// kernel computes what the TPU's two passes compute. A ragged S is masked:
+// key rows past S load as 0 and are causally invisible to every real
+// query; query rows past S are not written.
 //
-// Known limits, kept for later: CUDA-core FMAs (no mma.sync / wgmma, no
-// TMA), one CTA per SM at D = 128 (115 KB of shared memory), no overlap of
-// tile loads with compute.
+// Routes by dtype:
+// * bf16 (tensor cores, FlashAttention-2 layout): 4 warps, each owning 16
+//   query rows; S = Q K^T and O += P V on mma.sync m16n8k16 (bf16 in, f32
+//   accumulator). Q, K and V stay bf16 in shared memory, rows padded by 16
+//   bytes (an odd number of 16-byte units per row, so the 8 row addresses
+//   of each ldmatrix hit distinct banks); K and V in a 2-stage ring filled
+//   by cp.async, so tile t+1 loads while tile t computes. Q fragments stay
+//   in registers for D <= 128 and are re-read with ldmatrix per tile at
+//   D = 256 (register budget: o alone is D/2 f32 registers a thread).
+//   m, l and alpha are computed on the accumulator fragments; a row's 64
+//   scores live in the quad of lanes that shares it, so row reductions are
+//   two xor shuffles. P is rounded to bf16 in registers (the plain
+//   version's p.to(v.dtype)) and fed as the A operand of P V, with V read
+//   by ldmatrix.trans. Unlike the plain version, P V accumulates into the
+//   alpha-scaled o directly (no separate pv sum), so only the order of the
+//   f32 sums differs. Shared memory: Q + 2 stages of K and V, (64 + 4*64)
+//   rows of D + 8 bf16: 87,040 bytes at D = 128 (two CTAs per SM), 168,960
+//   at D = 256.
+// * f32 (CUDA cores; the tensor cores have no exact f32 path and the port
+//   keeps TF32 off): 256 threads, each a 4x4 micro-tile of the 64x64 score
+//   tile (rows ty+16i, keys tx+16j) and a 4x(D/16) micro-tile of the output
+//   in registers; Q, K, V staged in shared memory as f32 rows of D + 1
+//   floats; row reductions over the 16 lanes of a half-warp. 214,016
+//   bytes of shared memory at D = 256.
+//
+// Known limits, kept for later: mma.sync, not wgmma with TMA; no warp
+// specialisation (loads are issued by the compute warps); at D = 256 one
+// CTA per SM; GQA callers repeat K and V per head beforehand.
 //
 // Plain C interface for ctypes; launches on the given stream, allocates
 // nothing, returns cudaGetLastError().
@@ -36,26 +59,201 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "mma_sm90.cuh"
+
 namespace {
+
+using namespace mma_sm90;
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
-constexpr int THREADS = 256;  // 16 x 16: ty = tid / 16, tx = tid % 16
-constexpr int PLD = BK + 1;   // row stride of the probability tile
+constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TC_THREADS = 128;  // 4 warps x 16 query rows
+
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  return (size_t)(BQ + 4 * BK) * (D + 8) * sizeof(__nv_bfloat16);
 }
-__device__ __forceinline__ void from_float(float x, float* dst) { *dst = x; }
-__device__ __forceinline__ void from_float(float x, __nv_bfloat16* dst) {
-  *dst = __float2bfloat16_rn(x);
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                __nv_bfloat16* __restrict__ out, int S, float sm_scale) {
+  constexpr int LD = D + 8;      // padded row, in bf16
+  constexpr int CH = D / 8;      // 16-byte chunks per row
+  constexpr int KS = D / 16;     // k-steps of Q K^T
+  constexpr int NO = D / 8;      // n8 tiles of the output
+  constexpr bool Q_REGS = D <= 128;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + BQ * LD;      // 2 stages x BK x LD
+  __nv_bfloat16* Vs = Ks + 2 * BK * LD;  // 2 stages x BK x LD
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heavy tiles first
+  const int q0 = qt * BQ;
+  const int64_t base = (int64_t)blockIdx.y * S * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  for (int i = tid; i < BQ * CH; i += TC_THREADS) {
+    const int r = i / CH, c = i % CH;
+    const bool in = q0 + r < S;
+    cp_async16(Qs + r * LD + c * 8,
+               q + base + (int64_t)(in ? q0 + r : 0) * D + c * 8, in);
+  }
+  auto load_kv = [&](int kt, int st) {
+    const int k0 = kt * BK;
+    __nv_bfloat16* kd = Ks + st * BK * LD;
+    __nv_bfloat16* vd = Vs + st * BK * LD;
+    for (int i = tid; i < BK * CH; i += TC_THREADS) {
+      const int r = i / CH, c = i % CH;
+      const bool in = k0 + r < S;
+      const int64_t off = base + (int64_t)(in ? k0 + r : 0) * D + c * 8;
+      cp_async16(kd + r * LD + c * 8, k + off, in);
+      cp_async16(vd + r * LD + c * 8, v + off, in);
+    }
+  };
+  load_kv(0, 0);
+  cp_async_commit();
+
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};
+  uint32_t qf[Q_REGS ? KS : 1][4];
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const __nv_bfloat16* qrow = Qs + (warp * 16 + (lane & 15)) * LD +
+                              (lane >> 4) * 8;
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt landed; every warp is done with tile kt-1
+    if (kt < qt) load_kv(kt + 1, (kt + 1) & 1);
+    cp_async_commit();
+    if constexpr (Q_REGS) {
+      if (kt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(qf[kk], qrow + kk * 16);
+      }
+    }
+    const __nv_bfloat16* Kt = Ks + (kt & 1) * BK * LD;
+    const __nv_bfloat16* Vt = Vs + (kt & 1) * BK * LD;
+
+    // S = Q K^T: this warp's 16 rows x 64 keys, 8 n8 tiles
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4];
+      if constexpr (Q_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(a, qrow + kk * 16);
+      }
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2) {  // 16 keys per ldmatrix.x4
+        uint32_t b[4];
+        ldmatrix_x4(b, Kt + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                           kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * j2], a, b[0], b[1]);
+        mma_bf16(s[2 * j2 + 1], a, b[2], b[3]);
+      }
+    }
+
+    // online softmax on the fragments: s[j][e] is row row0 + 8*(e >> 1),
+    // key kt*64 + 8j + 2*t4 + (e & 1)
+    const bool diag = kt == qt;
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sm_scale;
+        if (diag && kt * BK + 8 * j + 2 * t4 + (e & 1) > row0 + 8 * (e >> 1))
+          x = NEG;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      alpha[r] = expf(m_r[r] - m_new);
+      m_r[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m_r[e >> 1]);
+        s[j][e] = p;
+        sum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l_r[r] = __fadd_rn(__fmul_rn(l_r[r], alpha[r]), sum[r]);
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // O += round(P, bf16) V: the score fragments of keys 16kk .. 16kk+15
+    // are the A fragment of the k-step kk
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int j2 = 0; j2 < NO / 2; ++j2) {  // 16 head dims per ldmatrix
+        uint32_t b[4];
+        ldmatrix_x4_trans(
+            b, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                   j2 * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * j2], a, b[0], b[1]);
+        mma_bf16(o[2 * j2 + 1], a, b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    const float denom = fmaxf(l_r[r], 1e-30f);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + base +
+                                                (int64_t)row * D + 2 * t4);
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      dst[4 * j] = pack_bf16(o[j][2 * r] / denom, o[j][2 * r + 1] / denom);
+  }
 }
-// round a float to the value type, as `p.astype(v.dtype)` does
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int F32_THREADS = 256;  // 16 x 16: ty = tid / 16, tx = tid % 16
+constexpr int PLD = BK + 1;       // row stride of the probability tile
 
 // reductions over the 16 lanes of a half-warp (one query row's keys)
 __device__ __forceinline__ float half_max(float v) {
@@ -71,15 +269,15 @@ __device__ __forceinline__ float half_sum(float v) {
 }
 
 template <int D>
-constexpr size_t smem_bytes() {
+constexpr size_t f32_smem_bytes() {
   return ((size_t)(BQ + 2 * BK) * (D + 1) + (size_t)BQ * PLD) * sizeof(float);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int S,
-             float sm_scale) {
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int S,
+                 float sm_scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
   extern __shared__ float sm[];
@@ -92,15 +290,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t base = (int64_t)blockIdx.y * S * D;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
+  for (int i = tid; i < BQ * D; i += F32_THREADS) {
     const int r = i / D, d = i % D;
-    Qs[r * LD + d] =
-        q0 + r < S ? to_float(q[base + (int64_t)(q0 + r) * D + d]) : 0.f;
+    Qs[r * LD + d] = q0 + r < S ? q[base + (int64_t)(q0 + r) * D + d] : 0.f;
   }
   float o[4][DJ], m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    m[i] = -1e30f;
+    m[i] = NEG;
     l[i] = 0.f;
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj) o[i][jj] = 0.f;
@@ -109,12 +306,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int last_row = min(q0 + BQ - 1, S - 1);
   for (int k0 = 0; k0 <= last_row; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BK * D; i += THREADS) {
+    for (int i = tid; i < BK * D; i += F32_THREADS) {
       const int r = i / D, d = i % D;
       const bool in = k0 + r < S;
       const int64_t g = base + (int64_t)(k0 + r) * D + d;
-      Ks[r * LD + d] = in ? to_float(k[g]) : 0.f;
-      Vs[r * LD + d] = in ? to_float(v[g]) : 0.f;
+      Ks[r * LD + d] = in ? k[g] : 0.f;
+      Vs[r * LD + d] = in ? v[g] : 0.f;
     }
     __syncthreads();
 
@@ -140,11 +337,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty + 16 * i;
-      float mx = -1e30f;
+      float mx = NEG;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx + 16 * j;
-        s[i][j] = row >= key ? s[i][j] * sm_scale : -1e30f;
+        s[i][j] = row >= key ? s[i][j] * sm_scale : NEG;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], half_max(mx));
@@ -153,7 +350,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        Ps[(ty + 16 * i) * PLD + tx + 16 * j] = round_to(p, v);
+        Ps[(ty + 16 * i) * PLD + tx + 16 * j] = p;
       }
       alpha[i] = expf(m[i] - m_new);
       l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), half_sum(sum));
@@ -193,47 +390,54 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj)
-      from_float(o[i][jj] / denom,
-                 &out[base + (int64_t)row * D + tx + 16 * jj]);
+      out[base + (int64_t)row * D + tx + 16 * jj] = o[i][jj] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int BH,
-           int S, float sm_scale, cudaStream_t stream) {
-  auto kern = flash_kernel<T, D>;
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3((S + BQ - 1) / BQ, BH), THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, S, sm_scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_dim(const void* q, const void* k, const void* v, void* out, int BH,
-               int S, int D, float sm_scale, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, out, BH, S, sm_scale, s);
-    case 32: return launch<T, 32>(q, k, v, out, BH, S, sm_scale, s);
-    case 64: return launch<T, 64>(q, k, v, out, BH, S, sm_scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, BH, S, sm_scale, s);
-    default: return (int)cudaErrorInvalidValue;
+           int S, float sm_scale, int is_bf16, cudaStream_t stream) {
+  const dim3 grid((S + BQ - 1) / BQ, BH);
+  cudaError_t err;
+  if (is_bf16) {
+    constexpr size_t smem = tc_smem_bytes<D>();
+    err = cudaFuncSetAttribute(flash_tc_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, sm_scale);
+  } else {
+    constexpr size_t smem = f32_smem_bytes<D>();
+    err = cudaFuncSetAttribute(flash_f32_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_f32_kernel<D><<<grid, F32_THREADS, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)out, S,
+        sm_scale);
   }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q/k/v/out: (BH, S, D) contiguous; is_bf16: 1 for bfloat16, 0 for float32.
-// D in {16, 32, 64, 128}; BH <= 65535.
+// q/k/v/out: (BH, S, D) contiguous; is_bf16: 1 for bfloat16 (tensor
+// cores), 0 for float32 (CUDA cores). D in {16, 32, 64, 128, 256};
+// BH <= 65535.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int BH, int S,
                                       int D, float sm_scale, int is_bf16,
                                       void* stream) {
   if (BH < 1 || BH > 65535 || S < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return launch_dim<__nv_bfloat16>(q, k, v, out, BH, S, D, sm_scale, s);
-  return launch_dim<float>(q, k, v, out, BH, S, D, sm_scale, s);
+  switch (D) {
+    case 16: return launch<16>(q, k, v, out, BH, S, sm_scale, is_bf16, s);
+    case 32: return launch<32>(q, k, v, out, BH, S, sm_scale, is_bf16, s);
+    case 64: return launch<64>(q, k, v, out, BH, S, sm_scale, is_bf16, s);
+    case 128: return launch<128>(q, k, v, out, BH, S, sm_scale, is_bf16, s);
+    case 256: return launch<256>(q, k, v, out, BH, S, sm_scale, is_bf16, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

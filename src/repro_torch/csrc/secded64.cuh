@@ -32,11 +32,37 @@ __constant__ uint8_t SYN2BIT[128] = {
 // bit 6 of bytes 0..6: where the check bits live
 constexpr uint64_t CHECK_MASK = 0x0040404040404040ull;
 
-__device__ __forceinline__ uint32_t syndrome(uint64_t w) {
-  uint32_t s = 0;
+// The seven check parities parity(w & ROWMASK[k]), each computed as the
+// parity of the xor of the two masked 32-bit halves (one popcount per check
+// bit: popc is a quarter-rate instruction on sm_90, and the fused matmul
+// decodes every weight block once per use). Popcounts of 32 bits are at
+// most 32, so they are summed into 6-bit fields without carries: parity k
+// is bit 6k of *p03 (k = 0..3) or bit 6(k-4) of *p46 (k = 4..6).
+__device__ __forceinline__ void parities(uint64_t w, uint32_t* p03,
+                                         uint32_t* p46) {
+  const uint32_t lo = (uint32_t)w, hi = (uint32_t)(w >> 32);
+  uint32_t c[7];
 #pragma unroll
-  for (int k = 0; k < 7; ++k) s |= (uint32_t)(__popcll(w & ROWMASK[k]) & 1) << k;
-  return s;
+  for (int k = 0; k < 7; ++k)
+    c[k] = __popc((lo & (uint32_t)ROWMASK[k]) ^
+                  (hi & (uint32_t)(ROWMASK[k] >> 32)));
+  *p03 = c[0] + (c[1] << 6) + (c[2] << 12) + (c[3] << 18);
+  *p46 = c[4] + (c[5] << 6) + (c[6] << 12);
+}
+
+// bit 0 of every 6-bit field: nonzero iff the syndrome is
+constexpr uint32_t PARITY_BITS = 0x41041u;
+
+// the 7-bit syndrome from the packed parities
+__device__ __forceinline__ uint32_t pack_syndrome(uint32_t a, uint32_t b) {
+  return (a & 1u) | ((a >> 5) & 2u) | ((a >> 10) & 4u) | ((a >> 15) & 8u) |
+         ((b << 4) & 16u) | ((b >> 1) & 32u) | ((b >> 6) & 64u);
+}
+
+__device__ __forceinline__ uint32_t syndrome(uint64_t w) {
+  uint32_t a, b;
+  parities(w, &a, &b);
+  return pack_syndrome(a, b);
 }
 
 __device__ __forceinline__ uint64_t restore_sign(uint64_t w) {
@@ -44,13 +70,19 @@ __device__ __forceinline__ uint64_t restore_sign(uint64_t w) {
 }
 
 // Decode one block: corrected + sign-restored word; flags bit0 = single
-// corrected, bit1 = DUE.
+// corrected, bit1 = DUE. A zero syndrome (the common case) is tested on
+// the packed parities; the syndrome itself is assembled only for a fault.
 __device__ __forceinline__ uint64_t decode(uint64_t w, uint32_t* flags) {
-  uint32_t s = syndrome(w);
-  uint32_t single = __popc(s) & 1u;
-  uint32_t due = (s != 0u) & (single ^ 1u);
-  if (single) w ^= 1ull << SYN2BIT[s];
-  *flags = single | (due << 1);
+  uint32_t a, b;
+  parities(w, &a, &b);
+  uint32_t f = 0;
+  if ((a | b) & PARITY_BITS) {
+    const uint32_t s = pack_syndrome(a, b);
+    const uint32_t single = __popc(s) & 1u;
+    if (single) w ^= 1ull << SYN2BIT[s];
+    f = single ? 1u : 2u;
+  }
+  *flags = f;
   return restore_sign(w);
 }
 

@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("ecc_codec", "ecc_qmatmul", "paged_attention", "chunked_attention",
            "flash_attention", "quant_throttle", "throttle")
-HEADERS = ("secded64.cuh", "parity8.cuh")
+HEADERS = ("secded64.cuh", "parity8.cuh", "mma_sm90.cuh")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _U = ctypes.c_uint
@@ -37,7 +37,7 @@ SIGNATURES = {
     "ecc_encode_launch": ("ecc_codec", [_P, _P, _LL, _P]),
     "ecc_qmatmul_launch": ("ecc_qmatmul",
                            [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
-                            _P, _P, _P, _I, _I, _I, _U, _P]),
+                            _P, _P, _P, _I, _I, _I, _U, _I, _I, _P, _P, _P]),
     "fused_page_attention_launch": ("paged_attention",
                                     [_P] * 10 + [_I] * 6 + [_F, _LL, _I, _P]),
     "chunked_page_attention_launch": ("chunked_attention",

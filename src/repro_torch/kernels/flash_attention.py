@@ -4,10 +4,19 @@ Replaces ``repro/kernels/flash_attention.py::flash_attention`` (its
 ``_kernel`` and the ``_norm_kernel`` second pass; ``csrc/flash_attention.cu``).
 The prefill attends over the decoded pages through it on the ``cuda``
 route, so no score matrix reaches device memory. One CTA per (B·H, query
-tile) walks the key tiles up to the causal diagonal keeping the running
-(m, l, o) state on chip and normalizes at the end — one kernel computing
-what the TPU's two passes compute. At prefill shapes it is bound by its
-operations (2·B·H·S²·D for the causal triangle), not by its bytes.
+tile of 64 rows) walks the key tiles of 64 up to the causal diagonal
+keeping the running (m, l, o) state on chip and normalizes at the end —
+one kernel computing what the TPU's two passes compute. At prefill shapes
+it is bound by its operations (2·B·H·S²·D for the causal triangle), not by
+its bytes.
+
+Routes by dtype: bf16 runs on the tensor cores (``mma.sync`` m16n8k16,
+FlashAttention-2 layout: a warp per 16 query rows, K and V bf16 in a
+two-stage ``cp.async`` ring, P rounded to bf16 in registers as the plain
+version's ``p.to(v.dtype)``); f32 runs on CUDA-core FMAs (no exact f32
+tensor-core path; TF32 stays off). Both take head dims
+:data:`KERNEL_HEAD_DIMS` and the plain version's arithmetic per 64-key
+tile; only the order of the f32 sums differs.
 
 Unlike the reference, which asserts that S divides into tiles, a ragged S
 is masked: keys past S are causally invisible to every real query, and
@@ -23,7 +32,7 @@ from . import build
 NEG_INF = -1e30
 # the kernel's tiles: query rows per CTA and keys per online-softmax step
 KERNEL_BQ = KERNEL_BK = 64
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def flash_attention_plain(q, k, v, *, bq: int = KERNEL_BQ,

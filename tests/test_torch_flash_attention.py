@@ -81,6 +81,47 @@ def test_flash_plain_masks_a_ragged_length(s):
                                atol=F32_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_plain_matches_the_reference_kernel_head_dim_256(dtype):
+    """Head dim 256 (paligemma-3b, recurrentgemma-2b), which the kernel
+    now takes: the plain version against the reference kernel in
+    interpret mode, at the kernel's tiles."""
+    shape = (1, 2, 128, 256)
+    q, k, v = _qkv(256, shape)
+    if dtype == "f32":
+        ref = np.asarray(jfa.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bq=64, bk=64,
+            interpret=True))
+        out = flash_attention.flash_attention_plain(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+        np.testing.assert_allclose(out.numpy(), ref, rtol=F32_TOL,
+                                   atol=F32_TOL)
+        return
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    ref = np.asarray(jfa.flash_attention(jq, jk, jv, bq=64, bk=64,
+                                         interpret=True).astype(jnp.float32))
+    t = [torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
+         for x in (jq, jk, jv)]
+    out = flash_attention.flash_attention(*t)
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
+                               atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("s", [37, 130])
+def test_flash_plain_masks_a_ragged_length_head_dim_256(s):
+    q, k, v = _qkv(s + 256, (1, 2, s, 256))
+    out = flash_attention.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    np.testing.assert_allclose(out.numpy(), _causal_f64(q, k, v),
+                               rtol=F64_TOL, atol=F64_TOL)
+
+
+def test_flash_kernel_head_dims_cover_256():
+    """Every head dim the kernel takes is one the plain version serves,
+    256 included (the prefill of the head-dim-256 families)."""
+    assert flash_attention.KERNEL_HEAD_DIMS == (16, 32, 64, 128, 256)
+
+
 def test_flash_wrapper_takes_the_plain_version_on_the_cpu():
     q, k, v = (torch.from_numpy(x) for x in _qkv(3, (1, 2, 70, 16)))
     before = build.COUNTS["flash_attention"]

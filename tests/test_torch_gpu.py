@@ -76,6 +76,62 @@ def test_gpu_qmatmul_kernel_matches_plain(cuda, dtype, m, k, n):
     torch.testing.assert_close(ko, po, rtol=1e-4, atol=1e-4)
 
 
+# M across both regimes (<= 32: split-K decode tiles; > 32: 128-row
+# prefill tiles); (1037, 1000) has ragged K and N and rows that are not
+# 16-byte aligned (element and 8-byte copies), (1024, 1152) aligned rows
+@pytest.mark.parametrize("path", ["float", "int8", "requant-abft-clamp"])
+@pytest.mark.parametrize("kn", [(1037, 1000), (1024, 1152)])
+@pytest.mark.parametrize("m", [1, 4, 8, 32, 33, 128, 300])
+def test_gpu_qmatmul_regimes_match_plain(cuda, path, kn, m):
+    """The tensor-core regimes against the plain version: flags exact, int
+    paths byte-equal, the float path within 1e-4, at split-K plans and
+    multi-tile M."""
+    k, n = kn
+    plan = ecc_qmatmul.plan_launch(m, n, k, torch.bfloat16)
+    assert plan.regime == ("small" if m <= ecc_qmatmul.SMALL_M else "large")
+    assert plan.splits > 1 or plan.m_tiles > 1
+    gen = torch.Generator(device=cuda).manual_seed(m * 7 + k + n)
+    w, s = _encoded_weight(k, n, cuda, gen)
+    if path == "float":
+        a = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+        got = ecc_qmatmul.ecc_qmatmul(a, w, s, with_flags=True)
+        want = ecc_qmatmul.ecc_qmatmul_plain(a, w, s, with_flags=True)
+        assert got[1].tolist() == want[1].tolist() != [0, 0]
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+        return
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    if path == "int8":
+        args, kw = (a, w), {}
+    else:
+        rows = 0.01 + 0.04 * torch.rand((m, 1), generator=gen, device=cuda)
+        bias = torch.randint(-5000, 5000, (n,), generator=gen, device=cuda,
+                             dtype=torch.int32)
+        y = ecc_qmatmul.ecc_qmatmul_plain(a, w, s, a_scale=rows, bias=bias,
+                                          out_dtype=torch.float32)
+        args, kw = (a, w, s), dict(a_scale=rows, bias=bias, with_abft=True,
+                                   clamp=float(y.abs().quantile(0.9)))
+    got = ecc_qmatmul.ecc_qmatmul(*args, with_flags=True, **kw)
+    want = ecc_qmatmul.ecc_qmatmul_plain(*args, with_flags=True, **kw)
+    _assert_same(got, want)
+    assert got[1].tolist() != [0, 0]
+
+
+def test_gpu_qmatmul_split_k_repeats_bit_equal(cuda):
+    """Two launches of the float path at a split-K decode shape give the
+    same bits: the split partials are added in a fixed order."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    w, s = _encoded_weight(4096, 1024, cuda, gen)
+    a = torch.randn((8, 4096), generator=gen, device=cuda).to(torch.bfloat16)
+    assert ecc_qmatmul.plan_launch(8, 1024, 4096, a.dtype).splits > 1
+    first = ecc_qmatmul.ecc_qmatmul(a, w, s, with_abft=True)
+    for _ in range(3):
+        again = ecc_qmatmul.ecc_qmatmul(a, w, s, with_abft=True)
+        assert torch.equal(first[0].view(torch.int32),
+                           again[0].view(torch.int32))
+        assert torch.equal(first[1][0], again[1][0])
+
+
 def _leaves(x) -> list:
     """The tensors of a nested tuple, in order."""
     if isinstance(x, tuple):
@@ -364,9 +420,10 @@ def test_gpu_attention_per_slot_rows_match_plain(cuda, kernel, scheme):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-# 128: whole tiles; 100 and 1: a ragged S
+# 128: whole tiles; 100, 1, 300: a ragged S; 256: the tensor-core route's
+# Q fragments re-read from shared memory
 @pytest.mark.parametrize("s,d", [(128, 16), (100, 64), (1, 128), (200, 128),
-                                 (70, 32)])
+                                 (70, 32), (300, 256), (64, 256)])
 def test_gpu_flash_attention_kernel_matches_plain(cuda, dtype, s, d):
     gen = torch.Generator(device=cuda).manual_seed(s + d)
     q, k, v = (torch.randn((2, 3, s, d), generator=gen, device=cuda).to(dtype)
