@@ -55,6 +55,11 @@ d_model 4096, vocab 102400) at batch 4:
 
 Phase 2 also holds the parity-zero decode and the per-slot flags of both
 paged-attention kernels to their plain versions at the burst's shapes;
+both kernels through their page-table entries (the pool read through a
+shuffled table with a shared page and a parking page, as the decode step
+calls them) at the decode, long-context and burst shapes and at
+minitron-4b widths (rep 3), against ``gather_strips`` + the plain version,
+with the time the gather alone would take;
 flash attention at head_dim 256 (B 4, H 8, S 2,048 and a ragged S) in
 bf16 (tensor cores) and f32 (CUDA cores), with its TFLOP/s beside SDPA's;
 and the float ``ecc_qmatmul`` at every weight shape for the decode step
@@ -323,6 +328,10 @@ def phase_kernels(torch, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     out = {}
+    one = torch.zeros(1, device=dev)
+    log(f"timer floor: one launch of a one-element fill takes "
+        f"{timer.ms(lambda: one.zero_()):.4f} ms (launch latency, the floor "
+        f"of every latency-bound row)")
 
     # -- exhaustive single and double flips of 64 random blocks -------------
     base = ecc.encode64(wot_blocks(torch, dev, 64, gen))
@@ -462,6 +471,11 @@ def phase_kernels(torch, dev):
         out[name]["parity_zero"] = pz
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
                                        pz["max_abs_err"])
+    # both kernels through the page table at the serve shapes, rep > 1
+    for name, r in check_paged_tables(torch, dev, cfg, timer, gen).items():
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                       r["max_abs_err"])
+        out[name]["through_table"] = r["through_table"]
     out["flash_attention"] = check_flash(torch, dev, cfg, timer, gen)
     out["quantize_throttle"] = check_quant_throttle(torch, dev, timer, gen)
     out["throttle"] = check_throttle(torch, dev, timer, gen)
@@ -834,7 +848,10 @@ def check_chunked(torch, dev, cfg, timer, gen):
         nbytes = (2 * q.numel() * 2 + 2 * b * s * kvh * hd + 2 * b * s * 4
                   + 4 * b + b * kvh * 2 * 4)
         bb, by = bound_ms(nbytes, 4 * b * h * s * hd)
-        log(f"chunked_page_attention B={b} S={s} (chunk {chunk}): flags "
+        splits = paged_attention.plan_splits(b, kvh, s,
+                                             paged_attention._sm_count(dev))
+        log(f"chunked_page_attention B={b} S={s} ({splits} splits of the "
+            f"plan; the plain version's chunk {chunk}): flags "
             f"{kfl.tolist()}, max abs err vs plain {float(e.max()):.3g}, vs "
             f"fp64 oracle {oerr:.3g} (gate {otol:.3g}); per launch kernel "
             f"{km:.4f} ms, plain {pm:.4f} ms, sdpa(decoded) {lm_:.4f} ms, "
@@ -965,6 +982,166 @@ def check_parity_zero(torch, dev, cfg, timer, gen):
             f"S={s}): rows {rows.tolist()}, {truth} bad bytes of valid "
             f"tokens; {out[name]}")
     return out
+
+
+def _paged_pool(torch, dev, b, s, kvh, hd, scheme, pos, gen, ps=16):
+    """One layer's pool laid out as the serving front-end lays it out:
+    parking pages 0..B-1, the rows' pages in a shuffled order, two spare;
+    rows 0 and 1 share their first page (a common prefix); the last row's
+    last page is its parking page (its ``pos`` lies before it). Data bytes
+    flipped (300 single- and 100 double-flip blocks), and one check byte
+    in 97 for parity-zero. -> (pool operands, table (B, npg) int32)."""
+    from repro_torch.serving import kvcache
+    npg = s // ps
+    n_pages = b + b * npg + 2
+    pol = kvcache.KVProtectionPolicy(scheme=scheme)
+    pool = []
+    for _ in range(2):
+        e, c, sc = kvcache._encode_kv(
+            torch.randn((n_pages, ps, kvh, hd), generator=gen, device=dev),
+            pol)
+        flip_blocks(torch, e.view(-1, 8), 300, 100, gen)
+        if c is not None:
+            _flip_check_bytes(torch, c, 97, gen)
+        pool += [e, c, sc]
+    perm = torch.randperm(n_pages - b, generator=gen, device=dev) + b
+    table = perm[: b * npg].reshape(b, npg).to(torch.int32)
+    table[1, 0] = table[0, 0]
+    table[b - 1, npg - 1] = b - 1
+    if int(pos[b - 1]) >= (npg - 1) * ps:
+        fail("the parking page must lie past the last row's pos")
+    return pool, table
+
+
+def check_paged_tables(torch, dev, cfg, timer, gen):
+    """Both kernels through their table entries (the pool read through the
+    page table, what ``paged_gqa_decode`` calls) at the serve shapes: B 4,
+    S 64 (decode; strip and chunked), B 4, S 2,064 (long context; chunked:
+    the strip kernel stops at 848 tokens) and B 8, S 128 (burst,
+    parity-zero, per-slot rows), over a shuffled table with a shared page
+    and a parking page; then at minitron-4b widths (H 24, KV 8, hd 128,
+    rep 3) in bf16. Each against ``paged_attention.gather_strips`` + the
+    plain version: the strip kernel bit-equal, the chunked kernel within
+    CHUNKED_*; flags and per-slot rows exactly equal. Prints the kernel's
+    time through the table and the time the gather alone takes (the copy
+    the decode step does not make). Each case's bound counts the work of
+    its ragged positions (the live tokens: each distinct live page slot's
+    bytes read once, the scores and PV of every row's ``pos + 1`` tokens),
+    and its library time is SDPA over the same gathered, pre-decoded bf16
+    strips with a mask past ``pos``. -> {kernel: {"max_abs_err": x,
+    "through_table": [per-case times]}}."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import paged_attention as pa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = {k: dict(max_abs_err=0.0, through_table=[])
+           for k in ("fused_page_attention", "chunked_page_attention")}
+    cases = [(cfg, 4, 64, "in-place", False, (63, 32, 21, 47)),
+             (cfg, 4, 2064, "in-place", False, (2063, 1500, 700, 2047)),
+             (cfg, BURST_SLOTS, BURST_MAX_LEN, "parity-zero", True,
+              (127, 100, 64, 33, 16, 15, 1, 0)),
+             (get("minitron-4b"), 4, 64, "in-place", True, (63, 40, 15, 0)),
+             (get("minitron-4b"), 4, 2064, "in-place", False,
+              (2063, 1024, 17, 2000))]
+    for c, b, s, scheme, per_slot, ragged in cases:
+        h, kvh, hd = c.n_heads, c.n_kv_heads, c.head_dim
+        pos = torch.tensor(ragged, dtype=torch.int32, device=dev)
+        pool, table = _paged_pool(torch, dev, b, s, kvh, hd, scheme, pos, gen)
+        q = torch.randn((b, h, 1, hd), generator=gen, device=dev).to(
+            torch.bfloat16)
+        ke, kch, ksc = pa.gather_strips(*pool[:3], table)
+        ve, vch, vsc = pa.gather_strips(*pool[3:], table)
+        strips = (q, ke, kch, ksc, ve, vch, vsc, pos)
+        nbytes, ops, live = _table_work(torch, c, b, s, scheme, per_slot,
+                                        pos, table)
+        bb, by = bound_ms(nbytes, ops)
+        if scheme == "parity-zero":
+            kd_ = _decoded_parity_bf16(torch, ke, kch, ksc)
+            vd_ = _decoded_parity_bf16(torch, ve, vch, vsc)
+        else:
+            kd_, vd_ = _decoded_bf16(torch, ke, ksc), _decoded_bf16(
+                torch, ve, vsc)
+        mask = (torch.arange(s, device=dev)[None, :] <= pos[:, None])[
+            :, None, None, :]
+        lm_ = timer.ms(lambda: sdpa(q, kd_, vd_, attn_mask=mask,
+                                    enable_gqa=h != kvh))
+        del kd_, vd_
+        kernels = [("chunked_page_attention",
+                    pa.chunked_page_attention_paged,
+                    pa.chunked_page_attention_plain)]
+        if s <= 848:
+            kernels.insert(0, ("fused_page_attention",
+                               pa.fused_page_attention_paged,
+                               pa.fused_page_attention_plain))
+        for name, fn, plain in kernels:
+            kw = dict(scheme=scheme, per_slot=per_slot)
+            ko, kf = fn(q, *pool, table, pos, **kw)
+            po, pf = plain(*strips, **kw)
+            if not torch.equal(kf, pf) or int(kf.sum()) == 0:
+                fail(f"{name} through the table at {c.name} B={b} S={s} "
+                     f"{scheme}: flags {kf.tolist()} vs plain {pf.tolist()}")
+            e = (ko.float() - po.float()).abs()
+            if name == "fused_page_attention":
+                if not torch.equal(ko, po):
+                    fail(f"{name} through the table at {c.name} B={b} S={s} "
+                         f"{scheme} differs from gather + plain in "
+                         f"{int((ko != po).sum())} outputs: max abs err "
+                         f"{float(e.max())}")
+            elif bool((e > CHUNKED_RTOL * po.float().abs()
+                       + CHUNKED_ATOL).any()):
+                fail(f"{name} through the table at {c.name} B={b} S={s} "
+                     f"{scheme}: max abs err {float(e.max())} from gather + "
+                     f"plain")
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
+                                           float(e.max()))
+            km = timer.ms(lambda f=fn, k=kw: f(q, *pool, table, pos, **k))
+            row = dict(arch=c.name, B=b, S=s, scheme=scheme,
+                       per_slot=per_slot, live_tokens=live, ms=km,
+                       bound_ms=bb, bound_by=by, library_ms=lm_,
+                       launches_per_step=c.n_layers)
+            extra = ""
+            if name == "chunked_page_attention":
+                row["splits"] = pa.plan_splits(b, kvh, s, pa._sm_count(dev))
+                extra = f", {row['splits']} splits"
+            res[name]["through_table"].append(row)
+            n = c.n_layers
+            log(f"{name} through the table, {c.name} (H {h}, KV {kvh}, hd "
+                f"{hd}) B={b} S={s} {scheme}{' per-slot' if per_slot else ''}"
+                f" at pos {list(ragged)} ({live} live tokens): flags "
+                f"{kf.tolist()} equal to gather + plain, max abs err "
+                f"{float(e.max()):.3g}; per launch {km:.4f} ms, sdpa(masked, "
+                f"decoded) {lm_:.4f} ms, bound {bb:.5f} ms ({by}){extra}; per "
+                f"step ({n} launches) {n * km:.4f} ms, sdpa {n * lm_:.4f} ms, "
+                f"bound {n * bb:.5f} ms")
+        if c is cfg and s in (2064, BURST_MAX_LEN):
+            gm = timer.ms(lambda: (pa.gather_strips(*pool[:3], table),
+                                   pa.gather_strips(*pool[3:], table)))
+            log(f"gather_strips alone (K and V strips, {scheme}) at B={b} "
+                f"S={s}: {gm:.4f} ms per layer, {cfg.n_layers * gm:.3f} ms "
+                f"per decode step: the copy the table entries do not make")
+        del pool, table, ke, ve, strips
+    return res
+
+
+def _table_work(torch, c, b, s, scheme, per_slot, pos, table):
+    """The bytes and operations one table-entry call needs at ragged
+    positions: q read and the output written (bf16), each distinct live
+    (page, slot) of K and V read once with its scale (and its check bytes
+    under parity-zero), the live pages' table entries, pos and the flags;
+    scores and PV over every row's ``pos + 1`` tokens. -> (bytes,
+    operations, live token count)."""
+    h, kvh, hd = c.n_heads, c.n_kv_heads, c.head_dim
+    ps = s // table.shape[1]
+    n = pos.long() + 1
+    t = torch.arange(s, device=pos.device)
+    flat = table.long()[:, t // ps] * ps + t % ps          # (B, S)
+    slots = int(torch.unique(flat[t[None, :] < n[:, None]]).numel())
+    live = int(n.sum())
+    per_token = 2 * (kvh * hd + 4 + (kvh * hd // 8 if scheme == "parity-zero"
+                                     else 0))
+    nbytes = (2 * 2 * b * h * hd + slots * per_token
+              + 4 * int(((n + ps - 1) // ps).sum()) + 4 * b
+              + 4 * (2 * b if per_slot else 2))
+    return nbytes, 4 * h * hd * live, live
 
 
 def _decoded_parity_bf16(torch, enc, ch, sc):
@@ -1531,20 +1708,23 @@ def phase_long(torch, dev, build):
 # ---------------------------------------------------------------------------
 
 
-def _profile_table(torch, prof, wall_ms, what, fname, rows=18, ranges=()):
-    """Log the device-busy share of a profiled window and print its top
-    ops; -> the device-side (kernel) events. An operator row's self device
-    time repeats its kernels' rows, so only kernel rows are summed; so
-    does the device-side row of a ``record_function`` range (its name in
+def _profile_table(torch, prof, wall_ms, what, fname, rows=18, ranges=(),
+                   steps=None):
+    """Log the device-busy share of a profiled window (and, over ``steps``
+    decode steps, the launches per step) and print its top ops; -> the
+    device-side (kernel) events. An operator row's self device time
+    repeats its kernels' rows, so only kernel rows are summed; so does the
+    device-side row of a ``record_function`` range (its name in
     ``ranges``), which is left out."""
     avg = prof.key_averages()
     kernels = [e for e in avg
                if e.device_type == torch.autograd.DeviceType.CUDA and
                e.key not in ranges]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n = sum(e.count for e in kernels)
+    per = f", {n / steps:.1f} per step" if steps else ""
     log(f"profile, {what}: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms "
-        f"wall ({100 * busy_ms / wall_ms:.1f}%), "
-        f"{sum(e.count for e in kernels)} kernel launches")
+        f"wall ({100 * busy_ms / wall_ms:.1f}%), {n} kernel launches{per}")
     table = avg.table(sort_by="self_device_time_total", row_limit=25)
     with open(OUT_DIR / fname, "w") as fh:
         fh.write(table)
@@ -1605,7 +1785,7 @@ def phase_profile(torch):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.time() - t0)
     _profile_table(torch, prof, wall_ms, "4 full-width decode steps",
-                   "chip_smoke_profile.txt")
+                   "chip_smoke_profile.txt", steps=4)
     del cache
 
     prompt_len = 2048
@@ -1641,8 +1821,7 @@ def phase_profile(torch):
         "projections (ecc_qmatmul)": QMM_KERNELS,
         "prefill attention (flash_attention)": ("::flash_tc_kernel<",
                                                 "::flash_f32_kernel<"),
-        "decode attention (chunked_attention_kernel)": (
-            "chunked_attention_kernel",),
+        "decode attention (chunked_kernel)": ("::chunked_kernel<",),
         "KV encode (encode_kernel)": ("::encode_kernel",),
         "KV and embedding decode (decode_kernel)": ("::decode_kernel",)})
     split["other"] = sum(e.self_device_time_total for e in kernels) / 1e3 \
@@ -2100,7 +2279,8 @@ class _step_profiler:
         _profile_table(self.torch, self.prof, self.wall_ms,
                        f"{self.last - self.first} full-width burst steps "
                        f"(in-place-fused, {BURST_SLOTS} slots)",
-                       "chip_smoke_burst_profile.txt")
+                       "chip_smoke_burst_profile.txt",
+                       steps=self.last - self.first)
 
 
 def phase_burst(torch, dev, build):
@@ -2331,7 +2511,7 @@ def profile_int8_decode(torch, dev, plan, enc, scales):
     kernels = _profile_table(torch, prof, wall_ms,
                              "4 full-width static int8 decode steps",
                              "chip_smoke_int8_profile.txt",
-                             ranges=("act_quant",))
+                             ranges=("act_quant",), steps=4)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     split = _kernel_split(kernels, {
         "fused matmul (ecc_qmatmul)": QMM_KERNELS,

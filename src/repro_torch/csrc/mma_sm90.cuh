@@ -1,7 +1,8 @@
 // Warp-level tensor-core and async-copy primitives shared by the port's
-// tensor-core kernels (flash_attention.cu, ecc_qmatmul.cu): cp.async with
-// zero fill, ldmatrix (plain and transposed) and mma.sync for bf16 -> f32
-// (m16n8k16), s8 -> s32 (m16n8k32) and b1 AND-popcount (m16n8k256).
+// tensor-core kernels (flash_attention.cu, ecc_qmatmul.cu,
+// chunked_attention.cu): cp.async with zero fill, ldmatrix (plain and
+// transposed) and mma.sync for bf16 -> f32 (m16n8k16), s8 -> s32
+// (m16n8k32) and b1 AND-popcount (m16n8k256).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
 // "mma.m16n8k32"), with g = lane / 4 and t = lane % 4:
@@ -26,7 +27,7 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// 16-byte (cg: L2 only) or 8-byte (ca) async copy; `in` false fills zeros
+// 16-byte (cg: L2 only), 8- or 4-byte (ca) async copy; `in` false fills zeros
 // and reads nothing (src must still be a valid address).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool in) {
@@ -40,6 +41,13 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(in ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

@@ -11,21 +11,29 @@
 
 namespace parity8 {
 
-// -> the block with every bad byte zeroed; *bad = the number of bad bytes.
-__device__ __forceinline__ uint64_t decode(uint64_t w, uint32_t c, int* bad) {
-  uint64_t x = w ^ (w >> 4);  // after three folds bit 8e holds the parity
-  x ^= x >> 2;                // of byte e (only bits of byte e reach it)
+// The bad bytes of block w under check byte c, as a mask (bit e: byte e):
+// three folds leave byte e's parity in bit 8e, and one multiply gathers
+// bit 8e into bit 56 + e (the partial products land on distinct bits, so
+// nothing carries).
+__device__ __forceinline__ uint32_t bad_mask(uint64_t w, uint32_t c) {
+  uint64_t x = w ^ (w >> 4);
+  x ^= x >> 2;
   x ^= x >> 1;
-  uint64_t keep = 0;
-  int n = 0;
+  const uint32_t par = (uint32_t)(((x & 0x0101010101010101ull) *
+                                   0x0102040810204080ull) >> 56);
+  return (par ^ c) & 0xFFu;
+}
+
+// -> the block with every bad byte zeroed; *bad = the number of bad bytes.
+// A clean block (the common case) costs the mask alone.
+__device__ __forceinline__ uint64_t decode(uint64_t w, uint32_t c, int* bad) {
+  const uint32_t m = bad_mask(w, c);
+  *bad = __popc(m);
+  if (!m) return w;
+  uint64_t keep = ~0ull;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    if (((uint32_t)(x >> (8 * e)) ^ (c >> e)) & 1u)
-      ++n;
-    else
-      keep |= 0xFFull << (8 * e);
-  }
-  *bad = n;
+  for (int e = 0; e < 8; ++e)
+    if ((m >> e) & 1u) keep &= ~(0xFFull << (8 * e));
   return w & keep;
 }
 

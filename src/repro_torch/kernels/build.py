@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("ecc_codec", "ecc_qmatmul", "paged_attention", "chunked_attention",
            "flash_attention", "quant_throttle", "throttle")
-HEADERS = ("secded64.cuh", "parity8.cuh", "mma_sm90.cuh")
+HEADERS = ("secded64.cuh", "parity8.cuh", "mma_sm90.cuh", "kv_attention.cuh")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _U = ctypes.c_uint
@@ -39,10 +39,11 @@ SIGNATURES = {
                            [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
                             _P, _P, _P, _I, _I, _I, _U, _I, _I, _P, _P, _P]),
     "fused_page_attention_launch": ("paged_attention",
-                                    [_P] * 10 + [_I] * 6 + [_F, _LL, _I, _P]),
+                                    [_P] * 13 + [_I] * 8 +
+                                    [_F, _LL, _I, _I, _P]),
     "chunked_page_attention_launch": ("chunked_attention",
-                                      [_P] * 10 + [_I] * 7 +
-                                      [_F, _LL, _I, _P]),
+                                      [_P] * 14 + [_I] * 10 +
+                                      [_F, _LL, _I, _I, _P]),
     "flash_attention_launch": ("flash_attention",
                                [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
     "quantize_throttle_launch": ("quant_throttle", [_P, _P, _P, _P, _LL, _P]),

@@ -178,9 +178,11 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
                                dtype=dtype, device=dev)
     if kvp is not None:
         kb = kvcache.kv_bytes(cache)
+        dense = kvcache.dense_kv_bytes(cfg, batch, max_len)
         log(f"[serve] paged KV cache ({kvp.scheme}, page_size={kvp.page_size}"
             f", attention {kvp.attention_impl if kvp.fused else 'reference'}"
-            f"): stored {kb['stored']}B + scales {kb['scales']}B")
+            f"): stored {kb['stored']}B + checks {kb['checks']}B + scales "
+            f"{kb['scales']}B (dense bf16 cache: {dense}B)")
     tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
     kv_positions: dict = {}
     out_tok, out_logits, step_flags, step_s = [], [], [], []

@@ -14,10 +14,12 @@ the refcounted :class:`PageAllocator`, :func:`set_slot_pages`,
 
 Attention decodes pages at use: the reference path gathers the sequence's
 encoded strips, block-decodes them, dequantizes and runs the stock
-``layers.decode_attention``; the fused path hands the gathered strips to
-the ``fused_page_attention`` kernel (whole strips in shared memory), and
-the chunked path to the ``chunked_page_attention`` kernel (one page chunk
-at a time, online softmax), which serves long contexts. The prefill
+``layers.decode_attention``; the fused path hands the pool and the page
+table to the ``fused_page_attention`` kernel (the live strip decoded into
+shared memory), and the chunked path to the ``chunked_page_attention``
+kernel (a split-KV grid over page tiles, online softmax), which serves
+long contexts. Both kernels read the pool through the table themselves:
+no gathered copy of the strips is made on their path. The prefill
 (:func:`paged_gqa_prefill`) encodes a whole prompt into pages and attends
 over the decoded pages. Per-token (corrected, DUE) flags are counted over
 valid tokens and returned as values: ``(2,)`` batch totals, or ``(2, B)``
@@ -36,6 +38,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import ecc, quant, wot
+from repro_torch.kernels import paged_attention
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.protection.backends import get_backend
@@ -45,8 +48,8 @@ __all__ = ["KVProtectionPolicy", "KV_POLICY_PRESETS", "get_kv_policy",
            "supports_paged", "pages_per_seq", "pages_needed",
            "init_paged_cache", "init_cache", "paged_gqa_decode",
            "paged_gqa_prefill", "as_protected_tree", "from_protected_tree",
-           "kv_bytes", "PageAllocator", "set_slot_pages", "zero_pages",
-           "copy_page"]
+           "kv_bytes", "dense_kv_bytes", "PageAllocator", "set_slot_pages",
+           "zero_pages", "copy_page"]
 
 # the paper's serving-state menu: parity detects and zeroes, in-place
 # corrects singles and detects doubles at zero space
@@ -68,7 +71,11 @@ class KVProtectionPolicy:
                wall of a few hundred tokens); "chunked" streams page chunks
                through an online softmax (``chunked_page_attention``),
                validated against the fp64 oracle instead of bit for bit.
-    chunk_pages: pages per chunk of the chunked kernel.
+    chunk_pages: pages per chunk of the chunked attention's plain version
+               (its online-softmax steps, kept as the reference's for
+               parity); the CUDA kernel's tiles and splits are its own
+               (``paged_attention.plan_splits``), so on the card it sets
+               nothing.
     per_slot_flags: report KV (corrected, DUE) per batch slot: ``(2, B)``
                rows instead of ``(2,)`` totals, so ``flags["layers_kv"]``
                is (n_layers, 2, B) and the request front-end attributes
@@ -302,19 +309,6 @@ def _write_pages(pages, checks, scales, table, enc, ch, sc):
     return pages, checks, scales
 
 
-def _gather_seq(pages, checks, scales, table):
-    """Pool -> per-sequence encoded strips: (enc (B, S, kv, hd), checks |
-    None, scale (B, S)) with S = pages_per_seq * page_size."""
-    b, npg = table.shape
-    ps = pages.shape[1]
-    idx = table.long()
-    enc = pages[idx].reshape(b, npg * ps, *pages.shape[2:])
-    ch = None
-    if checks is not None:
-        ch = checks[idx].reshape(b, npg * ps, *checks.shape[2:])
-    sc = scales[idx].reshape(b, npg * ps)
-    return enc, ch, sc
-
 
 # ---------------------------------------------------------------------------
 # page free/reuse: the allocator and table-rewrite API of continuous
@@ -502,23 +496,21 @@ def paged_gqa_decode(p, x, cfg: ArchConfig, lc, *, pos,
     _write_token(lc["v_pages"], lc.get("v_checks"), lc["v_scale"], table,
                  ve1, vch1, vsc1, pos)
 
-    ke, kch, ksc = _gather_seq(lc["k_pages"], lc.get("k_checks"),
-                               lc["k_scale"], table)
-    ve, vch, vsc = _gather_seq(lc["v_pages"], lc.get("v_checks"),
-                               lc["v_scale"], table)
     qh = q.transpose(1, 2)                                   # (B, H, 1, hd)
-    if policy.attention_impl == "chunked":
-        from repro_torch.kernels import paged_attention
-        o, flags = paged_attention.chunked_page_attention(
-            qh, ke, kch, ksc, ve, vch, vsc, pos, scheme=policy.scheme,
+    pool = (lc["k_pages"], lc.get("k_checks"), lc["k_scale"], lc["v_pages"],
+            lc.get("v_checks"), lc["v_scale"], table)
+    if policy.attention_impl == "chunked":   # the kernels read the pool
+        o, flags = paged_attention.chunked_page_attention_paged(
+            qh, *pool, pos, scheme=policy.scheme,
             chunk_tokens=policy.chunk_pages * policy.page_size,
             per_slot=policy.per_slot_flags)
     elif policy.fused:
-        from repro_torch.kernels import paged_attention
-        o, flags = paged_attention.fused_page_attention(
-            qh, ke, kch, ksc, ve, vch, vsc, pos, scheme=policy.scheme,
+        o, flags = paged_attention.fused_page_attention_paged(
+            qh, *pool, pos, scheme=policy.scheme,
             per_slot=policy.per_slot_flags)
     else:
+        ke, kch, ksc = paged_attention.gather_strips(*pool[:3], table)
+        ve, vch, vsc = paged_attention.gather_strips(*pool[3:6], table)
         o, corrected, due = _reference_paged_attention(
             qh, ke, kch, ksc, ve, vch, vsc, pos, policy)
         flags = torch.stack([corrected, due])
@@ -601,6 +593,18 @@ def from_protected_tree(cache: dict, tree: dict) -> dict:
         if tree[name].checks is not None:
             new[f"{name}_checks"] = tree[name].checks
     return new
+
+
+def dense_kv_bytes(cfg: ArchConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16) -> int:
+    """Bytes of the dense cache the paged pool replaces (per model): the
+    ``lm.init_cache`` K and V of every layer, counted from shapes."""
+    from repro_torch.models import lm
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    item = torch.empty((), dtype=dtype).element_size()
+    return 2 * (lm.n_scan_layers(cfg) * batch * max_len * cfg.n_kv_heads
+                * cfg.head_dim * item)
 
 
 def kv_bytes(cache: dict) -> dict:

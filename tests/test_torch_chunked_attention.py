@@ -130,21 +130,31 @@ def test_chunked_plain_skips_chunks_past_every_pos():
 
 
 def test_shared_memory_accounting():
-    """The strip kernel's context wall at deepseek-7b widths (hd 128, rep 1,
-    bf16): 516 B per token, crossover 451 tokens, 448 page-aligned; the
-    chunked kernel's need is independent of the context."""
-    per_token = paged_attention.smem_bytes(1, 128, 1, torch.bfloat16)
-    assert per_token == 516
-    xo = paged_attention.strip_smem_crossover(128, 1, torch.bfloat16)
-    assert xo == 451
+    """The strip kernel's context wall at deepseek-7b widths (hd 128, rep 1):
+    268 B per token (int8 K and V, two scales, a score) and 4,672 B fixed
+    (q, eight warp partials, maxima and sums), crossover 850 tokens, 848
+    page-aligned;
+    the chunked kernel's need is independent of the context."""
+    per_token = paged_attention.smem_bytes(17, 128, 1) - \
+        paged_attention.smem_bytes(13, 128, 1)
+    assert per_token == 4 * 268
+    assert paged_attention.smem_bytes(0, 128, 1) == 4672
+    xo = paged_attention.strip_smem_crossover(128, 1)
+    assert xo == 850
     wall = (xo - 1) // 16 * 16
-    assert wall == 448
+    assert wall == 848
     lim = paged_attention.SMEM_LIMIT_BYTES
-    assert paged_attention.smem_bytes(wall, 128, 1, torch.bfloat16) <= lim
-    assert paged_attention.smem_bytes(wall + 16, 128, 1, torch.bfloat16) > lim
-    c = paged_attention.chunked_smem_bytes(256, 128, 1)
-    assert c == 2 * 256 * 128 + 2 * 256 * 4 + 256 * 4 + 2 * 128 * 4 + 3 * 4
+    assert paged_attention.smem_bytes(wall, 128, 1) <= lim
+    assert paged_attention.smem_bytes(wall + 16, 128, 1) > lim
+    # four warps x four stages of (8-token K and V rows, 16 scales), q,
+    # the warps' accumulators and (m, l), the page-table slice
+    c = paged_attention.chunked_smem_bytes(128, 1, table_entries=27)
+    assert c == 4 * 4 * (2 * 1024 + 64) + 128 * 4 + 4 * 128 * 4 + 8 * 4 + \
+        27 * 4
     assert c <= lim
+    cp = paged_attention.chunked_smem_bytes(128, 1, checks=True,
+                                            table_entries=27)
+    assert cp - c == 4 * 4 * 2 * 128
 
 
 def test_chunked_wrapper_validation():

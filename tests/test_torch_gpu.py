@@ -493,3 +493,180 @@ def test_gpu_throttle_tensor_and_encode_routes_agree(cuda, shape):
     ke = ProtectionPolicy(backend="cuda").encode_leaf(w, "in-place")
     pe = ProtectionPolicy(backend="torch").encode_leaf(w, "in-place")
     assert torch.equal(ke.enc, pe.enc) and torch.equal(ke.scale, pe.scale)
+
+
+def _paged_pool(b, npg, ps, kv, hd, scheme, dev, gen):
+    """One layer's pool as the serving front-end lays it out: parking pages
+    0..B-1, then the rows' pages in a shuffled order, two spare; rows 0 and
+    1 share their first page (a common prefix) and the last row's last page
+    is its parking page, past its pos. Data (and check) bytes flipped.
+    -> (pool operands (kp, kc, ks, vp, vc, vs), table (B, npg) int32,
+    pos (B,) int32)."""
+    n_pages = b + b * npg + 2
+    pol = kvcache.KVProtectionPolicy(scheme=scheme)
+    pool = []
+    for every in (7, 11):
+        e, c, sc = kvcache._encode_kv(
+            torch.randn((n_pages, ps, kv, hd), generator=gen, device=dev),
+            pol)
+        _flip(e.view(-1, 8), every, gen)
+        if c is not None:
+            c.view(-1)[::every + 2] ^= 1 << torch.randint(
+                0, 8, (c.view(-1)[::every + 2].numel(),), generator=gen,
+                device=dev).to(torch.uint8)
+        pool += [e, c, sc]
+    perm = torch.randperm(n_pages - b, generator=gen, device=dev) + b
+    table = perm[: b * npg].reshape(b, npg).to(torch.int32)
+    table[1, 0] = table[0, 0]
+    table[b - 1, npg - 1] = b - 1
+    s = npg * ps
+    pos = torch.tensor([s - 1, s // 2, (npg - 1) * ps - 1, 0, s - 2][:b],
+                       dtype=torch.int32, device=dev)
+    pos[b - 1] = min(int(pos[b - 1]), (npg - 1) * ps - 1)
+    return pool, table, pos
+
+
+@pytest.mark.parametrize("per_slot", [False, True])
+@pytest.mark.parametrize("scheme", ["faulty", "in-place", "parity-zero"])
+# (B, H, KV, hd, pages, page_size): rep 1, 2 and 3 (minitron's), and hd 24
+# (8-byte copies, check rows of 3 bytes)
+@pytest.mark.parametrize("shape", [(3, 4, 4, 128, 5, 16),
+                                   (4, 4, 2, 16, 4, 16),
+                                   (3, 6, 2, 32, 3, 16),
+                                   (3, 2, 1, 24, 6, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["strip", "chunked"])
+def test_gpu_paged_table_entries_match_plain(cuda, kernel, dtype, shape,
+                                             scheme, per_slot):
+    """The table entries against their plain versions (the gather, then the
+    strip plain version): the strip kernel bit-equal in bf16 (the plain
+    version repeats its f32 summation order step for step, and products of
+    bf16 values are exact in f32) and both kernels to f32 rounding
+    otherwise; flags and per-slot rows exactly equal; one launch per
+    call."""
+    b, h, kv, hd, npg, ps = shape
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + len(scheme))
+    pool, table, pos = _paged_pool(b, npg, ps, kv, hd, scheme, cuda, gen)
+    q = torch.randn((b, h, 1, hd), generator=gen, device=cuda).to(dtype)
+    fn, plain = ((paged_attention.fused_page_attention_paged,
+                  paged_attention.fused_page_attention_paged_plain)
+                 if kernel == "strip" else
+                 (paged_attention.chunked_page_attention_paged,
+                  paged_attention.chunked_page_attention_paged_plain))
+    name = ("fused_page_attention" if kernel == "strip"
+            else "chunked_page_attention")
+    before = build.COUNTS[name]
+    ko, kf = fn(q, *pool, table, pos, scheme=scheme, per_slot=per_slot)
+    assert build.COUNTS[name] == before + 1
+    po, pf = plain(q, *pool, table, pos, scheme=scheme, per_slot=per_slot)
+    assert torch.equal(kf, pf) and kf.dtype == torch.int32
+    assert tuple(kf.shape) == ((2, b) if per_slot else (2,))
+    assert (int(kf.sum()) > 0) == (scheme != "faulty")
+    if dtype == torch.float32:
+        torch.testing.assert_close(ko, po, rtol=1e-5, atol=1e-5)
+    elif kernel == "strip":
+        assert torch.equal(ko, po), \
+            f"{int((ko != po).sum())} outputs differ from the plain version"
+    else:   # one bf16 ulp (2^-8 .. 2^-7 relative) plus f32 noise
+        torch.testing.assert_close(ko.float(), po.float(), rtol=2.0 ** -7,
+                                   atol=1e-5)
+
+
+_BAD_TABLE = """
+import sys, torch
+from repro_torch.kernels import paged_attention
+from repro_torch.serving import kvcache
+dev = torch.device("cuda")
+pol = kvcache.KVProtectionPolicy(scheme="in-place")
+pool = []
+for _ in range(2):
+    e, c, sc = kvcache._encode_kv(torch.randn((6, 16, 2, 64), device=dev),
+                                  pol)
+    pool += [e, c, sc]
+table = torch.tensor([[2, 3], [4, int(sys.argv[2])]], dtype=torch.int32,
+                     device=dev)
+pos = torch.tensor([31, 20], dtype=torch.int32, device=dev)
+q = torch.randn((2, 2, 1, 64), device=dev).to(torch.bfloat16)
+fn = getattr(paged_attention, sys.argv[1])
+try:
+    fn(q, *pool, table, pos)
+    torch.cuda.synchronize()
+except RuntimeError as err:
+    print("launch failed:", err)
+    sys.exit(3)
+print("ran")
+"""
+
+
+@pytest.mark.parametrize("bad", [6, -1])
+@pytest.mark.parametrize("kernel", ["fused_page_attention_paged",
+                                    "chunked_page_attention_paged"])
+def test_gpu_paged_table_entry_out_of_range_fails(cuda, kernel, bad):
+    """A table entry outside [0, P) makes the launch fail with a CUDA
+    error, as the gather the kernels replace raised, instead of reading
+    outside the pool. In a child process: the error ends its CUDA context.
+    A valid id (5) runs."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    for page, want in ((5, 0), (bad, 3)):
+        r = subprocess.run([sys.executable, "-c", _BAD_TABLE, kernel,
+                            str(page)], env=env, capture_output=True,
+                           text=True, timeout=300)
+        assert r.returncode == want, (page, r.stdout, r.stderr[-2000:])
+
+
+@pytest.mark.parametrize("kernel", ["strip", "chunked"])
+def test_gpu_paged_call_is_one_launch(cuda, kernel):
+    """A table-entry call on the serve path (int32 table and pos) is one
+    kernel launch: no gather, no flag reduction, no cast."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    pool, table, pos = _paged_pool(4, 8, 16, 4, 128, "in-place", cuda, gen)
+    q = torch.randn((4, 4, 1, 128), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    fn = (paged_attention.fused_page_attention_paged if kernel == "strip"
+          else paged_attention.chunked_page_attention_paged)
+    fn(q, *pool, table, pos, per_slot=True)      # tickets allocated once
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn(q, *pool, table, pos, per_slot=True)
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_card) == 1, on_card
+
+
+# (B, KV, S): the plan's split counts 32, 4, 2 and 1 (132 SMs)
+@pytest.mark.parametrize("b,kv,s,splits", [(1, 1, 2048, 32), (2, 2, 256, 4),
+                                           (8, 32, 128, 2), (4, 32, 16, 1)])
+def test_gpu_chunked_splits_match_plain_and_repeat(cuda, b, kv, s, splits):
+    """The chunked kernel at several split counts: within f32 rounding of
+    its plain version, flags equal, and a second launch bit-equal to the
+    first (splits merge in split order, no float atomics)."""
+    assert paged_attention.plan_splits(
+        b, kv, s, paged_attention._sm_count(cuda)) == splits or \
+        paged_attention._sm_count(cuda) != 132
+    gen = torch.Generator(device=cuda).manual_seed(b + kv + s)
+    pol = kvcache.get_kv_policy("in-place")
+    ke, _, ksc = kvcache._encode_kv(
+        torch.randn((b, s, kv, 128), generator=gen, device=cuda), pol)
+    ve, _, vsc = kvcache._encode_kv(
+        torch.randn((b, s, kv, 128), generator=gen, device=cuda), pol)
+    _flip(ke.view(-1, 8), 13, gen)
+    _flip(ve.view(-1, 8), 17, gen)
+    q = torch.randn((b, kv, 1, 128), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    pos = torch.tensor([s - 1, s // 3, 5, 0, s - 7, 40, 64, 1][:b],
+                       dtype=torch.int32, device=cuda)
+    args = (q, ke, None, ksc, ve, None, vsc, pos)
+    ko, kf = paged_attention.chunked_page_attention(*args)
+    ko2, kf2 = paged_attention.chunked_page_attention(*args)
+    assert torch.equal(ko, ko2) and torch.equal(kf, kf2)
+    po, pf = paged_attention.chunked_page_attention_plain(*args)
+    assert torch.equal(kf, pf) and int(kf[0]) > 0
+    torch.testing.assert_close(ko.float(), po.float(), rtol=1e-2, atol=1e-2)

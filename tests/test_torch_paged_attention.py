@@ -96,8 +96,11 @@ def test_paged_attention_faulty_scheme_and_budget():
         paged_attention.fused_page_attention(
             q, _t(raw.view(np.uint8)), None, _t(sc), _t(raw.view(np.uint8)),
             None, _t(sc), pos, scheme="parity-zero")
-    assert paged_attention.smem_bytes(64, 128, 1, torch.bfloat16) == \
-        2 * 64 * 128 * 2 + 64 * 4
+    # int8 K and V strips, their scales, q, the scores, 8 warp partials
+    # and 8 warp maxima and sums
+    assert paged_attention.smem_bytes(64, 128, 1) == \
+        2 * 64 * 128 + 2 * 64 * 4 + 128 * 4 + 64 * 4 + 8 * 128 * 4 + \
+        2 * 8 * 4
 
 
 @pytest.mark.parametrize("name", sorted(kvcache.KV_POLICY_PRESETS))

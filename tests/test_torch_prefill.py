@@ -193,14 +193,16 @@ def test_prefill_then_chunked_decode_chain(arch, kv, backend, faulted):
 def test_chunked_policy_routes_decode_through_the_chunked_wrapper(
         monkeypatch):
     """``-chunked`` presets and the serve step's ``attention_impl``
-    override reach ``chunked_page_attention`` with the policy's chunk."""
+    override reach the chunked kernel's table entry
+    (``chunked_page_attention_paged``, which reads the pool through the
+    page table) with the policy's chunk."""
     seen = []
-    real = paged_attention.chunked_page_attention
+    real = paged_attention.chunked_page_attention_paged
 
     def spy(*a, **kw):
         seen.append(kw["chunk_tokens"])
         return real(*a, **kw)
-    monkeypatch.setattr(paged_attention, "chunked_page_attention", spy)
+    monkeypatch.setattr(paged_attention, "chunked_page_attention_paged", spy)
     cfg = tconfigs.get_smoke("minitron-4b")
     from repro_torch.models import lm
     from repro_torch.protection.policy import ProtectionPolicy

@@ -155,6 +155,18 @@ def test_wrappers_take_the_plain_route_for_cpu_tensors(monkeypatch):
         po, pf = plain(*pz, scheme="parity-zero", per_slot=True, **kw)
         assert torch.equal(o, po) and torch.equal(f, pf)
         assert tuple(f.shape) == (2, 2)
+    # the table entries over a pool (4 pages of 8 tokens) and a page table
+    table = torch.tensor([[3, 0], [1, 3]], dtype=torch.int32)
+    pool = (ke.reshape(4, 8, 2, 8), None, sc.reshape(4, 8),
+            ke.reshape(4, 8, 2, 8), None, sc.reshape(4, 8))
+    for wrapped, plain in (
+            (paged_attention.fused_page_attention_paged,
+             paged_attention.fused_page_attention_paged_plain),
+            (paged_attention.chunked_page_attention_paged,
+             paged_attention.chunked_page_attention_paged_plain)):
+        o, f = wrapped(q, *pool, table, pos, per_slot=True)
+        po, pf = plain(q, *pool, table, pos, per_slot=True)
+        assert torch.equal(o, po) and torch.equal(f, pf)
     x = torch.randn(1, 2, 20, 8, generator=g)
     assert torch.equal(flash_attention.flash_attention(x, x, x),
                        flash_attention.flash_attention_plain(x, x, x))

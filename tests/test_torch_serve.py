@@ -18,7 +18,7 @@ F32_TOL = 1e-4
 
 @pytest.mark.parametrize("faulted", [False, True], ids=["clean", "faulted"])
 @pytest.mark.parametrize("kv", [None, "in-place"], ids=["dense-kv", "paged-kv"])
-@pytest.mark.parametrize("arch", ["deepseek-7b", "minitron-4b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "minitron-4b", "qwen1.5-4b"])
 def test_serve_step_parity_f32(arch, kv, faulted):
     exported, fed, ref_logits, ref_tok, ref_flags = P.reference_run(
         arch, kv, "float32", faulted)
@@ -31,7 +31,7 @@ def test_serve_step_parity_f32(arch, kv, faulted):
 
 
 @pytest.mark.parametrize("faulted", [False, True], ids=["clean", "faulted"])
-@pytest.mark.parametrize("arch", ["deepseek-7b", "minitron-4b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "minitron-4b", "qwen1.5-4b"])
 def test_kernel_route_parity_f32(arch, faulted):
     """The ``cuda`` route with the fused KV preset — on the CPU every kernel
     wrapper takes its plain version — against the reference's XLA route
