@@ -27,9 +27,10 @@ d_model 4096, vocab 102400) at batch 4:
 * the training path (QAT with WOT throttling, then deploy and serve):
   ``repro_torch.launch.train.train`` runs QATT steps of full-width
   deepseek-7b cut to 8 layers (batch 8 x 2,048 tokens in 8 microbatches,
-  the throttle through the ``quantize_throttle`` kernel); the last update
-  runs unthrottled and its masters are throttled on both routes (masters,
-  q and scales bit-equal, the WOT constraint on every leaf); the trained
+  the throttle through the ``quantize_throttle`` kernel, which writes the
+  moved masters back in place); the last update runs unthrottled and its
+  masters are throttled on both routes (masters, q and scales bit-equal,
+  the WOT constraint on every leaf); the trained
   masters are deployed (quantize-throttle and in-place encode) on both
   routes, byte-equal, and served 8 greedy steps at batch 4 under
   ``in-place-fused``, clean and with correctable weight faults only
@@ -64,10 +65,20 @@ flash attention at head_dim 256 (B 4, H 8, S 2,048 and a ragged S) in
 bf16 (tensor cores) and f32 (CUDA cores), with its TFLOP/s beside SDPA's;
 and the float ``ecc_qmatmul`` at every weight shape for the decode step
 (M = 4), the burst step (M = 8) and the 4 x 2,048 prefill (M = 8,192),
-flags exact and a split-K launch repeated bit for bit. Phase 3 runs a
-2-layer burst on both routes with the same pool flips.
+flags exact and a split-K launch repeated bit for bit; the fused KV write
+(``kv_write``: one launch per layer quantizes, throttles, encodes and
+stores K and V into the pool through the table) byte-equal to its plain
+version at the decode, burst, 4 x 2,048 prefill and minitron-4b shapes
+under all three KV schemes, timed beside the unfused route of the same
+write; and ``quantize_throttle``'s in-place write-back of the QATT
+masters bit-equal to its plain version. Phase 3 runs a 2-layer burst on both
+routes with the same pool flips. Phase 6 counts the decode step's
+launches with ``kv_write`` and on the unfused KV route in the same run.
 
 Launch counts are set to 0 just before each path and read just after.
+``throttle`` is exempt from the check that every kernel launched on a
+main path (``MAIN_PATH_EXEMPT`` gives the reason); ``kv_write`` must
+launch on every serve path.
 Every phase raises on failure and the script exits nonzero; it prints no
 result without a CUDA device. Its last lines are the kernels JSON (per
 kernel: launches on the main paths, max abs error against the plain
@@ -76,14 +87,14 @@ version, times and bound) and ``{"ok": true, "device": {...}}``.
 Times are CUDA-event medians over repeats with the 50 MB L2 cache flushed
 before each repeat and the card kept busy while the host enqueues. Kernel
 entries report the work one call of the serve path gives the kernel: one
-decode step (ecc_decode, ecc_qmatmul, the two decode attentions), one
-deploy (ecc_encode: every protected leaf once), one prefill (flash_attention)
-or one train step (quantize_throttle: every protected leaf of the 8-layer
-model once): the sum over the launches of that call. ``bound_ms`` is
-max(bytes / 3.35 TB/s, ops / peak) with each input read once and each
-output written once (H100 SXM data-sheet rates: HBM 3.35 TB/s, dense bf16
-989 TFLOP/s, dense int8 1,979 TOP/s, f32 without tensor cores 67
-TFLOP/s).
+decode step (ecc_decode, ecc_qmatmul, the two decode attentions,
+kv_write), one deploy (ecc_encode: every protected leaf once), one prefill
+(flash_attention) or one train step (quantize_throttle's write-back: every
+protected leaf of the 8-layer model once): the sum over the launches of
+that call. ``bound_ms`` is max(bytes / 3.35 TB/s, ops / peak) with each
+input read once and each output written once (H100 SXM data-sheet rates:
+HBM 3.35 TB/s, dense bf16 989 TFLOP/s, dense int8 1,979 TOP/s, f32
+without tensor cores 67 TFLOP/s).
 """
 from __future__ import annotations
 
@@ -137,6 +148,13 @@ ROUTE_F32_ATOL = 0.05
 TRAIN_LAYERS = 8
 # The burst phase (9): eight slots of 16-token pages, 128 tokens each.
 BURST_SLOTS, BURST_MAX_LEN = 8, 128
+# Kernels that no main path launches, each with its reason; phase 2 still
+# holds each against its plain version.
+MAIN_PATH_EXEMPT = {
+    "throttle": "its main-path work, the WOT clamp of the KV write, now runs "
+                "inside kv_write through the same device function "
+                "(csrc/wot8.cuh); it is held against its plain version in "
+                "phase 2"}
 
 
 def fail(msg: str):
@@ -212,25 +230,28 @@ def main():
     for path, cnt, needed in (
             ("decode", decode_counts, ("ecc_decode", "ecc_encode",
                                        "ecc_qmatmul", "fused_page_attention",
-                                       "throttle")),
+                                       "kv_write")),
             ("long-context", long_counts,
              ("ecc_decode", "ecc_encode", "ecc_qmatmul", "flash_attention",
-              "chunked_page_attention", "throttle")),
+              "chunked_page_attention", "kv_write")),
             ("training", train_counts,
-             ("quantize_throttle", "throttle", "ecc_encode", "ecc_decode",
-              "ecc_qmatmul", "fused_page_attention")),
+             ("quantize_throttle", "ecc_encode", "ecc_decode",
+              "ecc_qmatmul", "fused_page_attention", "kv_write")),
             ("guarded int8", guarded_counts,
-             ("ecc_decode", "ecc_encode", "ecc_qmatmul", "flash_attention",
+             ("ecc_decode", "ecc_qmatmul", "flash_attention",
               "fused_page_attention", "chunked_page_attention",
-              "throttle")),
+              "kv_write")),
             ("burst", burst_counts,
-             ("ecc_decode", "ecc_encode", "ecc_qmatmul",
-              "fused_page_attention", "chunked_page_attention",
-              "throttle"))):
+             ("ecc_decode", "ecc_qmatmul", "fused_page_attention",
+              "chunked_page_attention", "kv_write"))):
         missing = [k for k in needed if cnt[k] <= 0]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
-    missing = [k for k, v in counts.items() if v <= 0]
+    for name, why in MAIN_PATH_EXEMPT.items():
+        log(f"exempt from the main-path launch check: {name} "
+            f"({counts[name]} launches on the main paths): {why}")
+    missing = [k for k, v in counts.items()
+               if v <= 0 and k not in MAIN_PATH_EXEMPT]
     if missing:
         fail(f"kernels never launched on the main paths: {missing}")
     line = [{"name": name, "route": "cuda", "launches": counts[name], **e}
@@ -253,15 +274,20 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
 
-    def ms(self, fn) -> float:
+    def ms(self, fn, setup=None) -> float:
         """Median CUDA-event time of ``fn`` over repeats, L2 flushed. A
         ~1 ms device sleep ahead of the start event keeps the card busy
         while the host enqueues ``fn``, so a small kernel's time is not its
-        wrapper's host latency."""
+        wrapper's host latency. ``setup`` (untimed) runs before each call:
+        it restores what an in-place ``fn`` overwrote."""
         torch = self.torch
+        if setup is not None:
+            setup()
         fn()
         times = []
         for _ in range(self.REPS):
+            if setup is not None:
+                setup()
             self.flush.zero_()
             torch.cuda._sleep(2_000_000)
             a = torch.cuda.Event(enable_timing=True)
@@ -479,6 +505,7 @@ def phase_kernels(torch, dev):
     out["flash_attention"] = check_flash(torch, dev, cfg, timer, gen)
     out["quantize_throttle"] = check_quant_throttle(torch, dev, timer, gen)
     out["throttle"] = check_throttle(torch, dev, timer, gen)
+    out["kv_write"] = check_kv_write(torch, dev, timer, gen)
     return out
 
 
@@ -1240,12 +1267,16 @@ def train_leaf_shapes(cfg):
 
 
 def check_quant_throttle(torch, dev, timer, gen):
-    """quantize_throttle against its plain version, byte-equal q and
-    bit-equal scale: at the embedding leaf (52,428,800 blocks), a ragged
-    size, exact rounding ties and an all-zero leaf (the eps clamp). Timed
-    summed over the protected leaves one throttled train step of the
-    training phase visits (the 8-layer full-width model); one call is two
-    launches (absmax pass, quantize pass)."""
+    """quantize_throttle against its plain version in both of its modes.
+    The deploy's (q out, masters untouched): byte-equal q and bit-equal
+    scale. The train step's write-back (the moved masters rewritten in
+    place, no q): bit-equal masters and scale. At the embedding leaf
+    (52,428,800 blocks), a ragged size, exact rounding ties and an all-zero
+    leaf (the eps clamp). Timed summed over the protected leaves one
+    throttled train step of the training phase visits (the 8-layer
+    full-width model; one call = two launches): the write-back (the main
+    path's call; bound 8 bytes a value plus 4 per moved value, counted on
+    this data) and, beside it, the deploy mode (9 bytes a value)."""
     from repro_torch.configs import get
     from repro_torch.core import wot
     from repro_torch.kernels import quant_throttle as qt
@@ -1270,6 +1301,16 @@ def check_quant_throttle(torch, dev, timer, gen):
         if int(wot.count_large_in_protected(kq.reshape(-1))):
             fail(f"quantize_throttle output breaks the WOT constraint "
                  f"({name})")
+        # the write-back, over a ragged value count (the last block masked)
+        flat = w.reshape(-1)[: w.numel() - 3] if name == "ragged" else w
+        kw, pw = flat.clone(), flat.clone()
+        _, kws = qt.quantize_throttle(kw, write_back=True, with_q=False)
+        _, pws = qt.quantize_throttle_plain(pw, write_back=True)
+        if not torch.equal(kw.view(torch.int32), pw.view(torch.int32)) or \
+                kws.view(torch.int32).item() != pws.view(torch.int32).item():
+            fail(f"the quantize_throttle write-back differs from its plain "
+                 f"version on the {name} input: "
+                 f"{int((kw != pw).sum())} masters")
         if name == "embedding":
             bb, _ = bound_ms(9 * w.numel())
             km = timer.ms(lambda: qt.quantize_throttle(w))
@@ -1278,29 +1319,45 @@ def check_quant_throttle(torch, dev, timer, gen):
             log(f"quantize_throttle embedding leaf {tuple(w.shape)}: kernel "
                 f"{km:.4f} ms, plain {pm:.4f} ms, vector_norm(inf) {lm_:.4f} "
                 f"ms, bound {bb:.4f} ms")
-        del w, kq, pq
-    log("quantize_throttle: q byte-equal and scale bit-equal to the plain "
-        "version on the embedding, ragged, ties and all-zero inputs")
+        del w, kq, pq, flat, kw, pw
+    log("quantize_throttle: q byte-equal, masters and scale bit-equal to the "
+        "plain version in both modes on the embedding, ragged, ties and "
+        "all-zero inputs")
     leaves = train_leaf_shapes(cfg.with_(n_layers=TRAIN_LAYERS))
     nmax = max(math.prod(s) for s in leaves)
     raw = 0.02 * torch.randn((nmax // 8, 8), generator=gen, device=dev)
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0}
+    buf = torch.empty_like(raw)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "deploy_ms": 0.0,
+           "bytes": 0, "deploy_bytes": 0, "moved": 0, "values": 0}
     for s in leaves:
-        w = raw[: math.prod(s) // 8]
-        tot["ms"] += timer.ms(lambda: qt.quantize_throttle(w))
-        tot["plain_ms"] += timer.ms(lambda: qt.quantize_throttle_plain(w))
+        w0 = raw[: math.prod(s) // 8]
+        w = buf[: w0.shape[0]]
+        reset = (lambda: w.copy_(w0))
+        tot["ms"] += timer.ms(lambda: qt.quantize_throttle(
+            w, write_back=True, with_q=False), setup=reset)
+        tot["plain_ms"] += timer.ms(lambda: qt.quantize_throttle_plain(
+            w, write_back=True, with_q=False), setup=reset)
+        moved = int((w != w0).sum())
         tot["library_ms"] += timer.ms(
-            lambda: torch.linalg.vector_norm(w, float("inf")))
-        tot["bytes"] += 9 * w.numel()
-    del raw
+            lambda: torch.linalg.vector_norm(w0, float("inf")))
+        tot["deploy_ms"] += timer.ms(lambda: qt.quantize_throttle(w0))
+        tot["bytes"] += 8 * w0.numel() + 4 * moved
+        tot["deploy_bytes"] += 9 * w0.numel()
+        tot["moved"] += moved
+        tot["values"] += w0.numel()
+    del raw, buf
     bb, by = bound_ms(tot["bytes"])
     entry = dict(source="src/repro_torch/csrc/quant_throttle.cu",
                  replaces="src/repro/kernels/quant_throttle.py:65",
                  max_abs_err=0.0, ms=tot["ms"], plain_ms=tot["plain_ms"],
-                 bound_ms=bb, bound_by=by, library_ms=tot["library_ms"])
+                 bound_ms=bb, bound_by=by, library_ms=tot["library_ms"],
+                 deploy_ms=tot["deploy_ms"],
+                 deploy_bound_ms=bound_ms(tot["deploy_bytes"])[0],
+                 moved=tot["moved"], values=tot["values"])
     log(f"quantize_throttle (per train step: {len(leaves)} protected leaves "
-        f"of the {TRAIN_LAYERS}-layer model, one call = two launches each; "
-        f"library = vector_norm(inf), pass 1 only): {entry}")
+        f"of the {TRAIN_LAYERS}-layer model, the in-place write-back, one "
+        f"call = two launches each; library = vector_norm(inf), pass 1 "
+        f"only; deploy = the q mode, 9 B a value): {entry}")
     return entry
 
 
@@ -1342,6 +1399,164 @@ def check_throttle(torch, dev, timer, gen):
                              bound_ms=n * bb, bound_by=by, library_ms=n * lm_)
         del q, kq, pq
     log(f"throttle (per decode step, 60 launches of {tok} blocks): {entry}")
+    return entry
+
+
+def _unfused_write_kv(lc, k, v, policy, *, pos=None, copy=False):
+    """The unfused route of the KV write (the route before ``kv_write``),
+    kept here only to time and count it beside ``kv_write`` (same signature
+    as ``kvcache._write_kv``): per side the plain per-token quantize, the
+    ``throttle`` kernel (in-place scheme), the scheme's encode on the
+    policy's route (the ``ecc_encode`` kernel for in-place on "cuda"), then
+    the index puts of the reference's ``_write_token`` / ``_write_pages``."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.kernels import kv_write
+    from repro_torch.protection.backends import get_backend
+    be = get_backend(policy.backend)
+    sch = policy.scheme_obj
+    out = []
+    for name, x in (("k", k), ("v", v)):
+        xf = (x if pos is None else x[:, 0]).to(torch.float32)
+        scale = quant.compute_scale(xf, dim=(-2, -1))
+        q, _ = quant.quantize(xf, scale=scale)
+        if sch.requires_wot:
+            q = be.throttle(q.reshape(-1, 8)).reshape(q.shape)
+        enc, ch = sch.encode(q, be)
+        sc = scale[..., 0, 0]
+        args = (lc[f"{name}_pages"], lc.get(f"{name}_checks"),
+                lc[f"{name}_scale"], lc["kv_table"], enc, ch, sc)
+        if pos is None:
+            kv_write._write_pages(*args)
+        else:
+            kv_write._write_token(*args, pos)
+        out += [enc, ch, sc]
+    return tuple(out) if copy else None
+
+
+def _kv_write_case(torch, dev, gen, b, kv, hd, npg, ps, scheme, t):
+    """One layer's pool as the request front-end lays it out (parking
+    pages 0..B-1, then the rows' pages in a shuffled order, two spare;
+    random bytes and scales, so bytes a write does not own must stay) and
+    bf16 K/V (B, t, kv, hd) with per-token magnitudes spread over e^+-3.
+    A decode token (t = 1) goes to a ragged position of each row: rows 0
+    and 1 share their first page (row 0 writes into it, row 1 past it) and
+    the last row is parked on its parking page. A prefill writes t tokens
+    from position 0. -> (k, v, pools (kp, kc, ks, vp, vc, vs), table, pos
+    or None)."""
+    n_pages = b + b * npg + 2
+    pools = []
+    for _ in range(2):
+        pools += [torch.randint(0, 256, (n_pages, ps, kv, hd), generator=gen,
+                                device=dev, dtype=torch.uint8),
+                  torch.randint(0, 256, (n_pages, ps, kv, hd // 8),
+                                generator=gen, device=dev, dtype=torch.uint8)
+                  if scheme == "parity-zero" else None,
+                  torch.randn((n_pages, ps), generator=gen, device=dev)]
+    perm = torch.randperm(n_pages - b, generator=gen, device=dev) + b
+    table = perm[: b * npg].reshape(b, npg).to(torch.int32)
+    mag = torch.exp(6 * torch.rand((2, b, t, 1, 1), generator=gen,
+                                   device=dev) - 3)
+    x = (torch.randn((2, b, t, kv, hd), generator=gen, device=dev)
+         * mag).to(torch.bfloat16)
+    pos = None
+    if t == 1:
+        s = npg * ps
+        pos = (torch.arange(b, device=dev, dtype=torch.int32) * 37 + 5) % s
+        pos[1] = ps + int(pos[1]) % (s - ps)
+        table[1, 0] = table[0, 0]
+        table[b - 1] = b - 1
+    return x[0], x[1], pools, table, pos
+
+
+def _kv_write_bytes(b, t, kv, hd, ps, scheme, copy=False):
+    """Bytes one KV write must move: K and V read once (bf16), each encoded
+    token, check row and scale written once (twice with the prefill's
+    copy), and each row's pos and page ids read once."""
+    d = kv * hd
+    out = d + (d // 8 if scheme == "parity-zero" else 0) + 4
+    return (2 * b * t * (2 * d + out * (2 if copy else 1)) + 4 * b
+            + 4 * b * -(-t // ps))
+
+
+def check_kv_write(torch, dev, timer, gen):
+    """kv_write against kv_write_plain, byte-equal pools, check planes and
+    copies, bit-equal scales, under all three schemes: at the decode step
+    (B 4, 64-token rows), the burst step (B 8, 128-token rows), the 4 x
+    2,048 prefill (whole pages from 0, with the copies) and minitron-4b
+    widths (KV 8, rep 3). Timed per decode step (30 launches) beside its
+    plain composition and the unfused route (the plain quantize, the
+    throttle and ecc_encode kernels, the index puts), and per prefill
+    layer. No single PyTorch call computes the function: no library
+    time."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import kv_write
+    from repro_torch.serving import kvcache
+    cfg, mini = get("deepseek-7b"), get("minitron-4b")
+    kv, hd, ps = cfg.n_kv_heads, cfg.head_dim, 16
+    shapes = (("decode", 4, kv, hd, 4, 1), ("burst", 8, kv, hd, 8, 1),
+              ("prefill", 4, kv, hd, 129, 2048),
+              ("minitron-4b decode", 4, mini.n_kv_heads, mini.head_dim, 4, 1))
+    times = {}
+    for what, b, kvh, d, npg, t in shapes:
+        for scheme in ("faulty", "parity-zero", "in-place"):
+            k, v, pools, table, pos = _kv_write_case(
+                torch, dev, gen, b, kvh, d, npg, ps, scheme, t)
+            kp = [None if a is None else a.clone() for a in pools]
+            pp = [None if a is None else a.clone() for a in pools]
+            copy = pos is None
+            kc = kv_write.kv_write(k, v, *kp, table, pos, scheme=scheme,
+                                   copy=copy) or ()
+            pc = kv_write.kv_write_plain(k, v, *pp, table, pos,
+                                         scheme=scheme, copy=copy) or ()
+            for a, c in zip(kp + list(kc), pp + list(pc)):
+                if (a is None) != (c is None) or (a is not None and not
+                                                  torch.equal(
+                                                      a.view(torch.uint8),
+                                                      c.view(torch.uint8))):
+                    fail(f"kv_write differs from its plain version at the "
+                         f"{what} shape under {scheme}")
+            if scheme != "in-place" or what == "burst":
+                continue
+            keys = ("k_pages", "k_checks", "k_scale", "v_pages", "v_checks",
+                    "v_scale")
+            pol = kvcache.KVProtectionPolicy(scheme=scheme, backend="cuda")
+            old = _unfused_write_kv(dict(zip(keys, pp), kv_table=table), k,
+                                    v, pol, pos=pos, copy=copy) or ()
+            if not all(torch.equal(a, c) for a, c in zip(kp + list(kc),
+                                                         pp + list(old))
+                       if a is not None):
+                fail(f"the unfused KV route differs from kv_write ({what})")
+            lc = dict(zip(keys, kp), kv_table=table)
+            times[what] = dict(
+                ms=timer.ms(lambda: kv_write.kv_write(
+                    k, v, *kp, table, pos, scheme=scheme, copy=copy)),
+                plain_ms=timer.ms(lambda: kv_write.kv_write_plain(
+                    k, v, *kp, table, pos, scheme=scheme, copy=copy)),
+                unfused_route_ms=timer.ms(lambda: _unfused_write_kv(
+                    lc, k, v, pol, pos=pos, copy=copy)),
+                bound_ms=bound_ms(_kv_write_bytes(b, t, kvh, d, ps, scheme,
+                                                  copy))[0])
+            log(f"kv_write {what} (B {b}, T {t}, KV {kvh}, hd {d}, "
+                f"in-place; one launch): {times[what]}")
+            del lc, old
+        del k, v, pools, kp, pp, kc, pc
+    log("kv_write: pools, check planes, copies byte-equal and scales "
+        "bit-equal to the plain version at the decode, burst, prefill and "
+        "minitron-4b shapes under faulty, parity-zero and in-place")
+    n = cfg.n_layers
+    dec = times["decode"]
+    entry = dict(source="src/repro_torch/csrc/kv_write.cu",
+                 replaces="src/repro/kernels/throttle.py:35",
+                 max_abs_err=0.0, ms=n * dec["ms"],
+                 plain_ms=n * dec["plain_ms"],
+                 bound_ms=n * dec["bound_ms"], bound_by="bytes",
+                 library_ms=None,
+                 unfused_route_ms=n * dec["unfused_route_ms"],
+                 prefill_layer=times["prefill"])
+    log(f"kv_write (per decode step: {n} launches at B 4, in-place; the "
+        f"unfused route beside it; library none: no single PyTorch call "
+        f"quantizes, encodes and scatters): {entry}")
     return entry
 
 
@@ -1652,7 +1867,8 @@ def phase_long(torch, dev, build):
     log(f"launch counts over the two long-context runs: {counts} (clean run "
         f"alone: {clean_counts})")
     per_run = {"flash_attention": cfg.n_layers,
-               "chunked_page_attention": cfg.n_layers * tokens}
+               "chunked_page_attention": cfg.n_layers * tokens,
+               "kv_write": cfg.n_layers * (1 + tokens)}
     for k, n in per_run.items():
         if clean_counts[k] != n or counts[k] != 2 * n:
             fail(f"{k}: {clean_counts[k]} launches in the clean run, "
@@ -1751,12 +1967,15 @@ def _kernel_split(kernels, groups):
 
 def phase_profile(torch):
     """Profile 4 decode steps of the full-width kernel route, built as
-    ``serve`` builds it, and then one full-width prefill of a 2,048-token
+    ``serve`` builds it, then 4 more on the unfused KV write route (the
+    launches per step of both, counted in this run: the fused write must
+    save at least 25 a layer), then one full-width prefill of a 2,048-token
     prompt per row (batch 4, ``in-place-chunked``) with 2 chunked decode
-    steps (after the timed runs; the launch counts are already read).
-    Prints the device-busy share of each profiled window's wall time, the
-    ops with the most device time, and the prefill's device time split
-    into projections, attention, KV encode and decode, and the rest."""
+    steps, and 4 more chunked decode steps alone (after the timed runs; the
+    launch counts are already read). Prints the device-busy share of each
+    profiled window's wall time, the launches per decode step, the ops
+    with the most device time, and the prefill's device time split into
+    projections, attention, the KV write, decode, and the rest."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get
@@ -1773,19 +1992,42 @@ def phase_profile(torch):
                                      kv_policy="in-place-fused")
     cache = kvcache.init_cache(cfg, batch, 64, kv_policy="in-place-fused",
                                device=dev)
-    tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
-    torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.time()
-        for t in range(4):
-            pos = torch.full((batch,), t, dtype=torch.int32, device=dev)
-            logits, cache, _ = step(enc, cache, tok, pos)
-            tok = logits.argmax(dim=-1)
+
+    def decode_window(what, fname, first=0):
+        """Profile 4 decode steps from position ``first`` -> launches per
+        step."""
+        nonlocal cache
+        tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.time() - t0)
-    _profile_table(torch, prof, wall_ms, "4 full-width decode steps",
-                   "chip_smoke_profile.txt", steps=4)
+        with profile(activities=acts) as prof:
+            t0 = time.time()
+            for t in range(first, first + 4):
+                pos = torch.full((batch,), t, dtype=torch.int32, device=dev)
+                logits, cache, _ = step(enc, cache, tok, pos)
+                tok = logits.argmax(dim=-1)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.time() - t0)
+        kernels = _profile_table(torch, prof, wall_ms, what, fname, steps=4)
+        return sum(e.count for e in kernels) / 4
+
+    per_step = decode_window("4 full-width decode steps",
+                             "chip_smoke_profile.txt")
+    # the same steps with the unfused KV write in place of kv_write,
+    # counted in this run: the launches the fused write saves
+    real = kvcache._write_kv
+    kvcache._write_kv = _unfused_write_kv
+    try:
+        old = decode_window("4 decode steps on the unfused KV write route",
+                            "chip_smoke_profile_unfused_kv.txt", first=4)
+    finally:
+        kvcache._write_kv = real
+    log(f"decode launches per step: {per_step:.1f} with kv_write, {old:.1f} "
+        f"on the unfused KV route: {(old - per_step) / cfg.n_layers:.1f} "
+        f"fewer per layer")
+    if old - per_step < 25 * cfg.n_layers:
+        fail(f"the fused KV write saved {old - per_step:.1f} launches per "
+             f"decode step, fewer than 25 per layer")
     del cache
 
     prompt_len = 2048
@@ -1794,7 +2036,7 @@ def phase_profile(torch):
                                      kv_policy=kvp)
     step = protected.make_serve_step(cfg, plan=plan, backend="cuda",
                                      kv_policy=kvp)
-    cache = kvcache.init_cache(cfg, batch, prompt_len + 2, kv_policy=kvp,
+    cache = kvcache.init_cache(cfg, batch, prompt_len + 6, kv_policy=kvp,
                                device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
@@ -1822,12 +2064,27 @@ def phase_profile(torch):
         "prefill attention (flash_attention)": ("::flash_tc_kernel<",
                                                 "::flash_f32_kernel<"),
         "decode attention (chunked_kernel)": ("::chunked_kernel<",),
-        "KV encode (encode_kernel)": ("::encode_kernel",),
+        "KV write (kv_write_kernel)": ("::kv_write_kernel<",),
         "KV and embedding decode (decode_kernel)": ("::decode_kernel",)})
     split["other"] = sum(e.self_device_time_total for e in kernels) / 1e3 \
         - sum(split.values())
     log("profile split (device ms over the window): " + ", ".join(
         f"{k} {v:.2f}" for k, v in split.items()))
+    # launches per long-context decode step: 4 more chunked steps alone
+    tok = logits.argmax(dim=-1)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.time()
+        for t in range(2, 6):
+            pos = torch.full((batch,), prompt_len + t, dtype=torch.int32,
+                             device=dev)
+            logits, cache, _ = step(enc, cache, tok, pos)
+            tok = logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+    _profile_table(torch, prof, wall_ms, "4 long-context decode steps "
+                   f"(context {prompt_len + 3}..{prompt_len + 6})",
+                   "chip_smoke_long_profile.txt", steps=4)
 
 
 # ---------------------------------------------------------------------------
@@ -1895,10 +2152,12 @@ def phase_train(torch, dev, build, cfg, *, batch=8, seq=2048, steps=4,
             if not wot.is_protected_weight(path, w):
                 continue
             res = {}
-            for route in ("cuda", "torch"):   # w itself is not modified
-                ms, res[route] = event_ms(torch, lambda: wot.throttle_tensor(
-                    w, backend=route, with_q=True))
+            for route in ("cuda", "torch"):   # in place, on copies of w
+                c = w.clone()
+                ms, res[route] = event_ms(torch, lambda: wot.throttle_tensor_(
+                    c, backend=route, with_q=True))
                 thr_ms[route] += ms
+            del c
             (kw, kq, ks), (pw, pq, ps) = res["cuda"], res["torch"]
             name = tree.path_str(path)
             same_scale = torch.equal(ks.view(torch.int32),
@@ -1995,8 +2254,9 @@ def phase_train(torch, dev, build, cfg, *, batch=8, seq=2048, steps=4,
 def phase_train_profile(torch, dev, cfg, params, *, batch=8, seq=2048):
     """One more throttled train step under ``torch.profiler``, from the
     trained masters: device time split into projections (``aten::mm``),
-    attention matmuls (``aten::bmm``), the optimizer and the throttle (the
-    step's ``sgd_momentum`` and ``wot_throttle`` ranges), and the rest."""
+    attention matmuls (``aten::bmm``), the optimizer, the throttle and the
+    forward's fake-quant (the step's ``sgd_momentum``, ``wot_throttle`` and
+    ``fake_quant`` ranges), and the rest."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import synthetic
@@ -2013,14 +2273,15 @@ def phase_train_profile(torch, dev, cfg, params, *, batch=8, seq=2048):
         step(params, opt, b)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.time() - t0)
-    ranges = ("sgd_momentum", "wot_throttle")
+    ranges = ("sgd_momentum", "wot_throttle", "fake_quant")
     kernels = _profile_table(torch, prof, wall_ms, "one full train step",
                              "chip_smoke_train_profile.txt", ranges=ranges)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     split = {"projections (aten::mm)": 0.0,
              "attention matmuls (aten::bmm)": 0.0,
              "optimizer (sgd_momentum)": 0.0,
-             "throttle (wot_throttle)": 0.0}
+             "throttle (wot_throttle)": 0.0,
+             "forward fake-quant and bf16 cast (fake_quant)": 0.0}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CPU:
             continue
@@ -2032,7 +2293,12 @@ def phase_train_profile(torch, dev, cfg, params, *, batch=8, seq=2048):
         elif e.name in ranges:
             key = next(k for k in split if e.name in k)
             split[key] += e.device_time_total / 1e3
-    split["the rest (attention softmax, fake-quant, embedding, loss, glue)"] \
+    # the profiler ties a kernel to the aten op that launched it; a ctypes
+    # launch has none, so the range's device time misses the
+    # quantize_throttle kernels: they are added by name
+    split["throttle (wot_throttle)"] += _kernel_split(kernels, {
+        "qt": ("::qt_kernel", "::absmax_kernel")})["qt"]
+    split["the rest (attention softmax, embedding, loss, backward glue)"] \
         = busy - sum(split.values())
     log("train-step profile split (device ms of "
         f"{busy:.2f} busy): " + ", ".join(f"{k} {v:.2f}"

@@ -3,10 +3,11 @@
 Counterpart of ``repro.core.wot``: in every 8-value block of a flattened
 quantized weight, the first seven values must lie in [-64, 63]; only the
 eighth may be large. That frees bit 6 of bytes 0..6 for the in-place check
-bits. The QATT step (:func:`throttle_tensor`, :func:`throttle_tree`)
-quantizes the f32 masters, clamps, and writes the clamped values back into
-the masters; its quantize-and-clamp runs on the route ``backend`` picks
-(``"cuda"``: the ``quantize_throttle`` kernel).
+bits. The QATT step (:func:`throttle_tensor_`, in place, and
+:func:`throttle_tensor`, :func:`throttle_tree`) quantizes the f32 masters,
+clamps, and writes the clamped values back into the masters on the route
+``backend`` picks (``"cuda"``: one ``quantize_throttle`` kernel call with
+its write-back).
 """
 from __future__ import annotations
 
@@ -15,8 +16,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree
-
-from . import quant
 
 WOT_LO = -64
 WOT_HI = 63
@@ -41,23 +40,30 @@ def as_blocks(w: torch.Tensor) -> torch.Tensor:
     return (F.pad(flat, (0, pad)) if pad else flat).view(-1, BLOCK)
 
 
-def throttle_tensor(w: torch.Tensor, *, backend="torch", with_q=False):
-    """QATT throttling step on an f32 weight tensor: quantize, clamp
-    positions 0..6 of every block, and write the weights the clamp moved
-    back into the masters as ``q * scale`` (the others keep their f32
-    value), as the reference does.
+def throttle_tensor_(w: torch.Tensor, *, backend="torch", with_q=False):
+    """QATT throttling step on an f32 weight tensor, IN PLACE: quantize,
+    clamp positions 0..6 of every block, and write the weights the clamp
+    moved back into ``w`` as ``qt * scale`` (the others keep their f32
+    value), as the reference's ``throttle_tensor`` computes them. On
+    "cuda" one call of the ``quantize_throttle`` kernel with its
+    write-back (``w`` contiguous); its plain version is ``w.copy_(
+    throttle_tensor(w))``.
 
     The zero padding of a ragged tail changes neither the scale nor any
-    real value's ``q``. With ``with_q`` returns ``(w', q int8 (w.shape),
-    scale f32 ())``, else ``w'``.
-    """
+    real value's ``q``. With ``with_q`` returns ``(w, q int8 (w.shape),
+    scale f32 ())``, else ``w``."""
     from repro_torch.protection.backends import get_backend
-    n = w.numel()
-    qt, scale = get_backend(backend).quantize_throttle(as_blocks(w))
-    qt = qt.reshape(-1)[:n].reshape(w.shape)
-    q = (w / scale).round_().clamp_(-quant.QMAX, quant.QMAX)
-    out = torch.where(q == qt, w, qt.to(w.dtype) * scale)
-    return (out, qt, scale) if with_q else out
+    q, scale = get_backend(backend).quantize_throttle(w, write_back=True,
+                                                      with_q=with_q)
+    return (w, q, scale) if with_q else w
+
+
+def throttle_tensor(w: torch.Tensor, *, backend="torch", with_q=False):
+    """:func:`throttle_tensor_` on a contiguous copy of ``w``: the QATT step
+    of the reference's ``throttle_tensor``, returning a new tensor (with
+    ``with_q``: ``(w', q, scale)``)."""
+    return throttle_tensor_(w.clone(memory_format=torch.contiguous_format),
+                            backend=backend, with_q=with_q)
 
 
 _EXCLUDED_NAMES = {"b", "bq", "bk", "bv", "dt_bias", "A_log", "D", "a_param",

@@ -1,5 +1,5 @@
-// Parity-per-byte ("Parity Zero") decode of one 8-byte block, shared by the
-// paged-attention kernels of the port.
+// Parity-per-byte ("Parity Zero") encode and decode of one 8-byte block,
+// shared by the paged-attention kernels and the KV write of the port.
 //
 // The block is loaded as one little-endian uint64_t (byte e at bits
 // 8e..8e+7); its check byte c holds the stored parity of byte e in bit e
@@ -11,17 +11,21 @@
 
 namespace parity8 {
 
-// The bad bytes of block w under check byte c, as a mask (bit e: byte e):
-// three folds leave byte e's parity in bit 8e, and one multiply gathers
+// The check byte of block w (the encode): bit e is the parity of byte e.
+// Three folds leave byte e's parity in bit 8e, and one multiply gathers
 // bit 8e into bit 56 + e (the partial products land on distinct bits, so
 // nothing carries).
-__device__ __forceinline__ uint32_t bad_mask(uint64_t w, uint32_t c) {
+__device__ __forceinline__ uint32_t check_byte(uint64_t w) {
   uint64_t x = w ^ (w >> 4);
   x ^= x >> 2;
   x ^= x >> 1;
-  const uint32_t par = (uint32_t)(((x & 0x0101010101010101ull) *
-                                   0x0102040810204080ull) >> 56);
-  return (par ^ c) & 0xFFu;
+  return (uint32_t)(((x & 0x0101010101010101ull) * 0x0102040810204080ull) >>
+                    56);
+}
+
+// The bad bytes of block w under check byte c, as a mask (bit e: byte e).
+__device__ __forceinline__ uint32_t bad_mask(uint64_t w, uint32_t c) {
+  return (check_byte(w) ^ c) & 0xFFu;
 }
 
 // -> the block with every bad byte zeroed; *bad = the number of bad bytes.

@@ -1,19 +1,31 @@
-// Fused quantize + WOT throttle of an f32 weight (the QATT inner step).
+// Fused quantize + WOT throttle of an f32 weight (the QATT inner step),
+// optionally writing the moved values back into the f32 masters in place.
 //
 // Replaces the TPU kernel repro/kernels/quant_throttle.py::quantize_throttle
-// (pass 1 _absmax_kernel, pass 2 _qt_kernel). Input (nblk, 8) f32 blocks;
-// output (nblk, 8) int8 with positions 0..6 of every block clamped to
-// [-64, 63], and the per-tensor scale max(absmax, 1e-12) / 127.
+// (pass 1 _absmax_kernel, pass 2 _qt_kernel). Input: n f32 values, read as
+// 8-value blocks (a ragged last block is masked here, so no padded copy is
+// needed). Per-tensor scale max(absmax, 1e-12) / 127; q = the quantized
+// values with positions 0..6 of every block clamped to [-64, 63].
+//
+// Two outputs, each optional:
+// * q (int8, n values): the deploy's quantize-throttle;
+// * write_back: every master whose q the clamp moved becomes qt * scale
+//   (__fmul_rn), every other master is left untouched -- bit for bit the
+//   reference's core/wot.py::throttle_tensor, where(q == qt, w, qt * scale),
+//   with no second pass over the masters in PyTorch.
 //
 // Bound by device memory: pass 1 reads 4 bytes per value, pass 2 reads 4
-// and writes 1 (9 bytes per value in all). The TPU carries the running max
-// through its sequential grid; CUDA blocks run in no order, so pass 1
-// reduces each block in registers and shared memory and merges the blocks
-// with one integer atomicMax on the bit pattern of |w| (for non-negative
-// floats the bit order is the value order, so the max is exact and the
-// result does not depend on the order). Pass 2 reads the max, computes the
-// scale on the device (no host round trip) and quantizes one 8-value block
-// per thread: two 16-byte loads, one 8-byte store.
+// more, writes 4 per moved value and 1 per value when q is asked for (9
+// bytes per value for the deploy, ~8 for the train step's write-back). The
+// TPU carries the running max through its sequential grid; CUDA blocks run
+// in no order, so pass 1 reduces each block in registers and shared memory
+// and merges the blocks with one integer atomicMax on the bit pattern of
+// |w| (for non-negative floats the bit order is the value order, so the
+// max is exact and the result does not depend on the order). Pass 2 reads
+// the max, computes the scale on the device (no host round trip) and
+// quantizes one 8-value block per thread: two 16-byte loads, the byte
+// clamp of wot8.cuh on the packed block, one 8-byte store of q, and a
+// 4-byte store only for each value the clamp moved.
 //
 // Rounding follows jnp.round: rintf (half to even) of a true IEEE division
 // w / scale (no reciprocal multiply, no fast math).
@@ -23,21 +35,27 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "wot8.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void absmax_kernel(const float4* __restrict__ w, int64_t n4,
+__global__ void absmax_kernel(const float* __restrict__ w, int64_t n,
                               unsigned int* __restrict__ out) {
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  const int64_t n4 = n / 4;
   unsigned int m = 0;
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n4;
        i += (int64_t)gridDim.x * blockDim.x) {
-    const float4 v = w[i];
+    const float4 v = w4[i];
     m = max(m, __float_as_uint(fabsf(v.x)));
     m = max(m, __float_as_uint(fabsf(v.y)));
     m = max(m, __float_as_uint(fabsf(v.z)));
     m = max(m, __float_as_uint(fabsf(v.w)));
   }
+  if (blockIdx.x == 0 && threadIdx.x < n - 4 * n4)  // the last n % 4 values
+    m = max(m, __float_as_uint(fabsf(w[4 * n4 + threadIdx.x])));
   m = __reduce_max_sync(0xffffffffu, m);
   __shared__ unsigned int warp_max[kThreads / 32];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -50,32 +68,49 @@ __global__ void absmax_kernel(const float4* __restrict__ w, int64_t n4,
   }
 }
 
-__device__ __forceinline__ int quant(float w, float scale) {
-  const float r = rintf(w / scale);
-  return (int)fminf(fmaxf(r, -127.f), 127.f);
+__device__ __forceinline__ uint64_t quant_byte(float w, float scale, int k) {
+  const float r = fminf(fmaxf(rintf(w / scale), -127.f), 127.f);
+  return (uint64_t)(uint8_t)(int8_t)(int)r << (8 * k);
 }
 
-__device__ __forceinline__ int wot_clamp(int q) {
-  return min(max(q, -64), 63);
-}
-
-__global__ void qt_kernel(const float4* __restrict__ w,
+__global__ void qt_kernel(float* __restrict__ w,
                           const unsigned int* __restrict__ amax,
-                          uint64_t* __restrict__ q,
-                          float* __restrict__ scale_out, int64_t nblk) {
+                          int8_t* __restrict__ q_out,
+                          float* __restrict__ scale_out, int64_t n,
+                          int write_back) {
   const float scale = fmaxf(__uint_as_float(*amax), 1e-12f) / 127.f;
   if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = scale;
+  const int64_t nfull = n / 8, nblk = (n + 7) / 8;
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < nblk;
        i += (int64_t)gridDim.x * blockDim.x) {
-    const float4 a = w[2 * i], b = w[2 * i + 1];
-    const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-    uint64_t packed = 0;
+    float x[8];
+    const bool full = i < nfull;
+    if (full) {
+      const float4 a = reinterpret_cast<const float4*>(w)[2 * i];
+      const float4 b = reinterpret_cast<const float4*>(w)[2 * i + 1];
+      x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+      x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+    } else {  // the ragged last block: absent values quantize to 0
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int v = k < 7 ? wot_clamp(quant(x[k], scale)) : quant(x[k], scale);
-      packed |= (uint64_t)(uint8_t)(int8_t)v << (8 * k);
+      for (int k = 0; k < 8; ++k) x[k] = 8 * i + k < n ? w[8 * i + k] : 0.f;
     }
-    q[i] = packed;
+    uint64_t q = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) q |= quant_byte(x[k], scale, k);
+    const uint64_t qt = wot8::clamp(q);
+    if (write_back && qt != q) {  // a rare block: store only what moved
+#pragma unroll
+      for (int k = 0; k < 7; ++k)
+        if (((q ^ qt) >> (8 * k)) & 0xFFu)
+          w[8 * i + k] = __fmul_rn((float)(int8_t)(qt >> (8 * k)), scale);
+    }
+    if (q_out == nullptr) continue;
+    if (full) {
+      reinterpret_cast<uint64_t*>(q_out)[i] = qt;
+    } else {
+      for (int k = 0; k < 8 && 8 * i + k < n; ++k)
+        q_out[8 * i + k] = (int8_t)(qt >> (8 * k));
+    }
   }
 }
 
@@ -87,17 +122,18 @@ int grid_for(int64_t n, int threads) {
 
 }  // namespace
 
-// w: (nblk, 8) f32, 16-byte aligned; q: (nblk, 8) int8, 8-byte aligned;
-// amax: one uint32 of scratch; scale: one f32.
-extern "C" int quantize_throttle_launch(const void* w, void* q, void* amax,
-                                        void* scale, long long nblk,
-                                        void* stream) {
+// w: n f32 values, 16-byte aligned (written in place with write_back);
+// q: n int8 values, 8-byte aligned, or NULL; amax: one uint32 of scratch;
+// scale: one f32.
+extern "C" int quantize_throttle_launch(void* w, void* q, void* amax,
+                                        void* scale, long long n,
+                                        int write_back, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaMemsetAsync(amax, 0, sizeof(unsigned int), s);
-  absmax_kernel<<<grid_for(2 * nblk, kThreads), kThreads, 0, s>>>(
-      (const float4*)w, 2 * nblk, (unsigned int*)amax);
-  qt_kernel<<<grid_for(nblk, kThreads), kThreads, 0, s>>>(
-      (const float4*)w, (const unsigned int*)amax, (uint64_t*)q,
-      (float*)scale, nblk);
+  absmax_kernel<<<grid_for((n + 3) / 4, kThreads), kThreads, 0, s>>>(
+      (const float*)w, n, (unsigned int*)amax);
+  qt_kernel<<<grid_for((n + 7) / 8, kThreads), kThreads, 0, s>>>(
+      (float*)w, (const unsigned int*)amax, (int8_t*)q, (float*)scale, n,
+      write_back);
   return (int)cudaGetLastError();
 }

@@ -26,8 +26,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("ecc_codec", "ecc_qmatmul", "paged_attention", "chunked_attention",
-           "flash_attention", "quant_throttle", "throttle")
-HEADERS = ("secded64.cuh", "parity8.cuh", "mma_sm90.cuh", "kv_attention.cuh")
+           "flash_attention", "quant_throttle", "throttle", "kv_write")
+HEADERS = ("secded64.cuh", "parity8.cuh", "mma_sm90.cuh", "kv_attention.cuh",
+           "wot8.cuh")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _U = ctypes.c_uint
@@ -46,13 +47,16 @@ SIGNATURES = {
                                       [_F, _LL, _I, _I, _P]),
     "flash_attention_launch": ("flash_attention",
                                [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
-    "quantize_throttle_launch": ("quant_throttle", [_P, _P, _P, _P, _LL, _P]),
+    "quantize_throttle_launch": ("quant_throttle",
+                                 [_P, _P, _P, _P, _LL, _I, _P]),
     "throttle_launch": ("throttle", [_P, _P, _LL, _P]),
+    "kv_write_launch": ("kv_write", [_P] * 16 + [_I] * 8 + [_P]),
 }
 
 COUNTS = {"ecc_decode": 0, "ecc_encode": 0, "ecc_qmatmul": 0,
           "fused_page_attention": 0, "chunked_page_attention": 0,
-          "flash_attention": 0, "quantize_throttle": 0, "throttle": 0}
+          "flash_attention": 0, "quantize_throttle": 0, "throttle": 0,
+          "kv_write": 0}
 
 _LIBS: dict = {}
 BUILD_LOG: dict = {}

@@ -33,8 +33,11 @@ class Backend:
         """(..., 8) uint8 encoded -> (decoded (..., 8), single, double)."""
         raise NotImplementedError
 
-    def quantize_throttle(self, w_blocks: torch.Tensor):
-        """(nblk, 8) f32 -> (WOT-compliant q int8 (nblk, 8), scale f32 ())."""
+    def quantize_throttle(self, w: torch.Tensor, *, write_back=False,
+                          with_q=True):
+        """(nblk, 8) f32 -> (WOT-compliant q int8 (nblk, 8), scale f32 ());
+        with ``write_back`` any f32 ``w``, the moved masters written back
+        in place (``kernels.quant_throttle.quantize_throttle``)."""
         raise NotImplementedError
 
     def throttle(self, q_blocks: torch.Tensor) -> torch.Tensor:
@@ -51,9 +54,10 @@ class TorchBackend(Backend):
     def decode64(self, blocks):
         return ecc.decode64(blocks)
 
-    def quantize_throttle(self, w_blocks):
+    def quantize_throttle(self, w, *, write_back=False, with_q=True):
         from repro_torch.kernels.quant_throttle import quantize_throttle_plain
-        return quantize_throttle_plain(w_blocks)
+        return quantize_throttle_plain(w, write_back=write_back,
+                                       with_q=with_q)
 
     def throttle(self, q_blocks):
         from repro_torch.kernels.throttle import throttle_plain
@@ -74,9 +78,9 @@ class CudaBackend(Backend):
         return (dec.reshape(blocks.shape), (flags & 1).bool(),
                 (flags & 2).bool())
 
-    def quantize_throttle(self, w_blocks):
+    def quantize_throttle(self, w, *, write_back=False, with_q=True):
         from repro_torch.kernels.quant_throttle import quantize_throttle
-        return quantize_throttle(w_blocks)
+        return quantize_throttle(w, write_back=write_back, with_q=with_q)
 
     def throttle(self, q_blocks):
         from repro_torch.kernels.throttle import throttle

@@ -7,7 +7,9 @@ hd)`` slab, the scale riding the page), WOT-throttled for the in-place
 scheme, and encoded into fixed-size pages ``(page_size, kv, hd)`` of a pool
 ``(nl, P, page_size, kv, hd)`` uint8 (parity-zero adds ``(nl, P,
 page_size, kv, hd/8)`` check planes); each sequence reaches its pages
-through a page-table row. The request front-end sizes the pool on its own
+through a page-table row. On the kernel route one ``kv_write`` launch per
+layer quantizes, throttles, encodes and stores a step's new K and V (or a
+prefill's whole pages). The request front-end sizes the pool on its own
 (``n_pages``, with one parking page per slot) and hands pages out through
 the refcounted :class:`PageAllocator`, :func:`set_slot_pages`,
 :func:`copy_page` (copy-on-write) and :func:`zero_pages`.
@@ -37,8 +39,8 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.core import ecc, quant, wot
-from repro_torch.kernels import paged_attention
+from repro_torch.core import ecc
+from repro_torch.kernels import kv_write, paged_attention
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.protection.backends import get_backend
@@ -243,17 +245,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, kv_policy=None,
 
 def _encode_kv(kf: torch.Tensor, policy: KVProtectionPolicy):
     """float (..., kv, hd) -> (enc uint8, checks (..., kv, hd/8) uint8 for
-    parity-zero else None, scale (...,) f32). Only the in-place scheme
-    WOT-throttles (it needs bit 6 free)."""
-    kf32 = kf.to(torch.float32)
-    scale = quant.compute_scale(kf32, dim=(-2, -1))           # (..., 1, 1)
-    q, _ = quant.quantize(kf32, scale=scale)
-    scheme = policy.scheme_obj
-    if scheme.requires_wot:   # hd % 8 == 0: blocks run along head_dim
-        q = get_backend(policy.backend).throttle(
-            q.reshape(-1, wot.BLOCK)).reshape(q.shape)
-    enc, checks = scheme.encode(q, policy.backend)
-    return enc, checks, scale[..., 0, 0]
+    parity-zero else None, scale (...,) f32): the reference's per-token
+    quantize (+ WOT throttle for the in-place scheme) and encode, on the
+    plain route (``kv_write.encode_plain``; the serve paths encode through
+    :func:`_write_kv`)."""
+    return kv_write.encode_plain(kf, policy.scheme)
 
 
 def _decode_kv(enc: torch.Tensor, checks, scheme_id: str, backend="torch"):
@@ -281,33 +277,20 @@ def _decode_kv(enc: torch.Tensor, checks, scheme_id: str, backend="torch"):
 # ---------------------------------------------------------------------------
 
 
-def _write_token(pages, checks, scales, table, enc, ch, sc, pos):
-    """Scatter one decode token into its page IN PLACE. enc (B, kv, hd);
-    sc/pos (B,)."""
-    ps = pages.shape[1]
-    page = (pos // ps).long()
-    phys = torch.gather(table, 1, page[:, None])[:, 0].long()       # (B,)
-    slot = (pos % ps).long()
-    pages[phys, slot] = enc
-    if checks is not None:
-        checks[phys, slot] = ch
-    scales[phys, slot] = sc
-    return pages, checks, scales
-
-
-def _write_pages(pages, checks, scales, table, enc, ch, sc):
-    """Scatter whole prefill pages IN PLACE. enc (B, npg*ps, kv, hd);
-    sc (B, npg*ps)."""
-    b = table.shape[0]
-    ps = pages.shape[1]
-    npg = enc.shape[1] // ps
-    idx = table[:, :npg].reshape(-1).long()                  # (B*npg,)
-    pages[idx] = enc.reshape(b * npg, ps, *enc.shape[2:])
-    if checks is not None:
-        checks[idx] = ch.reshape(b * npg, ps, *ch.shape[2:])
-    scales[idx] = sc.reshape(b * npg, ps)
-    return pages, checks, scales
-
+def _write_kv(lc: dict, k, v, policy: KVProtectionPolicy, *, pos=None,
+              copy: bool = False):
+    """Quantize, throttle, encode and store one layer's new K and V (B, T,
+    kv, hd) into its pages IN PLACE: a decode token per row at ``pos``, or
+    a prefill of whole pages from position 0 (``pos`` None). The "cuda"
+    route is one ``kv_write`` launch for K and V; the "torch" route its
+    plain version (the reference's ``_encode_kv`` + ``_write_token`` /
+    ``_write_pages``). With ``copy`` returns the encoded tokens (``(enc,
+    checks, scale)`` for K, then V)."""
+    fn = (kv_write.kv_write if get_backend(policy.backend).name == "cuda"
+          else kv_write.kv_write_plain)
+    return fn(k, v, lc["k_pages"], lc.get("k_checks"), lc["k_scale"],
+              lc["v_pages"], lc.get("v_checks"), lc["v_scale"],
+              lc["kv_table"], pos, scheme=policy.scheme, copy=copy)
 
 
 # ---------------------------------------------------------------------------
@@ -489,12 +472,7 @@ def paged_gqa_decode(p, x, cfg: ArchConfig, lc, *, pos,
     q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
     k = L.apply_rope(k, pos[:, None], cfg.rope_theta)
     table = lc["kv_table"]
-    ke1, kch1, ksc1 = _encode_kv(k[:, 0], policy)            # (B, kv, hd)
-    ve1, vch1, vsc1 = _encode_kv(v[:, 0], policy)
-    _write_token(lc["k_pages"], lc.get("k_checks"), lc["k_scale"], table,
-                 ke1, kch1, ksc1, pos)
-    _write_token(lc["v_pages"], lc.get("v_checks"), lc["v_scale"], table,
-                 ve1, vch1, vsc1, pos)
+    _write_kv(lc, k, v, policy, pos=pos)
 
     qh = q.transpose(1, 2)                                   # (B, H, 1, hd)
     pool = (lc["k_pages"], lc.get("k_checks"), lc["k_scale"], lc["v_pages"],
@@ -541,14 +519,8 @@ def paged_gqa_prefill(p, x, cfg: ArchConfig, lc, *, positions,
     if pad:  # zero-pad to whole pages; padded tokens are masked below
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    table = lc["kv_table"]
-    ke, kch, ksc = _encode_kv(k, policy)                     # (B, S', kv, hd)
-    ve, vch, vsc = _encode_kv(v, policy)
-    _write_pages(lc["k_pages"], lc.get("k_checks"), lc["k_scale"], table,
-                 ke, kch, ksc)
-    _write_pages(lc["v_pages"], lc.get("v_checks"), lc["v_scale"], table,
-                 ve, vch, vsc)
-
+    # the encoded tokens come back as a contiguous copy (B, S', kv, hd)
+    ke, kch, ksc, ve, vch, vsc = _write_kv(lc, k, v, policy, copy=True)
     kq, kcor, kdue = _decode_kv(ke, kch, policy.scheme, policy.backend)
     vq, vcor, vdue = _decode_kv(ve, vch, policy.scheme, policy.backend)
     kf = (kq.to(torch.float32) * ksc[..., None, None]).to(x.dtype)[:, :s]

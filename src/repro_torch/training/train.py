@@ -24,16 +24,19 @@ from repro_torch.protection.backends import get_backend
 
 def qat_wt(w):
     """Weight transform of the QAT forward: fake-quant every >= 2-D float
-    tensor."""
+    tensor (inside a ``fake_quant`` profiler range)."""
     if w.ndim >= 2 and w.is_floating_point():
-        return quant.fake_quant(w)
+        with torch.profiler.record_function("fake_quant"):
+            return quant.fake_quant(w)
     return w
 
 
 def qat_wt_bf16(w):
-    """Fake-quant in f32, then a bf16 cast before use."""
+    """Fake-quant in f32, then a bf16 cast before use (both inside a
+    ``fake_quant`` profiler range)."""
     if w.ndim >= 2 and w.is_floating_point():
-        return quant.fake_quant(w).to(torch.bfloat16)
+        with torch.profiler.record_function("fake_quant"):
+            return quant.fake_quant(w).to(torch.bfloat16)
     return w
 
 
@@ -64,9 +67,11 @@ def make_train_step(cfg: ArchConfig, *, qat: bool = True,
     holds the masters, the momentum and one set of gradients. The fused
     momentum keeps the reference's op order: ``m = mu*m``; per microbatch
     ``m += g * (1/n)``; ``m += 2*wd*w``; ``w -= lr*m``; then the throttle.
-    The optimizer and the throttle run inside ``record_function`` ranges
-    named ``sgd_momentum`` and ``wot_throttle``, so a profile of a step
-    can split its device time.
+    The optimizer, the throttle and the forward's fake-quant run inside
+    ``record_function`` ranges named ``sgd_momentum``, ``wot_throttle``
+    and ``fake_quant``, so a profile of a step can split its device time.
+    The throttle writes the moved masters back in place
+    (:func:`wot.throttle_tensor_`).
     """
     wt = (qat_wt_bf16 if bf16_weights else qat_wt) if qat else L.Identity
     lfn = loss_fn or (lambda p, b: lm.loss_fn(cfg, p, b, wt=wt, chunk=chunk))
@@ -106,7 +111,7 @@ def make_train_step(cfg: ArchConfig, *, qat: bool = True,
                     torch.no_grad():
                 for path, w in leaves:
                     if wot.is_protected_weight(path, w):
-                        w.copy_(wot.throttle_tensor(w, backend=be))
+                        wot.throttle_tensor_(w, backend=be)
         return params, opt_state, loss_sum * inv
 
     return train_step

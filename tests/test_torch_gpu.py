@@ -12,7 +12,7 @@ import torch
 from repro_torch.core import ecc
 from repro_torch.core import wot
 from repro_torch.kernels import (build, ecc_decode, ecc_encode, ecc_qmatmul,
-                                 flash_attention, paged_attention,
+                                 flash_attention, kv_write, paged_attention,
                                  quant_throttle, throttle)
 from repro_torch.protection.policy import ProtectionPolicy
 from repro_torch.serving import kvcache
@@ -670,3 +670,143 @@ def test_gpu_chunked_splits_match_plain_and_repeat(cuda, b, kv, s, splits):
     po, pf = paged_attention.chunked_page_attention_plain(*args)
     assert torch.equal(kf, pf) and int(kf[0]) > 0
     torch.testing.assert_close(ko.float(), po.float(), rtol=1e-2, atol=1e-2)
+
+
+# 1 block, ragged value counts, ties, an all-zero leaf and one leaf over
+# 2^31 bytes, as the train step's write-back sees them
+@pytest.mark.parametrize("n,kind", [(8, "normal"), (3, "normal"),
+                                    (1037 * 7, "normal"),
+                                    (800_003, "ties"), (45, "zeros"),
+                                    (2 ** 29 + 5, "normal")])
+def test_gpu_quantize_throttle_write_back_matches_plain(cuda, n, kind):
+    """The write-back (masters updated in place where the clamp moved q)
+    bit-equal to the plain route, q byte-equal, scale bit-equal, with and
+    without q; one counted call."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    if kind == "ties":
+        w = _tie_blocks(-(-n // 8), cuda, gen).reshape(-1)[:n]
+    elif kind == "zeros":
+        w = torch.zeros(n, device=cuda)
+    else:
+        w = 3 * torch.randn(n, generator=gen, device=cuda)
+    w = w.clone()
+    pw = w.clone()
+    pq, ps = quant_throttle.quantize_throttle_plain(pw, write_back=True)
+    for with_q in (True, False):
+        kw = w.clone()
+        before = build.COUNTS["quantize_throttle"]
+        kq, ks = quant_throttle.quantize_throttle(kw, write_back=True,
+                                                  with_q=with_q)
+        assert build.COUNTS["quantize_throttle"] == before + 1
+        assert torch.equal(kw.view(torch.int32), pw.view(torch.int32))
+        assert ks.view(torch.int32).item() == ps.view(torch.int32).item()
+        assert (kq is None) != with_q
+        if with_q:
+            assert torch.equal(kq, pq)
+            assert int(wot.count_large_in_protected(kq)) == 0
+    if kind == "ties":
+        assert bool((pw != w).any())
+
+
+def _kv_case(b, kv, hd, npg, ps, scheme, dtype, t, dev, gen):
+    """Random pools (bytes the write does not own stay random), a shuffled
+    table with a page shared by rows 0 and 1 and the last row parked on
+    its parking page, K/V (B, t, kv, hd) with per-token magnitudes spread
+    over e^+-3, and pos (decode, t = 1: ragged positions, no two rows on
+    one slot) or None (prefill of t tokens from 0)."""
+    n_pages = b + b * npg + 2
+    pools = []
+    for _ in range(2):
+        pools += [torch.randint(0, 256, (n_pages, ps, kv, hd), generator=gen,
+                                device=dev, dtype=torch.uint8),
+                  torch.randint(0, 256, (n_pages, ps, kv, hd // 8),
+                                generator=gen, device=dev, dtype=torch.uint8)
+                  if scheme == "parity-zero" else None,
+                  torch.randn((n_pages, ps), generator=gen, device=dev)]
+    perm = torch.randperm(n_pages - b, generator=gen, device=dev) + b
+    table = perm[: b * npg].reshape(b, npg).to(torch.int32)
+    mag = torch.exp(6 * torch.rand((2, b, t, 1, 1), generator=gen,
+                                   device=dev) - 3)
+    x = (torch.randn((2, b, t, kv, hd), generator=gen, device=dev) * mag)
+    pos = None
+    if t == 1:
+        table[1, 0] = table[0, 0]
+        table[b - 1, :] = b - 1
+        pos = torch.tensor([3, 2 * ps + 1, npg * ps - 1, 0][:b - 1] + [0],
+                           dtype=torch.int32, device=dev)
+    return x[0].to(dtype), x[1].to(dtype), pools, table, pos
+
+
+# (B, KV, hd, pages per row, page size): hd 16 to 128, the KV heads of rep
+# 1, 2 and 3 at H = 4 and 6, hd 24 (three-byte check rows), and 40 KV heads
+# of 128 (D = 5,120: more blocks than threads)
+@pytest.mark.parametrize("shape", [(3, 4, 128, 5, 16), (4, 2, 16, 4, 16),
+                                   (3, 2, 32, 3, 16), (3, 1, 24, 6, 8),
+                                   (2, 40, 128, 2, 16)])
+@pytest.mark.parametrize("scheme", ["faulty", "in-place", "parity-zero"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("phase", ["decode", "prefill"])
+def test_gpu_kv_write_matches_plain(cuda, phase, dtype, scheme, shape):
+    """kv_write against kv_write_plain: pools, check planes and the
+    returned copies byte-equal, scales bit-equal; one launch for K and V."""
+    b, kv, hd, npg, ps = shape
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + len(scheme))
+    t = 1 if phase == "decode" else (npg - 1) * ps
+    k, v, pools, table, pos = _kv_case(b, kv, hd, npg, ps, scheme, dtype, t,
+                                       cuda, gen)
+    kp = [None if a is None else a.clone() for a in pools]
+    pp = [None if a is None else a.clone() for a in pools]
+    before = build.COUNTS["kv_write"]
+    kc = kv_write.kv_write(k, v, *kp, table, pos, scheme=scheme, copy=True)
+    assert build.COUNTS["kv_write"] == before + 1
+    pc = kv_write.kv_write_plain(k, v, *pp, table, pos, scheme=scheme,
+                                 copy=True)
+    torch.cuda.synchronize()
+    for a, c in zip(kp + list(kc), pp + list(pc)):
+        assert (a is None) == (c is None)
+        if a is not None:
+            assert torch.equal(a.view(torch.uint8), c.view(torch.uint8))
+    changed = sum(int((a != c).sum()) for a, c in zip(kp, pools)
+                  if a is not None)
+    assert changed > 0
+
+
+_BAD_KV_TABLE = """
+import sys, torch
+from repro_torch.kernels import kv_write
+dev = torch.device("cuda")
+pools = []
+for _ in range(2):
+    pools += [torch.zeros((6, 16, 2, 64), dtype=torch.uint8, device=dev),
+              None, torch.zeros((6, 16), device=dev)]
+table = torch.tensor([[2, 3], [4, int(sys.argv[1])]], dtype=torch.int32,
+                     device=dev)
+pos = torch.tensor([31, 20], dtype=torch.int32, device=dev)
+k = torch.randn((2, 1, 2, 64), device=dev).to(torch.bfloat16)
+try:
+    kv_write.kv_write(k, k, *pools, table, pos)
+    torch.cuda.synchronize()
+except RuntimeError as err:
+    print("launch failed:", err)
+    sys.exit(3)
+print("ran")
+"""
+
+
+@pytest.mark.parametrize("bad", [6, -1])
+def test_gpu_kv_write_out_of_range_page_fails(cuda, bad):
+    """A table entry outside [0, P) makes the KV write's launch fail with a
+    CUDA error instead of writing outside the pool, as the paged-attention
+    kernels do. In a child process: the error ends its CUDA context. A
+    valid id (5) runs."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    for page, want in ((5, 0), (bad, 3)):
+        r = subprocess.run([sys.executable, "-c", _BAD_KV_TABLE, str(page)],
+                           env=env, capture_output=True, text=True,
+                           timeout=300)
+        assert r.returncode == want, (page, r.stdout, r.stderr[-2000:])

@@ -116,19 +116,20 @@ def test_kv_presets_equal_the_reference(name):
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
 def test_serve_step_sets_the_kv_codec_route(backend, monkeypatch):
-    """The serve step's backend, not the preset, routes the KV encode."""
+    """The serve step's backend, not the preset, routes the KV encode (the
+    fused KV write, ``kvcache._write_kv``)."""
     from repro_torch import configs
     from repro_torch.models import lm
     from repro_torch.protection.policy import ProtectionPolicy
     from repro_torch.serving import protected
 
     seen = set()
-    encode_kv = kvcache._encode_kv
+    write_kv = kvcache._write_kv
 
-    def spy(kf, policy):
+    def spy(lc, k, v, policy, **kw):
         seen.add(policy.backend)
-        return encode_kv(kf, policy)
-    monkeypatch.setattr(kvcache, "_encode_kv", spy)
+        return write_kv(lc, k, v, policy, **kw)
+    monkeypatch.setattr(kvcache, "_write_kv", spy)
     cfg = configs.get_smoke("minitron-4b")
     plan = ProtectionPolicy(backend=backend).plan(lm.param_shapes(cfg))
     enc = lm.init_params(cfg, 0, device="cpu", leaf_fn=plan.encode_leaf)

@@ -111,3 +111,59 @@ def test_encode_leaf_both_routes_match_reference(shape, route):
     assert pt.scale.numpy().tobytes() == np.asarray(
         jpt.scale, np.float32).tobytes()
     assert pt.is_flat == jpt.is_flat and pt.orig_shape == jpt.orig_shape
+
+
+# the write-back leaves: ragged (value counts not a multiple of 8), ties,
+# an all-zero leaf and a one-block leaf, as 2-D masters
+WRITE_BACK = {
+    "normal-ragged": INPUTS["normal-ragged"].reshape(-1)[:1037 * 7].reshape(
+        1037, 7),
+    "ragged-tail": INPUTS["normal-4096"].reshape(-1)[:4093 * 7].reshape(
+        4093, 7),
+    "ties": INPUTS["ties"].reshape(57, 72),
+    "zeros-ragged": np.zeros((5, 7), np.float32),
+    "one-block": INPUTS["one-block"].reshape(2, 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WRITE_BACK))
+@pytest.mark.parametrize("route", ["torch", "cuda"])
+def test_throttle_tensor_in_place_matches_reference(name, route):
+    """``wot.throttle_tensor_`` (the kernel's write-back on the "cuda"
+    route, its plain version for CPU tensors) writes the reference's
+    ``wot.throttle_tensor`` into the masters bit for bit; q and scale are
+    the reference's quantize-throttle of the zero-padded blocks."""
+    w = WRITE_BACK[name]
+    want = np.asarray(jwot.throttle_tensor(jnp.asarray(w)))
+    t = torch.from_numpy(w.copy())
+    out, q, scale = wot.throttle_tensor_(t, backend=route, with_q=True)
+    assert out is t
+    assert t.numpy().tobytes() == want.tobytes()
+    jq, jscale = jqt.quantize_throttle(jnp.asarray(
+        np.pad(w.reshape(-1), (0, (-w.size) % 8)).reshape(-1, 8)),
+        interpret=True)
+    np.testing.assert_array_equal(q.numpy().reshape(-1),
+                                  np.asarray(jq).reshape(-1)[: w.size])
+    assert scale.numpy().tobytes() == np.float32(jscale).tobytes()
+    # the out-of-place form leaves its input alone and agrees
+    src = torch.from_numpy(w.copy())
+    assert wot.throttle_tensor(src, backend=route).numpy().tobytes() == \
+        want.tobytes()
+    assert src.numpy().tobytes() == w.tobytes()
+    if name in ("ties", "ragged-tail"):   # the clamp did move masters
+        assert (want != w).any()
+
+
+def test_write_back_without_q():
+    w = WRITE_BACK["ties"]
+    t = torch.from_numpy(w.copy())
+    q, scale = quant_throttle.quantize_throttle(t, write_back=True,
+                                                with_q=False)
+    assert q is None and scale.shape == ()
+    assert t.numpy().tobytes() == np.asarray(
+        jwot.throttle_tensor(jnp.asarray(w))).tobytes()
+    with pytest.raises(ValueError):
+        quant_throttle.quantize_throttle(torch.zeros(0), write_back=True)
+    with pytest.raises(ValueError):
+        quant_throttle.quantize_throttle(torch.zeros(3, dtype=torch.float64),
+                                         write_back=True)
