@@ -52,24 +52,41 @@ d_model 4096, vocab 102400) at batch 4:
   exactly, no DUE), ``in-place-chunked`` with prefix sharing and
   copy-on-write (tokens of the run without sharing, the pool back at its
   start), and ``in-place-fused`` with correctable KV flips only (tokens of
-  the clean run); with TTFT, TPOT, tok/s and a profile of eight steps.
+  the clean run); with TTFT, TPOT, tok/s and a profile of eight steps;
+* phase 10: full-width, full-depth phi3-medium-14b (40 layers, d_model
+  5,120, GQA 40/10, 14.7 GB of encoded weights), the decode runs of the
+  first bullet (clean, faulted, correctable-only), with its launches per
+  step;
+* phase 11: full-width, full-depth paligemma-3b (the vlm family: 18
+  layers, 8 query heads over one KV head of 256, a tied 257,216-word
+  head): the same decode runs; the long-context runs (a 4 x 2,048 prefill
+  through flash at head_dim 256, 16 steps through the chunked kernel at
+  rep 8); two QATT steps at batch 2 x (256 patch embeddings + 512 tokens)
+  through ``launch.train.train`` (finite losses, the throttle bit-equal
+  across routes, the WOT constraint on every leaf); and a profile of its
+  decode step (the embedding's decode and the tied head beside the rest).
 
 Phase 2 also holds the parity-zero decode and the per-slot flags of both
 paged-attention kernels to their plain versions at the burst's shapes;
 both kernels through their page-table entries (the pool read through a
 shuffled table with a shared page and a parking page, as the decode step
 calls them) at the decode, long-context and burst shapes and at
-minitron-4b widths (rep 3), against ``gather_strips`` + the plain version,
-with the time the gather alone would take;
-flash attention at head_dim 256 (B 4, H 8, S 2,048 and a ragged S) in
-bf16 (tensor cores) and f32 (CUDA cores), with its TFLOP/s beside SDPA's;
-and the float ``ecc_qmatmul`` at every weight shape for the decode step
-(M = 4), the burst step (M = 8) and the 4 x 2,048 prefill (M = 8,192),
-flags exact and a split-K launch repeated bit for bit; the fused KV write
+minitron-4b widths (rep 3) and paligemma-3b's (rep 8, hd 256: S 64, S
+272 under all three schemes, S 2,064), against ``gather_strips`` + the
+plain version, with the time the gather alone would take; the chunked
+kernel at paligemma-3b's decode shape against the fp64 oracle too;
+flash attention at head_dim 256 (paligemma-3b's prefill: B 4, H 8, S
+2,048, and a ragged S) in bf16 (tensor cores) and f32 (CUDA cores), with
+its TFLOP/s beside SDPA's; and the float ``ecc_qmatmul`` at every weight
+shape for the decode step (M = 4), the burst step (M = 8) and the 4 x
+2,048 prefill (M = 8,192), and at every weight shape of a phi3-medium-14b
+and a paligemma-3b decode step (M = 4), flags exact and a split-K launch
+repeated bit for bit; the fused KV write
 (``kv_write``: one launch per layer quantizes, throttles, encodes and
 stores K and V into the pool through the table) byte-equal to its plain
-version at the decode, burst, 4 x 2,048 prefill and minitron-4b shapes
-under all three KV schemes, timed beside the unfused route of the same
+version at the decode, burst, 4 x 2,048 prefill, minitron-4b and
+paligemma-3b (one KV head of 256) shapes under all three KV schemes,
+timed beside the unfused route of the same
 write; and ``quantize_throttle``'s in-place write-back of the QATT
 masters bit-equal to its plain version. Phase 3 runs a 2-layer burst on both
 routes with the same pool flips. Phase 6 counts the decode step's
@@ -200,10 +217,10 @@ def main():
     phase_routes(torch, dev)
     log(f"phase 3 (routes) took {time.time() - t0:.0f}s")
     t0 = time.time()
-    decode_counts = phase_full(torch, dev, build)
+    decode_counts = phase_full(torch, dev, build, get_config("deepseek-7b"))
     log(f"phase 4 (decode path) took {time.time() - t0:.0f}s")
     t0 = time.time()
-    long_counts = phase_long(torch, dev, build)
+    long_counts = phase_long(torch, dev, build, get_config("deepseek-7b"))
     log(f"phase 5 (long-context path) took {time.time() - t0:.0f}s")
     t0 = time.time()
     phase_profile(torch)
@@ -222,8 +239,18 @@ def main():
     t0 = time.time()
     burst_counts = phase_burst(torch, dev, build)
     log(f"phase 9 (burst serving) took {time.time() - t0:.0f}s")
+    t0 = time.time()
+    phi3_counts = phase_full(torch, dev, build, get_config("phi3-medium-14b"),
+                             "chip_smoke_phi3.json")
+    log(f"phase 10 (phi3-medium-14b decode path) took "
+        f"{time.time() - t0:.0f}s")
+    t0 = time.time()
+    vlm_counts = phase_vlm(torch, dev, build)
+    log(f"phase 11 (paligemma-3b: decode, long context, QATT) took "
+        f"{time.time() - t0:.0f}s")
     counts = {k: decode_counts[k] + long_counts[k] + train_counts[k]
-              + guarded_counts[k] + burst_counts[k] for k in build.COUNTS}
+              + guarded_counts[k] + burst_counts[k] + phi3_counts[k]
+              + vlm_counts[k] for k in build.COUNTS}
     if sorted(entries) != sorted(counts):
         fail(f"kernels checked {sorted(entries)} != kernels counted "
              f"{sorted(counts)}")
@@ -243,7 +270,14 @@ def main():
               "kv_write")),
             ("burst", burst_counts,
              ("ecc_decode", "ecc_qmatmul", "fused_page_attention",
-              "chunked_page_attention", "kv_write"))):
+              "chunked_page_attention", "kv_write")),
+            ("phi3-medium-14b decode", phi3_counts,
+             ("ecc_decode", "ecc_encode", "ecc_qmatmul",
+              "fused_page_attention", "kv_write")),
+            ("paligemma-3b", vlm_counts,
+             ("ecc_decode", "ecc_encode", "ecc_qmatmul",
+              "fused_page_attention", "kv_write", "flash_attention",
+              "chunked_page_attention", "quantize_throttle"))):
         missing = [k for k in needed if cnt[k] <= 0]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
@@ -445,6 +479,10 @@ def phase_kernels(torch, dev):
 
     # -- kernel 3: every projection and the head, 211 launches per step -----
     out["ecc_qmatmul"] = check_qmatmul_mixes(torch, dev, cfg, timer, gen)
+    models, e = check_qmatmul_models(torch, dev, timer, gen)
+    out["ecc_qmatmul"]["max_abs_err"] = max(
+        out["ecc_qmatmul"]["max_abs_err"], e)
+    out["ecc_qmatmul"]["models_m4"] = models
     check_qmatmul_paths(torch, dev, cfg, timer, gen)
 
     # -- kernel 4: fused page attention, 30 launches per step ---------------
@@ -509,6 +547,89 @@ def phase_kernels(torch, dev):
     return out
 
 
+def _qmm_weight(torch, dev, k, n, gen, scale):
+    """A (k, n) in-place image with 50 single- and 20 double-flip blocks
+    and its bf16 decode -> (image, bf16 weight, (singles, doubles))."""
+    from repro_torch.core import ecc
+    w_enc = ecc.encode64(wot_blocks(torch, dev, k * n // 8, gen))
+    flips = flip_blocks(torch, w_enc, 50, 20, gen)
+    w_enc = w_enc.view(k, n)
+    dec = ecc.decode64(w_enc.reshape(k, n // 8, 8))[0].reshape(k, n)
+    w_bf = (dec.view(torch.int8).float() * scale).to(torch.bfloat16)
+    return w_enc, w_bf, flips
+
+
+def _qmm_case(torch, dev, m, w_enc, w_bf, scale, flips, timer, gen):
+    """The float ecc_qmatmul at (m, k, n) against its plain version: flags
+    equal to the injected counts and the plain version's, the output
+    within QMM_RTOL, a split-K launch repeated bit for bit; timed beside
+    the plain version, ``torch.matmul`` over the decoded bf16 weight and
+    the bound. -> dict of the times, the bound, the error and the plan."""
+    from repro_torch.kernels import ecc_qmatmul
+    k, n = w_enc.shape
+    a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    plan = ecc_qmatmul.plan_launch(m, n, k, a.dtype)
+    ko, kfl = ecc_qmatmul.ecc_qmatmul(a, w_enc, scale, with_flags=True)
+    po, pfl = ecc_qmatmul.ecc_qmatmul_plain(a, w_enc, scale, with_flags=True)
+    if kfl.tolist() != pfl.tolist() or kfl.tolist() != list(flips):
+        fail(f"ecc_qmatmul flags {kfl.tolist()} vs plain {pfl.tolist()} vs "
+             f"injected {list(flips)} at {(m, k, n)}")
+    diff = (ko - po).abs()
+    del po
+    e = float(diff.max())
+    diff -= QMM_RTOL * (a.float().abs() @ w_bf.float().abs())
+    if bool((diff > 1e-6).any()):
+        fail(f"ecc_qmatmul out of tolerance at {(m, k, n)}: max abs err {e}")
+    del diff
+    if plan.splits > 1:
+        again = ecc_qmatmul.ecc_qmatmul(a, w_enc, scale)
+        if not torch.equal(_bits(torch, again), _bits(torch, ko)):
+            fail(f"ecc_qmatmul split-K ({plan.splits} splits) at "
+                 f"{(m, k, n)}: a repeated launch differs")
+    del ko
+    km = timer.ms(lambda: ecc_qmatmul.ecc_qmatmul(a, w_enc, scale))
+    pm = timer.ms(lambda: ecc_qmatmul.ecc_qmatmul_plain(a, w_enc, scale))
+    lm_ = timer.ms(lambda: torch.matmul(a, w_bf))
+    ops = 2 * m * k * n
+    bb, by = bound_ms(m * k * 2 + k * n + m * n * 4 + 4, ops)
+    log(f"ecc_qmatmul {(m, k, n)} ({plan.regime}, {plan.ctas} CTAs, "
+        f"{plan.splits} splits): kernel {km:.4f} ms "
+        f"({ops / km / 1e9:.1f} TFLOP/s), plain {pm:.4f} ms, "
+        f"torch.matmul(bf16 decoded) {lm_:.4f} ms, bound {bb:.4f} ms ({by}), "
+        f"flags {kfl.tolist()}, max abs err {e:.3g}")
+    return dict(ms=km, plain_ms=pm, library_ms=lm_, bound_ms=bb,
+                bound_by=by, ops=ops, err=e)
+
+
+def _qmm_sum(cases) -> dict:
+    """Per-call sums over ``[(case, launches)]``."""
+    out = {k: sum(c[k] * n for c, n in cases)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "ops")}
+    ops = out.pop("ops")
+    out.update(bound_by=cases[-1][0]["bound_by"],
+               launches=sum(n for _, n in cases),
+               tflops=ops / out["ms"] / 1e9,
+               library_tflops=ops / out["library_ms"] / 1e9)
+    return out
+
+
+def qmm_per_step(cfg):
+    """``[((k, n), launches per decode step)]`` of a dense or vlm config:
+    wq and wo, wk and wv, w_gate and w_up, w_down per layer, and an
+    untied head (a tied head is a ``torch.matmul`` over the decoded
+    embedding)."""
+    d, f, nl = cfg.d_model, cfg.d_ff, cfg.n_layers
+    qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    shapes = [((d, qd), nl), ((qd, d), nl), ((d, kvd), 2 * nl),
+              ((d, f), 2 * nl), ((f, d), nl)]
+    if not cfg.tie_embeddings:
+        shapes.append(((d, cfg.vocab_padded), 1))
+    merged: dict = {}
+    for kn, c in shapes:
+        merged[kn] = merged.get(kn, 0) + c
+    return list(merged.items())
+
+
 def check_qmatmul_mixes(torch, dev, cfg, timer, gen):
     """The float path of ecc_qmatmul (bf16 activations) at every weight
     shape of the serve paths, each weight with 50 single- and 20
@@ -520,86 +641,57 @@ def check_qmatmul_mixes(torch, dev, cfg, timer, gen):
     repeated gives the same bits. Times summed per step / per prefill
     against the bound (bytes at decode, operations at prefill) and
     ``torch.matmul`` over the bf16 weight decoded beforehand."""
-    from repro_torch.core import ecc
-    from repro_torch.kernels import ecc_qmatmul
-    d, f, v, nl = cfg.d_model, cfg.d_ff, cfg.vocab_padded, cfg.n_layers
-    per_step = [((d, d), 4 * nl), ((d, f), 2 * nl), ((f, d), nl), ((d, v), 1)]
     mixes = {4: "decode step, batch 4", 8: "burst step, 8 slots",
              8192: "prefill, 4 x 2,048 tokens"}
-    tot = {m: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bound_ms": 0.0, "ops": 0.0} for m in mixes}
+    cases = {m: [] for m in mixes}
     err = 0.0
     scale = torch.tensor(0.02, dtype=torch.float32, device=dev)
-    for (k, n), count in per_step:
-        w_enc = ecc.encode64(wot_blocks(torch, dev, k * n // 8, gen))
-        ns, nd = flip_blocks(torch, w_enc, 50, 20, gen)
-        w_enc = w_enc.view(k, n)
-        dec = ecc.decode64(w_enc.reshape(k, n // 8, 8))[0].reshape(k, n)
-        w_bf = (dec.view(torch.int8).float() * scale).to(torch.bfloat16)
-        del dec
+    for (k, n), count in qmm_per_step(cfg):
+        w_enc, w_bf, flips = _qmm_weight(torch, dev, k, n, gen, scale)
         for m in mixes:
-            a = torch.randn((m, k), generator=gen, device=dev).to(
-                torch.bfloat16)
-            plan = ecc_qmatmul.plan_launch(m, n, k, a.dtype)
-            ko, kfl = ecc_qmatmul.ecc_qmatmul(a, w_enc, scale,
-                                              with_flags=True)
-            po, pfl = ecc_qmatmul.ecc_qmatmul_plain(a, w_enc, scale,
-                                                    with_flags=True)
-            if kfl.tolist() != pfl.tolist() or kfl.tolist() != [ns, nd]:
-                fail(f"ecc_qmatmul flags {kfl.tolist()} vs plain "
-                     f"{pfl.tolist()} vs injected {[ns, nd]} at {(m, k, n)}")
-            diff = (ko - po).abs()
-            del po
-            e = float(diff.max())
-            err = max(err, e)
-            diff -= QMM_RTOL * (a.float().abs() @ w_bf.float().abs())
-            if bool((diff > 1e-6).any()):
-                fail(f"ecc_qmatmul out of tolerance at {(m, k, n)}: max abs "
-                     f"err {e}")
-            del diff
-            if plan.splits > 1:
-                again = ecc_qmatmul.ecc_qmatmul(a, w_enc, scale)
-                if not torch.equal(_bits(torch, again), _bits(torch, ko)):
-                    fail(f"ecc_qmatmul split-K ({plan.splits} splits) at "
-                         f"{(m, k, n)}: a repeated launch differs")
-            del ko
-            km = timer.ms(lambda: ecc_qmatmul.ecc_qmatmul(a, w_enc, scale))
-            pm = timer.ms(lambda: ecc_qmatmul.ecc_qmatmul_plain(a, w_enc,
-                                                                scale))
-            lm_ = timer.ms(lambda: torch.matmul(a, w_bf))
-            ops = 2 * m * k * n
-            bb, by = bound_ms(m * k * 2 + k * n + m * n * 4 + 4, ops)
-            log(f"ecc_qmatmul {(m, k, n)} x{count} ({plan.regime}, "
-                f"{plan.ctas} CTAs, {plan.splits} splits): kernel "
-                f"{km:.4f} ms ({ops / km / 1e9:.1f} TFLOP/s), plain "
-                f"{pm:.4f} ms, torch.matmul(bf16 decoded) {lm_:.4f} ms, "
-                f"bound {bb:.4f} ms ({by}), max abs err {e:.3g}")
-            t = tot[m]
-            t["ms"] += count * km
-            t["plain_ms"] += count * pm
-            t["library_ms"] += count * lm_
-            t["bound_ms"] += count * bb
-            t["ops"] += count * ops
-            t["bound_by"] = by
-            del a
+            c = _qmm_case(torch, dev, m, w_enc, w_bf, scale, flips, timer,
+                          gen)
+            err = max(err, c["err"])
+            cases[m].append((c, count))
         del w_enc, w_bf
     mix = {}
     for m, what in mixes.items():
-        t = tot[m]
-        mix[m] = dict(ms=t["ms"], plain_ms=t["plain_ms"],
-                      library_ms=t["library_ms"], bound_ms=t["bound_ms"],
-                      bound_by=t["bound_by"],
-                      tflops=t["ops"] / t["ms"] / 1e9,
-                      library_tflops=t["ops"] / t["library_ms"] / 1e9)
-        log(f"ecc_qmatmul float, {what} (M = {m}, 211 launches): {mix[m]}")
+        mix[m] = _qmm_sum(cases[m])
+        log(f"ecc_qmatmul float, {what} (M = {m}, "
+            f"{mix[m]['launches']} launches): {mix[m]}")
     entry = dict(source="src/repro_torch/csrc/ecc_qmatmul.cu",
                  replaces="src/repro/kernels/ecc_qmatmul.py:393",
                  max_abs_err=err, **{k: mix[4][k] for k in (
                      "ms", "plain_ms", "bound_ms", "bound_by",
                      "library_ms")},
                  burst_m8=mix[8], prefill_m8192=mix[8192])
-    log(f"ecc_qmatmul (per step, 211 launches): {entry}")
+    log(f"ecc_qmatmul (per step, {mix[4]['launches']} launches): {entry}")
     return entry
+
+
+def check_qmatmul_models(torch, dev, timer, gen):
+    """The float ecc_qmatmul at M = 4 at every weight shape of a
+    phi3-medium-14b and a paligemma-3b decode step (phi3's w_up 5,120 ->
+    17,920 and w_down 17,920 -> 5,120, its head 5,120 -> 100,352;
+    paligemma's wk and wv 2,048 -> 256, one KV head), as
+    :func:`check_qmatmul_mixes` holds deepseek-7b's: flags exact, within
+    QMM_RTOL, split-K repeated bit for bit. -> {arch: per-step sums}."""
+    from repro_torch.configs import get
+    scale = torch.tensor(0.02, dtype=torch.float32, device=dev)
+    out, err = {}, 0.0
+    for arch in ("phi3-medium-14b", "paligemma-3b"):
+        cases = []
+        for (k, n), count in qmm_per_step(get(arch)):
+            w_enc, w_bf, flips = _qmm_weight(torch, dev, k, n, gen, scale)
+            c = _qmm_case(torch, dev, 4, w_enc, w_bf, scale, flips, timer,
+                          gen)
+            err = max(err, c["err"])
+            cases.append((c, count))
+            del w_enc, w_bf
+        out[arch] = _qmm_sum(cases)
+        log(f"ecc_qmatmul float, {arch} decode step (M = 4, "
+            f"{out[arch]['launches']} launches): {out[arch]}")
+    return out, err
 
 
 def _decoded_bf16(torch, enc, sc):
@@ -819,19 +911,24 @@ def _check_fault_bits(torch, Q, aq, af, w_enc, ws, sc, gen):
 
 def check_chunked(torch, dev, cfg, timer, gen):
     """chunked_page_attention at the long-context path's decode shape (B 4,
-    S 2,064 = 129 pages) and at B 1, S 16,384, KV 32, hd 128, bf16 q, with
-    single- and double-flip blocks and ragged positions: flags equal to
-    the plain version's, output within CHUNKED_* of it and within 2% of
-    max|oracle| of the fp64 oracle. Timed at the path's last step (every
-    row at pos S - 1), 30 launches per decode step."""
+    S 2,064 = 129 pages) and at B 1, S 16,384, KV 32, hd 128, and at
+    paligemma-3b's (B 4, S 2,064, H 8 over one KV head of 256: rep 8),
+    bf16 q, with single- and double-flip blocks and ragged positions:
+    flags equal to the plain version's, output within CHUNKED_* of it and
+    within 2% of max|oracle| of the fp64 oracle. Timed at the path's last
+    step (every row at pos S - 1), one launch per layer and step."""
+    from repro_torch.configs import get
     from repro_torch.kernels import paged_attention
     from repro_torch.serving import kvcache
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pali = get("paligemma-3b")
     policy = kvcache.get_kv_policy("in-place-chunked")
     chunk = policy.chunk_pages * policy.page_size
     err = 0.0
     entry = None
-    for b, s, ragged in ((4, 2064, (2063, 1500, 700, 0)), (1, 16384, (16000,))):
+    for c, b, s, ragged in ((cfg, 4, 2064, (2063, 1500, 700, 0)),
+                            (cfg, 1, 16384, (16000,)),
+                            (pali, 4, 2064, (2063, 1024, 17, 2000))):
+        h, kvh, hd = c.n_heads, c.n_kv_heads, c.head_dim
         ke, _, ksc = kvcache._encode_kv(
             torch.randn((b, s, kvh, hd), generator=gen, device=dev), policy)
         ve, _, vsc = kvcache._encode_kv(
@@ -877,22 +974,27 @@ def check_chunked(torch, dev, cfg, timer, gen):
         bb, by = bound_ms(nbytes, 4 * b * h * s * hd)
         splits = paged_attention.plan_splits(b, kvh, s,
                                              paged_attention._sm_count(dev))
-        log(f"chunked_page_attention B={b} S={s} ({splits} splits of the "
+        log(f"chunked_page_attention {c.name} (H {h}, KV {kvh}, hd {hd}) "
+            f"B={b} S={s} ({splits} splits of the "
             f"plan; the plain version's chunk {chunk}): flags "
             f"{kfl.tolist()}, max abs err vs plain {float(e.max()):.3g}, vs "
             f"fp64 oracle {oerr:.3g} (gate {otol:.3g}); per launch kernel "
             f"{km:.4f} ms, plain {pm:.4f} ms, sdpa(decoded) {lm_:.4f} ms, "
             f"bound {bb:.5f} ms")
+        n = c.n_layers
+        step = dict(ms=n * km, plain_ms=n * pm, bound_ms=n * bb,
+                    bound_by=by, library_ms=n * lm_)
         if entry is None:
-            n = cfg.n_layers
             entry = dict(source="src/repro_torch/csrc/chunked_attention.cu",
                          replaces="src/repro/kernels/paged_attention.py:313",
-                         ms=n * km, plain_ms=n * pm, bound_ms=n * bb,
-                         bound_by=by, library_ms=n * lm_)
+                         **step)
+        elif c is pali:
+            entry["paligemma"] = dict(step, launches_per_step=n, B=b, S=s,
+                                      splits=splits)
         del ke, ve, kd_, vd_, args, last
     entry["max_abs_err"] = err
-    log(f"chunked_page_attention (per step, 30 launches of B=4 H={h} "
-        f"S=2064): {entry}")
+    log(f"chunked_page_attention (per step, {cfg.n_layers} launches of B=4 "
+        f"H={cfg.n_heads} S=2064): {entry}")
     return entry
 
 
@@ -1047,28 +1149,38 @@ def check_paged_tables(torch, dev, cfg, timer, gen):
     the strip kernel stops at 848 tokens) and B 8, S 128 (burst,
     parity-zero, per-slot rows), over a shuffled table with a shared page
     and a parking page; then at minitron-4b widths (H 24, KV 8, hd 128,
-    rep 3) in bf16. Each against ``paged_attention.gather_strips`` + the
-    plain version: the strip kernel bit-equal, the chunked kernel within
-    CHUNKED_*; flags and per-slot rows exactly equal. Prints the kernel's
-    time through the table and the time the gather alone takes (the copy
-    the decode step does not make). Each case's bound counts the work of
-    its ragged positions (the live tokens: each distinct live page slot's
-    bytes read once, the scores and PV of every row's ``pos + 1`` tokens),
-    and its library time is SDPA over the same gathered, pre-decoded bf16
-    strips with a mask past ``pos``. -> {kernel: {"max_abs_err": x,
-    "through_table": [per-case times]}}."""
+    rep 3) and at paligemma-3b's (H 8 over one KV head of 256: rep 8; the
+    decode's S 64, S 272 under all three schemes — the strip kernel stops
+    at 287 tokens there — and S 2,064) in bf16. Each against
+    ``paged_attention.gather_strips`` + the plain version: the strip kernel
+    bit-equal, the chunked kernel within CHUNKED_*; flags and per-slot rows
+    exactly equal. Prints the kernel's time through the table and the time
+    the gather alone takes (the copy the decode step does not make). Each
+    case's bound counts the work of its ragged positions (the live tokens:
+    each distinct live page slot's bytes read once, the scores and PV of
+    every row's ``pos + 1`` tokens), its plain time the strip plain version
+    on the gathered strips (the gather not included), and its library time
+    SDPA over the same gathered, pre-decoded bf16 strips with a mask past
+    ``pos``. -> {kernel: {"max_abs_err": x, "through_table": [per-case
+    times]}}."""
     from repro_torch.configs import get
     from repro_torch.kernels import paged_attention as pa
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res = {k: dict(max_abs_err=0.0, through_table=[])
            for k in ("fused_page_attention", "chunked_page_attention")}
+    pali = get("paligemma-3b")
     cases = [(cfg, 4, 64, "in-place", False, (63, 32, 21, 47)),
              (cfg, 4, 2064, "in-place", False, (2063, 1500, 700, 2047)),
              (cfg, BURST_SLOTS, BURST_MAX_LEN, "parity-zero", True,
               (127, 100, 64, 33, 16, 15, 1, 0)),
              (get("minitron-4b"), 4, 64, "in-place", True, (63, 40, 15, 0)),
              (get("minitron-4b"), 4, 2064, "in-place", False,
-              (2063, 1024, 17, 2000))]
+              (2063, 1024, 17, 2000)),
+             (pali, 4, 64, "in-place", False, (63, 32, 21, 47)),
+             (pali, 4, 272, "in-place", False, (271, 200, 17, 250)),
+             (pali, 4, 272, "parity-zero", True, (271, 100, 0, 255)),
+             (pali, 4, 272, "faulty", False, (271, 64, 5, 254)),
+             (pali, 4, 2064, "in-place", False, (2063, 1500, 700, 2047))]
     for c, b, s, scheme, per_slot, ragged in cases:
         h, kvh, hd = c.n_heads, c.n_kv_heads, c.head_dim
         pos = torch.tensor(ragged, dtype=torch.int32, device=dev)
@@ -1084,6 +1196,8 @@ def check_paged_tables(torch, dev, cfg, timer, gen):
         if scheme == "parity-zero":
             kd_ = _decoded_parity_bf16(torch, ke, kch, ksc)
             vd_ = _decoded_parity_bf16(torch, ve, vch, vsc)
+        elif scheme == "faulty":
+            kd_, vd_ = _raw_bf16(torch, ke, ksc), _raw_bf16(torch, ve, vsc)
         else:
             kd_, vd_ = _decoded_bf16(torch, ke, ksc), _decoded_bf16(
                 torch, ve, vsc)
@@ -1095,7 +1209,7 @@ def check_paged_tables(torch, dev, cfg, timer, gen):
         kernels = [("chunked_page_attention",
                     pa.chunked_page_attention_paged,
                     pa.chunked_page_attention_plain)]
-        if s <= 848:
+        if s < pa.strip_smem_crossover(hd, h // kvh):
             kernels.insert(0, ("fused_page_attention",
                                pa.fused_page_attention_paged,
                                pa.fused_page_attention_plain))
@@ -1103,7 +1217,8 @@ def check_paged_tables(torch, dev, cfg, timer, gen):
             kw = dict(scheme=scheme, per_slot=per_slot)
             ko, kf = fn(q, *pool, table, pos, **kw)
             po, pf = plain(*strips, **kw)
-            if not torch.equal(kf, pf) or int(kf.sum()) == 0:
+            if not torch.equal(kf, pf) or \
+                    (int(kf.sum()) == 0) != (scheme == "faulty"):
                 fail(f"{name} through the table at {c.name} B={b} S={s} "
                      f"{scheme}: flags {kf.tolist()} vs plain {pf.tolist()}")
             e = (ko.float() - po.float()).abs()
@@ -1121,10 +1236,11 @@ def check_paged_tables(torch, dev, cfg, timer, gen):
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
                                            float(e.max()))
             km = timer.ms(lambda f=fn, k=kw: f(q, *pool, table, pos, **k))
+            pm = timer.ms(lambda p=plain, k=kw: p(*strips, **k))
             row = dict(arch=c.name, B=b, S=s, scheme=scheme,
                        per_slot=per_slot, live_tokens=live, ms=km,
-                       bound_ms=bb, bound_by=by, library_ms=lm_,
-                       launches_per_step=c.n_layers)
+                       plain_ms=pm, bound_ms=bb, bound_by=by,
+                       library_ms=lm_, launches_per_step=c.n_layers)
             extra = ""
             if name == "chunked_page_attention":
                 row["splits"] = pa.plan_splits(b, kvh, s, pa._sm_count(dev))
@@ -1135,7 +1251,8 @@ def check_paged_tables(torch, dev, cfg, timer, gen):
                 f"{hd}) B={b} S={s} {scheme}{' per-slot' if per_slot else ''}"
                 f" at pos {list(ragged)} ({live} live tokens): flags "
                 f"{kf.tolist()} equal to gather + plain, max abs err "
-                f"{float(e.max()):.3g}; per launch {km:.4f} ms, sdpa(masked, "
+                f"{float(e.max()):.3g}; per launch {km:.4f} ms, plain (on the "
+                f"gathered strips) {pm:.4f} ms, sdpa(masked, "
                 f"decoded) {lm_:.4f} ms, bound {bb:.5f} ms ({by}){extra}; per "
                 f"step ({n} launches) {n * km:.4f} ms, sdpa {n * lm_:.4f} ms, "
                 f"bound {n * bb:.5f} ms")
@@ -1171,6 +1288,13 @@ def _table_work(torch, c, b, s, scheme, per_slot, pos, table):
     return nbytes, 4 * h * hd * live, live
 
 
+def _raw_bf16(torch, enc, sc):
+    """Unprotected (faulty-scheme) (B, S, KV, hd) strip -> dequantized
+    bf16 (B, KV, S, hd)."""
+    return (enc.view(torch.int8).float() * sc[..., None, None]).to(
+        torch.bfloat16).transpose(1, 2)
+
+
 def _decoded_parity_bf16(torch, enc, ch, sc):
     """Parity-zero (B, S, KV, hd) strip -> dequantized bf16 (B, KV, S, hd)."""
     from repro_torch.core import ecc
@@ -1182,8 +1306,9 @@ def _decoded_parity_bf16(torch, enc, ch, sc):
 def check_flash(torch, dev, cfg, timer, gen):
     """flash_attention at the prefill's shape (B 4, H 32, S 2,048, hd 128,
     bf16; 30 launches per prefill) and at a ragged S, against its plain
-    version; then at head_dim 256 (a paligemma-like B 4, H 8, S 2,048, and
-    a ragged S) in bf16 (tensor cores) and f32 (CUDA cores). Library
+    version; then at head_dim 256 (paligemma-3b's prefill, B 4, H 8, S
+    2,048, 18 launches per prefill, and a ragged S) in bf16 (tensor cores)
+    and f32 (CUDA cores). Library
     yardstick SDPA with ``is_causal=True``; achieved TFLOP/s of both over
     the causal triangle's operations."""
     from repro_torch.kernels import flash_attention
@@ -1238,6 +1363,15 @@ def check_flash(torch, dev, cfg, timer, gen):
         err = max(err, e, check(1, 8, 1000, 256, dtype)[1])
         entry["head_dim_256"][str(dtype)[6:]] = timed(qkv)
         del qkv
+    # paligemma-3b's prefill of 4 x 2,048 tokens: the bf16 head_dim 256
+    # shape, K and V repeated to its 8 query heads, once per layer
+    from repro_torch.configs import get
+    nl = get("paligemma-3b").n_layers
+    one = entry["head_dim_256"]["bfloat16"]
+    entry["paligemma_prefill"] = dict(
+        {k: nl * one[k] for k in ("ms", "plain_ms", "bound_ms",
+                                  "library_ms")},
+        bound_by=one["bound_by"], launches=nl)
     entry["max_abs_err"] = err
     log(f"flash_attention (per prefill, 30 launches of (4, 32, 2048, 128)): "
         f"{entry}")
@@ -1483,8 +1617,10 @@ def check_kv_write(torch, dev, timer, gen):
     """kv_write against kv_write_plain, byte-equal pools, check planes and
     copies, bit-equal scales, under all three schemes: at the decode step
     (B 4, 64-token rows), the burst step (B 8, 128-token rows), the 4 x
-    2,048 prefill (whole pages from 0, with the copies) and minitron-4b
-    widths (KV 8, rep 3). Timed per decode step (30 launches) beside its
+    2,048 prefill (whole pages from 0, with the copies), minitron-4b
+    widths (KV 8, rep 3) and paligemma-3b's one KV head of 256 (decode
+    and the 4 x 2,048 prefill: two CTAs per token, one for K and one for
+    V). Timed per decode step (30 launches) beside its
     plain composition and the unfused route (the plain quantize, the
     throttle and ecc_encode kernels, the index puts), and per prefill
     layer. No single PyTorch call computes the function: no library
@@ -1492,11 +1628,15 @@ def check_kv_write(torch, dev, timer, gen):
     from repro_torch.configs import get
     from repro_torch.kernels import kv_write
     from repro_torch.serving import kvcache
-    cfg, mini = get("deepseek-7b"), get("minitron-4b")
+    cfg, mini, pali = get("deepseek-7b"), get("minitron-4b"), \
+        get("paligemma-3b")
     kv, hd, ps = cfg.n_kv_heads, cfg.head_dim, 16
+    pkv, phd = pali.n_kv_heads, pali.head_dim
     shapes = (("decode", 4, kv, hd, 4, 1), ("burst", 8, kv, hd, 8, 1),
               ("prefill", 4, kv, hd, 129, 2048),
-              ("minitron-4b decode", 4, mini.n_kv_heads, mini.head_dim, 4, 1))
+              ("minitron-4b decode", 4, mini.n_kv_heads, mini.head_dim, 4, 1),
+              ("paligemma-3b decode", 4, pkv, phd, 4, 1),
+              ("paligemma-3b prefill", 4, pkv, phd, 129, 2048))
     times = {}
     for what, b, kvh, d, npg, t in shapes:
         for scheme in ("faulty", "parity-zero", "in-place"):
@@ -1542,8 +1682,9 @@ def check_kv_write(torch, dev, timer, gen):
             del lc, old
         del k, v, pools, kp, pp, kc, pc
     log("kv_write: pools, check planes, copies byte-equal and scales "
-        "bit-equal to the plain version at the decode, burst, prefill and "
-        "minitron-4b shapes under faulty, parity-zero and in-place")
+        "bit-equal to the plain version at the decode, burst, prefill, "
+        "minitron-4b and paligemma-3b shapes under faulty, parity-zero and "
+        "in-place")
     n = cfg.n_layers
     dec = times["decode"]
     entry = dict(source="src/repro_torch/csrc/kv_write.cu",
@@ -1553,7 +1694,12 @@ def check_kv_write(torch, dev, timer, gen):
                  bound_ms=n * dec["bound_ms"], bound_by="bytes",
                  library_ms=None,
                  unfused_route_ms=n * dec["unfused_route_ms"],
-                 prefill_layer=times["prefill"])
+                 prefill_layer=times["prefill"],
+                 paligemma=dict(
+                     {k: pali.n_layers * v for k, v in
+                      times["paligemma-3b decode"].items()},
+                     launches_per_step=pali.n_layers,
+                     prefill_layer=times["paligemma-3b prefill"]))
     log(f"kv_write (per decode step: {n} launches at B 4, in-place; the "
         f"unfused route beside it; library none: no single PyTorch call "
         f"quantizes, encodes and scatters): {entry}")
@@ -1759,20 +1905,26 @@ def route_bursts(torch, dev, cfg, enc):
 # ---------------------------------------------------------------------------
 
 
-def phase_full(torch, dev, build):
-    """Three 16-step runs: clean; faulted at ``rate`` (corrected and DUE
-    counts against the injected single- and double-flip blocks); and
-    faulted at ``rate`` with at most one flip per code block, which must
-    give the clean run's logits and tokens bit for bit."""
-    from repro_torch.configs import get
+DEPLOY_KERNELS = ("quantize_throttle", "ecc_encode")
+
+
+def phase_full(torch, dev, build, cfg, fname="chip_smoke_serve.json"):
+    """Three 16-step runs of ``cfg`` at full width and depth: clean;
+    faulted at ``rate`` (corrected and DUE counts against the injected
+    single- and double-flip blocks); and faulted at ``rate`` with at most
+    one flip per code block, which must give the clean run's logits and
+    tokens bit for bit. Logs ms/step, tok/s and the clean run's launches
+    per decode step (its deploy's encode launches left out)."""
     from repro_torch.launch.serve import serve
 
-    cfg = get("deepseek-7b")
     tokens, batch, rate = 16, 4, 1e-6
     kw = dict(backend="cuda", kv_policy="in-place-fused", batch=batch,
               tokens=tokens, device="cuda", log=log)
+    torch.cuda.empty_cache()
     build.reset_counts()
     clean = serve(cfg, **kw)
+    per_step = {k: v / tokens for k, v in build.COUNTS.items()
+                if v and k not in DEPLOY_KERNELS}
     torch.cuda.empty_cache()
     faulted = serve(cfg, fault_rate=rate, **kw)
     torch.cuda.empty_cache()
@@ -1829,12 +1981,16 @@ def phase_full(torch, dev, build):
     runs = (("clean", clean), ("faulted", faulted),
             ("correctable-only", fixed))
     for name, r in runs:
-        log(f"full width {name}: {r['tok_per_s']:.1f} tok/s, median "
-            f"{statistics.median(r['step_ms']):.2f} ms/step, first step "
-            f"{r['step_ms'][0]:.2f} ms")
-    with open(OUT_DIR / "chip_smoke_serve.json", "w") as fh:
-        json.dump({n: {"tok_per_s": r["tok_per_s"], "step_ms": r["step_ms"],
-                       "flags": r["flags"]} for n, r in runs}, fh, indent=1)
+        log(f"{cfg.name} full width {name}: {r['tok_per_s']:.1f} tok/s, "
+            f"median {statistics.median(r['step_ms']):.2f} ms/step, first "
+            f"step {r['step_ms'][0]:.2f} ms")
+    log(f"{cfg.name} decode launches per step (clean run): "
+        f"{sum(per_step.values()):.1f} = {per_step}")
+    with open(OUT_DIR / fname, "w") as fh:
+        json.dump({"config": cfg.name, "launches_per_step": per_step,
+                   **{n: {"tok_per_s": r["tok_per_s"],
+                          "step_ms": r["step_ms"], "flags": r["flags"]}
+                      for n, r in runs}}, fh, indent=1)
     return counts
 
 
@@ -1843,17 +1999,15 @@ def phase_full(torch, dev, build):
 # ---------------------------------------------------------------------------
 
 
-def phase_long(torch, dev, build):
-    """Two runs of a 2,048-token prompt per row plus 16 decode steps under
-    ``in-place-chunked``: clean, and with at most one flip per weight code
-    block at ``rate`` (the KV pools take correctable flips mid-run too).
-    The faulted run must give the clean run's prefill logits, decode logits
-    and tokens bit for bit, and count each flipped weight block once per
-    call: 1 prefill + 16 steps = 17 times."""
-    from repro_torch.configs import get
+def phase_long(torch, dev, build, cfg, fname="chip_smoke_long.json"):
+    """Two runs of ``cfg`` with a 2,048-token prompt per row plus 16 decode
+    steps under ``in-place-chunked``: clean, and with at most one flip per
+    weight code block at ``rate`` (the KV pools take correctable flips
+    mid-run too). The faulted run must give the clean run's prefill
+    logits, decode logits and tokens bit for bit, and count each flipped
+    weight block once per call: 1 prefill + 16 steps = 17 times."""
     from repro_torch.launch.serve import serve
 
-    cfg = get("deepseek-7b")
     prompt_len, tokens, batch, rate = 2048, 16, 4, 1e-6
     kw = dict(backend="cuda", kv_policy="in-place-chunked", batch=batch,
               tokens=tokens, prompt_len=prompt_len, device="cuda", log=log)
@@ -1904,12 +2058,13 @@ def phase_long(torch, dev, build):
     log("long-context correctable-only run: prefill logits, decode logits "
         "and tokens equal the clean run bit for bit")
     for name, r in (("clean", clean), ("correctable-only", fixed)):
-        log(f"long context {name}: prefill {batch} x {prompt_len} tokens in "
+        log(f"{cfg.name} long context {name}: prefill {batch} x "
+            f"{prompt_len} tokens in "
             f"{r['prefill_s']:.3f} s ({r['prefill_tok_per_s']:.1f} tok/s); "
             f"decode at context {prompt_len + 1}..{prompt_len + tokens}: "
             f"{r['tok_per_s']:.2f} tok/s, median "
             f"{statistics.median(r['step_ms']):.2f} ms/step")
-    with open(OUT_DIR / "chip_smoke_long.json", "w") as fh:
+    with open(OUT_DIR / fname, "w") as fh:
         json.dump({n: {"prefill_s": r["prefill_s"],
                        "prefill_tok_per_s": r["prefill_tok_per_s"],
                        "tok_per_s": r["tok_per_s"], "step_ms": r["step_ms"],
@@ -2104,6 +2259,46 @@ def event_ms(torch, fn):
     return a.elapsed_time(b), out
 
 
+def throttle_both_routes(torch, params):
+    """The WOT throttle of every protected master on both routes, in place
+    on copies: masters, int8 q and scales must be bit-equal, and every
+    leaf's q must meet the WOT constraint; the kernel route's masters are
+    kept. -> (weights moved, weights throttled, {route: ms})."""
+    from repro_torch import tree
+    from repro_torch.core import wot
+    moved = n_w = 0
+    thr_ms = {"cuda": 0.0, "torch": 0.0}
+    with torch.no_grad():
+        for path, w in tree.leaves_with_path(params):
+            if not wot.is_protected_weight(path, w):
+                continue
+            res = {}
+            for route in ("cuda", "torch"):   # in place, on copies of w
+                c = w.clone()
+                ms, res[route] = event_ms(torch, lambda: wot.throttle_tensor_(
+                    c, backend=route, with_q=True))
+                thr_ms[route] += ms
+            del c
+            (kw, kq, ks), (pw, pq, ps) = res["cuda"], res["torch"]
+            name = tree.path_str(path)
+            same_scale = torch.equal(ks.view(torch.int32),
+                                     ps.view(torch.int32))
+            same_w = kw.view(torch.int32) == pw.view(torch.int32)
+            if not (bool(same_w.all()) and torch.equal(kq, pq) and same_scale):
+                fail(f"throttle of {name}: the kernel route differs from the "
+                     f"plain route: masters at {int((~same_w).sum())} of "
+                     f"{w.numel()}, q at {int((kq != pq).sum())}, scale "
+                     f"{float(ks)!r} vs {float(ps)!r}; "
+                     f"{int((~torch.isfinite(w)).sum())} non-finite masters")
+            if int(wot.count_large_in_protected(kq.reshape(-1))):
+                fail(f"{name}: throttled q breaks the WOT constraint")
+            moved += int((kw != w).sum())
+            n_w += w.numel()
+            w.copy_(kw)
+            del res, kw, kq, pw, pq
+    return moved, n_w, thr_ms
+
+
 def phase_train(torch, dev, build, cfg, *, batch=8, seq=2048, steps=4,
                 serve_tokens=8, rate=1e-6):
     """QAT training with WOT throttling of ``cfg`` through the port's
@@ -2119,7 +2314,6 @@ def phase_train(torch, dev, build, cfg, *, batch=8, seq=2048, steps=4,
     faults only: bit-equal logits and tokens, each flipped block counted
     once per step. -> (launch counts over the path, the trained params)."""
     from repro_torch import tree
-    from repro_torch.core import wot
     from repro_torch.data import synthetic
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import train
@@ -2145,33 +2339,7 @@ def phase_train(torch, dev, build, cfg, *, batch=8, seq=2048, steps=4,
                                            lambda: step(params, opt, b))
     losses.append(float(loss))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    moved = n_w = 0
-    thr_ms = {"cuda": 0.0, "torch": 0.0}
-    with torch.no_grad():
-        for path, w in tree.leaves_with_path(params):
-            if not wot.is_protected_weight(path, w):
-                continue
-            res = {}
-            for route in ("cuda", "torch"):   # in place, on copies of w
-                c = w.clone()
-                ms, res[route] = event_ms(torch, lambda: wot.throttle_tensor_(
-                    c, backend=route, with_q=True))
-                thr_ms[route] += ms
-            del c
-            (kw, kq, ks), (pw, pq, ps) = res["cuda"], res["torch"]
-            name = tree.path_str(path)
-            same_scale = torch.equal(ks.view(torch.int32),
-                                     ps.view(torch.int32))
-            if not (torch.equal(kw.view(torch.int32), pw.view(torch.int32))
-                    and torch.equal(kq, pq) and same_scale):
-                fail(f"throttle of {name}: the kernel route differs from the "
-                     f"plain route")
-            if int(wot.count_large_in_protected(kq.reshape(-1))):
-                fail(f"{name}: throttled q breaks the WOT constraint")
-            moved += int((kw != w).sum())
-            n_w += w.numel()
-            w.copy_(kw)
-            del res, kw, kq, pw, pq
+    moved, n_w, thr_ms = throttle_both_routes(torch, params)
     step_ms.append(upd_ms + thr_ms["cuda"])
     if not all(math.isfinite(x) for x in losses):
         fail(f"training losses not finite: {losses}")
@@ -2794,6 +2962,159 @@ def profile_int8_decode(torch, dev, plan, enc, scales):
         f"busy of {wall_ms:.2f} wall): " + ", ".join(
             f"{k} {v:.2f}" for k, v in split.items()))
     del cache
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the vlm family — paligemma-3b at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def phase_vlm(torch, dev, build):
+    """paligemma-3b (18 layers, d_model 2,048, 8 query heads over one KV
+    head of 256, a tied 257,216-word head): phase 4's decode triple under
+    ``in-place-fused``, phase 5's 4 x 2,048 prefill and chunked decode
+    under ``in-place-chunked`` (flash at head_dim 256, the chunked kernel
+    at rep 8), two QATT steps over image-patch prefixes, and a profile of
+    its decode step. -> the launch counts of the three runs."""
+    from repro_torch.configs import get
+    cfg = get("paligemma-3b")
+    c1 = phase_full(torch, dev, build, cfg, "chip_smoke_vlm.json")
+    c2 = phase_long(torch, dev, build, cfg, "chip_smoke_vlm_long.json")
+    c3 = phase_vlm_train(torch, dev, build, cfg)
+    profile_vlm_decode(torch, dev, cfg)
+    return {k: c1[k] + c2[k] + c3[k] for k in build.COUNTS}
+
+
+def phase_vlm_train(torch, dev, build, cfg, *, batch=2, seq=512, lr=1e-4):
+    """Two QATT steps of full-width, full-depth ``cfg`` (a vlm) at batch
+    ``batch`` x (n_patches patch embeddings + ``seq`` tokens), one
+    microbatch. The patches are drawn like the embedding table (std 0.02,
+    seeded): all-zero patches, the reference CLI's stub, give NaN
+    gradients at 18 layers in the reference as in the port (see
+    ``launch.train.train``). The first step runs through
+    ``launch.train.train`` on the kernel
+    route, the second an update without the throttle whose masters are
+    then throttled on both routes (bit-equal, the WOT constraint on every
+    leaf). The losses must be finite. 2.5 G f32 masters, their momentum
+    and one set of gradients take 30 GB; the f32 logits of the 2 x 512
+    text positions over 257,280 words 1.05 GB. -> launch counts."""
+    from repro_torch.data import synthetic
+    from repro_torch.launch.train import train
+    from repro_torch.training import train as train_mod
+
+    cfg = cfg.with_(microbatch=1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    patches = (0.02 * torch.randn((batch, cfg.n_patches, cfg.d_model),
+                                  generator=gen, device=dev)).to(
+        torch.bfloat16)
+    build.reset_counts()
+    out = train(cfg, steps=1, batch=batch, seq=seq, lr=lr, seed=0,
+                chunk=2048, backend="cuda", device=dev,
+                prefix_embeds=patches, log=log)
+    params, opt = out["params"], out["opt_state"]
+    losses, step_ms = list(out["losses"]), list(out["step_ms"])
+    b = synthetic.token_batch(cfg.vocab_padded, batch, seq, seed=0, step=1)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    b["prefix_embeds"] = patches
+    step = train_mod.make_train_step(cfg, lr=lr, wot_throttle=False,
+                                     chunk=2048, backend="cuda")
+    torch.cuda.synchronize()
+    upd_ms, (params, opt, loss) = event_ms(torch,
+                                           lambda: step(params, opt, b))
+    losses.append(float(loss))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{cfg.name} QATT losses not finite: {losses}")
+    moved, n_w, thr_ms = throttle_both_routes(torch, params)
+    counts = dict(build.COUNTS)
+    step_ms.append(upd_ms + thr_ms["cuda"])
+    log(f"QATT {cfg.name} x {cfg.n_layers} layers, batch {batch} x "
+        f"({cfg.n_patches} patches + {seq} tokens): losses {losses}; ms/step "
+        f"{[round(x, 2) for x in step_ms]} (the second: update "
+        f"{upd_ms:.2f} + kernel-route throttle {thr_ms['cuda']:.2f}); peak "
+        f"device memory {peak_gb:.2f} GB")
+    log(f"{cfg.name} throttle: masters, q and scales bit-equal on both "
+        f"routes; {moved} of {n_w} weights moved; WOT constraint holds on "
+        f"every protected leaf; kernel route {thr_ms['cuda']:.2f} ms, plain "
+        f"route {thr_ms['torch']:.2f} ms")
+    log(f"launch counts over the {cfg.name} QATT steps: {counts}")
+    with open(OUT_DIR / "chip_smoke_vlm_train.json", "w") as fh:
+        json.dump({"config": cfg.name, "batch": batch,
+                   "patches": cfg.n_patches, "seq": seq, "losses": losses,
+                   "step_ms": step_ms, "peak_gb": peak_gb,
+                   "throttle_ms": thr_ms, "moved": moved}, fh, indent=1)
+    del params, opt, out, step, b
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_vlm_decode(torch, dev, cfg, batch=4):
+    """Profile 4 decode steps of ``cfg`` (a tied head) on the kernel route
+    under ``in-place-fused``, after one step unprofiled, and split the
+    device time into the projections (ecc_qmatmul), the decode attention
+    (strip kernel), the KV write, the embedding's decode (its
+    ``decode_kernel`` and the ``embed_decode`` range's dequantization),
+    the tied head (``aten::mm``: bf16 x over the decoded embedding
+    transposed) and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
+    from repro_torch.serving import kvcache, protected
+
+    torch.cuda.empty_cache()
+    plan = policy_mod.ProtectionPolicy(backend="cuda").plan(
+        lm.param_shapes(cfg))
+    enc = lm.init_params(cfg, 0, device=dev, leaf_fn=plan.encode_leaf)
+    step = protected.make_serve_step(cfg, plan=plan, backend="cuda",
+                                     kv_policy="in-place-fused")
+    cache = kvcache.init_cache(cfg, batch, 64, kv_policy="in-place-fused",
+                               device=dev)
+    tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+
+    def run(t0, t1):
+        nonlocal cache, tok
+        for t in range(t0, t1):
+            pos = torch.full((batch,), t, dtype=torch.int32, device=dev)
+            logits, cache, _ = step(enc, cache, tok, pos)
+            tok = logits.argmax(dim=-1)
+
+    run(0, 1)
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.time()
+        run(1, 5)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+    kernels = _profile_table(torch, prof, wall_ms,
+                             f"4 full-width {cfg.name} decode steps",
+                             "chip_smoke_vlm_profile.txt",
+                             ranges=("embed_decode",), steps=4)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    split = _kernel_split(kernels, {
+        "projections (ecc_qmatmul)": QMM_KERNELS,
+        "decode attention (strip_kernel)": ("::strip_kernel",),
+        "KV write (kv_write_kernel)": ("::kv_write_kernel<",),
+        "embedding decode (decode_kernel)": ("::decode_kernel",)})
+    split["embedding dequantization (embed_decode)"] = 0.0
+    split["tied head (aten::mm)"] = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        if e.name == "embed_decode":
+            split["embedding dequantization (embed_decode)"] += \
+                e.device_time_total / 1e3
+        elif e.name == "aten::mm":
+            split["tied head (aten::mm)"] += e.self_device_time_total / 1e3
+    split["the rest (norms, rope, argmax, glue)"] = busy - sum(split.values())
+    log(f"{cfg.name} decode profile split (device ms over 4 steps, "
+        f"{busy:.2f} busy of {wall_ms:.2f} wall): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in split.items()))
+    del enc, cache
 
 
 if __name__ == "__main__":

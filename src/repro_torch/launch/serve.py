@@ -107,8 +107,9 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
     dev = device_mod.resolve(device)
     if backend is None:
         backend = default_backend(dev)
-    log(f"[serve] {cfg.name} (d_model {cfg.d_model}, {cfg.n_layers} layers), "
-        f"scheme={scheme}, backend={backend}, fault_rate={fault_rate}"
+    log(f"[serve] {cfg.name} ({cfg.family}, d_model {cfg.d_model}, "
+        f"{cfg.n_layers} layers, {'tied' if cfg.tie_embeddings else 'own'} "
+        f"head), scheme={scheme}, backend={backend}, fault_rate={fault_rate}"
         f"{' (correctable only)' if correctable_only else ''}, device={dev}")
     kvp = kvcache.get_kv_policy(kv_policy)
     if prompt_len and kvp is None:

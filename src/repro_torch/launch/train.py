@@ -39,10 +39,17 @@ default_backend = device_mod.default_backend
 
 def train(cfg, *, steps: int = 30, batch: int = 8, seq: int = 64,
           lr: float = 3e-3, wot: bool = True, seed: int = 0, chunk: int = 64,
-          backend=None, device=None, log=print) -> dict:
+          backend=None, device=None, prefix_embeds=None, log=print) -> dict:
     """Run ``steps`` QATT steps of ``cfg`` on ``synthetic.token_batch``
     batches (seed ``seed``, step index ``0..steps-1``) from random params
-    drawn from ``seed``.
+    drawn from ``seed``. A vlm batch also carries image-patch embeddings
+    (batch, n_patches, d_model): ``prefix_embeds`` if given, else zeros in
+    bf16, as the reference CLI feeds them; the loss covers the ``seq``
+    text positions. (All-zero patches stay zero through every layer, where
+    the RMS norm's backward scales by 1/sqrt(eps) = 1,000: at
+    paligemma-3b's depth of 18 layers the loss's gradient is NaN, in the
+    reference as in the port; at 12 it is finite. Non-zero patches, such
+    as a real image's, train.)
 
     Returns ``{"params", "opt_state", "losses", "step_ms"}``: the per-step
     losses (floats) and times (host clock, each step ended by a device
@@ -51,19 +58,27 @@ def train(cfg, *, steps: int = 30, batch: int = 8, seq: int = 64,
     dev = device_mod.resolve(device)
     if backend is None:
         backend = default_backend(dev)
+    rows = (f"{cfg.n_patches} patches + {seq} tokens"
+            if cfg.family == "vlm" else f"{seq}")
     log(f"[train] {cfg.name} ({cfg.family}) layers={cfg.n_layers} "
-        f"d={cfg.d_model} vocab={cfg.vocab_padded}, batch {batch} x {seq}, "
+        f"d={cfg.d_model} vocab={cfg.vocab_padded}, batch {batch} x {rows}, "
         f"{cfg.microbatch} microbatches, wot={wot}, backend={backend}, "
         f"device={dev}")
     params = lm.init_params(cfg, seed, device=dev)
     opt_state = optim.sgd_init(params)
     step_fn = train_mod.make_train_step(cfg, lr=lr, wot_throttle=wot,
                                         chunk=chunk, backend=backend)
+    extras = {}
+    if cfg.family == "vlm":
+        extras["prefix_embeds"] = torch.zeros(
+            (batch, cfg.n_patches, cfg.d_model), dtype=torch.bfloat16,
+            device=dev) if prefix_embeds is None else prefix_embeds
     losses, step_ms = [], []
     for step in range(steps):
         b = synthetic.token_batch(cfg.vocab_padded, batch, seq, seed=seed,
                                   step=step)
-        b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        b = {**{k: torch.from_numpy(v).to(dev) for k, v in b.items()},
+             **extras}
         _sync(dev)
         t0 = time.time()
         params, opt_state, loss = step_fn(params, opt_state, b)

@@ -299,4 +299,8 @@ def embed(tokens, emb, dtype=torch.bfloat16):
 
 
 def logits(x, head, wt=Identity):
+    """x @ head: a decode-at-use view (``ecc_qmatmul`` on the kernel
+    route), or a plain tensor — a tied head, the decoded embedding
+    transposed — through ``torch.matmul``, as the reference multiplies it
+    outside any kernel."""
     return _proj(x, wt(head))

@@ -1,11 +1,15 @@
-"""Dense decoder LM: parameter init, the cache-less full-sequence forward
-and its loss (training), KV cache, the decode step and the prefill into a
-paged KV cache.
+"""Decoder LM of the dense and vlm families: parameter init, the
+cache-less full-sequence forward and its loss (training), KV cache, the
+decode step and the prefill into a paged KV cache.
 
-Counterpart of the dense family of ``repro.models.lm``. Per-layer params
-are stacked along a leading L axis, as in the reference; a Python loop over
-layers takes the place of ``lax.scan``. Other families (MoE, MLA, SSM,
-hybrid, enc-dec) are not ported yet.
+Counterpart of the dense and vlm families of ``repro.models.lm``. The vlm
+family (PaliGemma's backbone) is the dense decoder with the Gemma input
+scale ``sqrt(d_model)``, tied embeddings (the head is ``embed.T``) and,
+in ``forward`` and ``loss_fn`` only, precomputed image-patch embeddings
+prepended to the tokens. Per-layer params are stacked along a leading L
+axis, as in the reference; a Python loop over layers takes the place of
+``lax.scan``. Other families (MoE, MLA, SSM, hybrid, enc-dec) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -19,15 +23,22 @@ from repro_torch import tree
 from . import layers as L
 from .config import ArchConfig
 
+FAMILIES = ("dense", "vlm")
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
+                                  f"(one of {FAMILIES})")
+
+
 def _norm_shape(cfg):
     return {"w": (cfg.d_model,)}
 
 
 def _layer_shapes(cfg: ArchConfig) -> dict:
     """Per-layer (pre-stacking) param shapes of the scanned decoder block."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  f"(dense only)")
+    _check_family(cfg)
     return {"attn": L.gqa_params_shape(cfg), "mlp": L.swiglu_params_shape(cfg),
             "ln1": _norm_shape(cfg), "ln2": _norm_shape(cfg)}
 
@@ -53,9 +64,8 @@ def _leaf_specs(cfg: ArchConfig):
     yield ("embed",), (v, d), ("normal", 0.02)
     for name, shp in sorted(_norm_shape(cfg).items()):
         yield ("final_norm", name), shp, _init_kind(name, shp)
-    if cfg.tie_embeddings:
-        raise NotImplementedError("tied embeddings are not ported yet")
-    yield ("head",), (d, v), ("normal", 1.0 / np.sqrt(d))
+    if not cfg.tie_embeddings:   # tied: the head is embed.T, no leaf
+        yield ("head",), (d, v), ("normal", 1.0 / np.sqrt(d))
     nl = n_scan_layers(cfg)
     for sub, shapes in sorted(_layer_shapes(cfg).items()):
         for name, shp in sorted(shapes.items()):
@@ -101,11 +111,29 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device=None) -> dict:
     """Dense KV cache ``{"k", "v": (L, B, max_len, kv, hd)}``."""
     dev = device_mod.resolve(device)
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    _check_family(cfg)
     shape = (n_scan_layers(cfg), batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _embed_in(cfg: ArchConfig, tokens, emb, dtype, prefix_embeds=None):
+    """The token embeddings, after the vlm's image-patch prefix when one is
+    given; the vlm scales the whole sequence by ``sqrt(d_model)`` rounded
+    to the activation dtype first (Gemma's convention: 45.25 in bf16 at
+    d_model 2048), as the reference does."""
+    x = L.embed(tokens, emb, dtype)
+    if cfg.family == "vlm":
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
+        x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=dtype,
+                             device=x.device)
+    return x
+
+
+def _head(cfg: ArchConfig, params):
+    """The output head: the embedding transposed when tied."""
+    return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
 def _take(i: int, tree):
@@ -144,9 +172,13 @@ def forward(cfg: ArchConfig, params, tokens, *, wt=L.Identity,
             dtype=torch.bfloat16, chunk: int = 2048, layer_transform=None,
             collect_flags=False, collect_acts=False, recorder=None,
             attention="torch", prefix_embeds=None, enc_embeds=None):
-    """tokens: (B, S) int -> logits (B, S, V). ``wt`` transforms each
-    projection weight and the head at use (QAT's fake-quant; per layer
-    slice, as the reference's scan applies it); ``layer_transform`` maps
+    """tokens: (B, S) int -> logits (B, S', V). For the vlm family
+    ``prefix_embeds`` (B, P, D), precomputed image-patch embeddings, is
+    prepended (S' = P + S); other families take none. ``wt`` transforms
+    each projection weight and the head at use (a tied head is the
+    transposed embedding; the lookup reads the raw one) (QAT's fake-quant;
+    per layer slice, as the reference's scan applies it);
+    ``layer_transform`` maps
     each layer's param slice. With ``cfg.remat`` each layer is recomputed
     in the backward pass (``torch.utils.checkpoint``) instead of keeping
     its activations. ``attention`` routes the causal attention: "torch"
@@ -160,17 +192,17 @@ def forward(cfg: ArchConfig, params, tokens, *, wt=L.Identity,
     (mismatches, clamp hits) when the recorder's ABFT channel is on;
     ``acts["layers"]`` ``{leaf path: (L,) f32 absmax}``. The output head
     records after the layers and stays in the recorder for the caller."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"forward for family {cfg.family!r} is not "
-                                  f"ported yet (dense only; the other "
-                                  f"families come with their own slice)")
+    _check_family(cfg)
     if (collect_flags or collect_acts) and recorder is None:
         raise ValueError("collect_flags / collect_acts drain a recorder: "
                          "pass layers.FlagRecorder")
-    if prefix_embeds is not None or enc_embeds is not None:
-        raise NotImplementedError("prefix and encoder embeddings come with "
-                                  "the vlm and enc-dec families")
-    x = L.embed(tokens, params["embed"], dtype)
+    if prefix_embeds is not None and cfg.family != "vlm":
+        raise ValueError(f"prefix_embeds feed the vlm family, not "
+                         f"{cfg.family!r}")
+    if enc_embeds is not None:
+        raise NotImplementedError("encoder embeddings come with the enc-dec "
+                                  "family")
+    x = _embed_in(cfg, tokens, params["embed"], dtype, prefix_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
@@ -191,7 +223,7 @@ def forward(cfg: ArchConfig, params, tokens, *, wt=L.Identity,
         if collect_acts:
             layer_acts.append(recorder.drain_acts())
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
-    out = L.logits(x, params["head"], wt)
+    out = L.logits(x, _head(cfg, params), wt)
     if not (collect_flags or collect_acts):
         return out
     extra = ()
@@ -206,11 +238,17 @@ def forward(cfg: ArchConfig, params, tokens, *, wt=L.Identity,
 def loss_fn(cfg: ArchConfig, params, batch, *, wt=L.Identity,
             dtype=torch.bfloat16, chunk: int = 2048):
     """Causal-LM cross entropy: mean of the f32 ``logsumexp`` minus the
-    target logit. batch: {"tokens", "targets"} (B, S) int."""
+    target logit. batch: {"tokens", "targets"} (B, S) int, and for the vlm
+    family optionally ``"prefix_embeds"`` (B, P, D): the loss then covers
+    the text positions only, the last S."""
+    targets = batch["targets"]
     logits = forward(cfg, params, batch["tokens"], wt=wt, dtype=dtype,
-                     chunk=chunk).to(torch.float32)
+                     chunk=chunk, prefix_embeds=batch.get("prefix_embeds"))
+    if cfg.family == "vlm":
+        logits = logits[:, -targets.shape[1]:]
+    logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, batch["targets"].long()[..., None])[..., 0]
+    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
     return (lse - tgt).mean()
 
 
@@ -228,9 +266,8 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
     served under ``kv_policy``) — ``"layers_kv"`` (L, 2) KV counts. The
     output head's counts stay in the recorder for the caller to drain.
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    x = L.embed(tokens, params["embed"], dtype)
+    _check_family(cfg)
+    x = _embed_in(cfg, tokens, params["embed"], dtype)
     paged = "k_pages" in cache
     if paged:
         from repro_torch.serving import kvcache
@@ -255,7 +292,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
         x = x + L.swiglu(lp["mlp"], L.apply_norm(x, lp["ln2"], cfg.norm))
         _drain_layer(recorder, layer_flags, abft_flags)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
-    logits = L.logits(x, params["head"])
+    logits = L.logits(x, _head(cfg, params))
     if recorder is None:
         return logits, cache
     flags = _layer_rows(layer_flags, abft_flags)
@@ -305,7 +342,7 @@ def prefill_with_cache(cfg: ArchConfig, params, cache, tokens, *,
     if not kvcache.supports_paged(cfg):
         raise NotImplementedError(f"paged prefill for family {cfg.family!r} "
                                   f"is not ported yet")
-    x = L.embed(tokens, params["embed"], dtype)
+    x = _embed_in(cfg, tokens, params["embed"], dtype)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
@@ -324,7 +361,7 @@ def prefill_with_cache(cfg: ArchConfig, params, cache, tokens, *,
         kv_flags.append(kvf)
         _drain_layer(recorder, layer_flags, abft_flags)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
-    logits = L.logits(x, params["head"])
+    logits = L.logits(x, _head(cfg, params))
     if recorder is None:
         return logits, cache
     return logits, cache, {**_layer_rows(layer_flags, abft_flags),

@@ -154,9 +154,10 @@ def get_kv_policy(policy) -> Optional[KVProtectionPolicy]:
 
 
 def supports_paged(cfg: ArchConfig) -> bool:
-    """Families whose decode KV state the paged pool replaces; the port
-    has the dense family only."""
-    return cfg.family == "dense"
+    """Families whose decode KV state is the dense (B, S, kv, hd) GQA
+    cache the paged pool replaces: dense and vlm (the reference also takes
+    MoE without MLA, which the port does not have yet)."""
+    return cfg.family in ("dense", "vlm")
 
 
 def pages_per_seq(max_len: int, page_size: int) -> int:
@@ -572,7 +573,7 @@ def dense_kv_bytes(cfg: ArchConfig, batch: int, max_len: int,
     """Bytes of the dense cache the paged pool replaces (per model): the
     ``lm.init_cache`` K and V of every layer, counted from shapes."""
     from repro_torch.models import lm
-    if cfg.family != "dense":
+    if not supports_paged(cfg):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     item = torch.empty((), dtype=dtype).element_size()
     return 2 * (lm.n_scan_layers(cfg) * batch * max_len * cfg.n_kv_heads

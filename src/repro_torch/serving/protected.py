@@ -147,15 +147,18 @@ def _layer_transform(router: _Router, dtype, recorder: L.FlagRecorder):
 def _use_tree(enc_params, router: _Router, dtype, recorder: L.FlagRecorder):
     """enc tree -> params the model runs with decode at use: stacked
     subtrees stay encoded, top-level protected leaves become views
-    (``embed`` decodes to a real tensor — it is indexed, not matmul'd)."""
+    (``embed`` decodes to a real tensor — it is indexed, not matmul'd; a
+    tied head is that one tensor transposed, so the "top" row counts the
+    embedding once and there is no head leaf)."""
     out = {}
     for key, sub in enc_params.items():
         if key in STACKED_KEYS:
             out[key] = _scan_ready(sub, key, router, dtype, recorder)
         elif is_protected_tensor(sub):
             if key == "embed":
-                w, corrected, due = decode_leaf_with_flags(
-                    sub, dtype, backend=router.backend_for(key))
+                with torch.profiler.record_function("embed_decode"):
+                    w, corrected, due = decode_leaf_with_flags(
+                        sub, dtype, backend=router.backend_for(key))
                 recorder.record(corrected, due)
                 out[key] = w
             else:

@@ -1,7 +1,9 @@
 """The port's cache-less forward (``lm.forward``), its loss and the
 loss's gradients against the reference, in f32 and bf16, with and without
-QAT's fake-quant, at the smoke sizes of deepseek-7b, minitron-4b (GQA) and
-qwen1.5-4b (qkv biases). Weights come from the reference's
+QAT's fake-quant, at the smoke sizes of every ported arch: deepseek-7b,
+minitron-4b and phi3-medium-14b (GQA), qwen1.5-4b (qkv biases) and
+paligemma-3b (the vlm family: the sqrt(d_model) input scale and a tied
+head; its image-patch prefix is in tests/test_torch_vlm.py). Weights come from the reference's
 ``lm.init_params`` through NumPy, tokens from ``synthetic.token_batch``."""
 import jax
 import jax.numpy as jnp
@@ -18,6 +20,7 @@ from repro_torch.models import lm
 from repro_torch.training import train
 
 import torch_parity as P
+from torch_parity import ARCHS
 
 # XLA and PyTorch sum the f32 matmuls in different orders
 F32_ATOL = 1e-4
@@ -30,7 +33,7 @@ BF16_MEAN_ATOL = 0.02
 _ref_params, _port, _batch = P.reference_params, P.port_params, P.token_batch
 
 
-@pytest.mark.parametrize("arch", ["deepseek-7b", "minitron-4b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("dtype,qat", [("float32", False), ("float32", True),
                                        ("bfloat16", True)])
 def test_forward_and_loss_match_reference(arch, dtype, qat):

@@ -117,6 +117,27 @@ def test_gpu_qmatmul_regimes_match_plain(cuda, path, kn, m):
     assert got[1].tolist() != [0, 0]
 
 
+# phi3-medium-14b's w_up and w_down, paligemma-3b's wk and wv (one KV head
+# of 256) at the decode step's M = 4
+@pytest.mark.parametrize("k,n", [(5120, 17920), (17920, 5120), (2048, 256)])
+def test_gpu_qmatmul_model_shapes_match_plain(cuda, k, n):
+    """The float path at the new archs' decode shapes: flags exact, within
+    2e-4 of sum |a| |w| of the plain version (both sum the same exact f32
+    products in other orders, over up to 17,920 terms: chip_smoke.py's
+    QMM_RTOL), a split-K launch repeated bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    w, s = _encoded_weight(k, n, cuda, gen)
+    a = torch.randn((4, k), generator=gen, device=cuda).to(torch.bfloat16)
+    ko, kf = ecc_qmatmul.ecc_qmatmul(a, w, s, with_flags=True)
+    po, pf = ecc_qmatmul.ecc_qmatmul_plain(a, w, s, with_flags=True)
+    assert kf.tolist() == pf.tolist() and kf.tolist() != [0, 0]
+    wq = ecc.decode64(w.reshape(k, n // 8, 8))[0].view(torch.int8)
+    mag = a.float().abs() @ (wq.reshape(k, n).float().abs() * s)
+    assert bool(((ko - po).abs() <= 2e-4 * mag + 1e-6).all())
+    again = ecc_qmatmul.ecc_qmatmul(a, w, s)
+    assert torch.equal(again.view(torch.int32), ko.view(torch.int32))
+
+
 def test_gpu_qmatmul_split_k_repeats_bit_equal(cuda):
     """Two launches of the float path at a split-K decode shape give the
     same bits: the split partials are added in a fixed order."""
@@ -528,12 +549,14 @@ def _paged_pool(b, npg, ps, kv, hd, scheme, dev, gen):
 
 @pytest.mark.parametrize("per_slot", [False, True])
 @pytest.mark.parametrize("scheme", ["faulty", "in-place", "parity-zero"])
-# (B, H, KV, hd, pages, page_size): rep 1, 2 and 3 (minitron's), and hd 24
-# (8-byte copies, check rows of 3 bytes)
+# (B, H, KV, hd, pages, page_size): rep 1, 2 and 3 (minitron's), hd 24
+# (8-byte copies, check rows of 3 bytes), and paligemma-3b's rep 8 over one
+# KV head of 256 at S 272 (the strip kernel stops at 287 tokens there)
 @pytest.mark.parametrize("shape", [(3, 4, 4, 128, 5, 16),
                                    (4, 4, 2, 16, 4, 16),
                                    (3, 6, 2, 32, 3, 16),
-                                   (3, 2, 1, 24, 6, 8)])
+                                   (3, 2, 1, 24, 6, 8),
+                                   (4, 8, 1, 256, 17, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kernel", ["strip", "chunked"])
 def test_gpu_paged_table_entries_match_plain(cuda, kernel, dtype, shape,
@@ -672,6 +695,35 @@ def test_gpu_chunked_splits_match_plain_and_repeat(cuda, b, kv, s, splits):
     torch.testing.assert_close(ko.float(), po.float(), rtol=1e-2, atol=1e-2)
 
 
+# paligemma-3b's decode attention: 8 query heads over one KV head of 256,
+# at the long-context path's S 2,064 and a short S
+@pytest.mark.parametrize("b,s", [(4, 2064), (1, 272)])
+def test_gpu_chunked_rep8_head_dim_256_matches_plain(cuda, b, s):
+    """The chunked kernel at rep 8 and hd 256 (one CTA per SM): within one
+    bf16 ulp of its plain version, flags equal, a second launch
+    bit-equal."""
+    gen = torch.Generator(device=cuda).manual_seed(b + s)
+    pol = kvcache.get_kv_policy("in-place")
+    ke, _, ksc = kvcache._encode_kv(
+        torch.randn((b, s, 1, 256), generator=gen, device=cuda), pol)
+    ve, _, vsc = kvcache._encode_kv(
+        torch.randn((b, s, 1, 256), generator=gen, device=cuda), pol)
+    _flip(ke.view(-1, 8), 13, gen)
+    _flip(ve.view(-1, 8), 17, gen)
+    q = torch.randn((b, 8, 1, 256), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    pos = torch.tensor([s - 1, s // 3, 5, 0][:b], dtype=torch.int32,
+                       device=cuda)
+    args = (q, ke, None, ksc, ve, None, vsc, pos)
+    ko, kf = paged_attention.chunked_page_attention(*args)
+    ko2, kf2 = paged_attention.chunked_page_attention(*args)
+    assert torch.equal(ko, ko2) and torch.equal(kf, kf2)
+    po, pf = paged_attention.chunked_page_attention_plain(*args)
+    assert torch.equal(kf, pf) and int(kf[0]) > 0
+    torch.testing.assert_close(ko.float(), po.float(), rtol=2.0 ** -7,
+                               atol=1e-5)
+
+
 # 1 block, ragged value counts, ties, an all-zero leaf and one leaf over
 # 2^31 bytes, as the train step's write-back sees them
 @pytest.mark.parametrize("n,kind", [(8, "normal"), (3, "normal"),
@@ -738,11 +790,12 @@ def _kv_case(b, kv, hd, npg, ps, scheme, dtype, t, dev, gen):
 
 
 # (B, KV, hd, pages per row, page size): hd 16 to 128, the KV heads of rep
-# 1, 2 and 3 at H = 4 and 6, hd 24 (three-byte check rows), and 40 KV heads
-# of 128 (D = 5,120: more blocks than threads)
+# 1, 2 and 3 at H = 4 and 6, hd 24 (three-byte check rows), 40 KV heads
+# of 128 (D = 5,120: more blocks than threads) and paligemma-3b's one KV
+# head of 256
 @pytest.mark.parametrize("shape", [(3, 4, 128, 5, 16), (4, 2, 16, 4, 16),
                                    (3, 2, 32, 3, 16), (3, 1, 24, 6, 8),
-                                   (2, 40, 128, 2, 16)])
+                                   (2, 40, 128, 2, 16), (4, 1, 256, 4, 16)])
 @pytest.mark.parametrize("scheme", ["faulty", "in-place", "parity-zero"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("phase", ["decode", "prefill"])

@@ -1,8 +1,8 @@
 """The guarded serve paths of the port against the reference's XLA route:
 the cache-less prefill and the decode step under ``act_quant`` ("static",
 "dynamic", "plan") with ABFT and activation clamps, clean and faulted, for
-deepseek-7b smoke, minitron-4b smoke (GQA) and qwen1.5-4b smoke (qkv
-bias), on both of the port's routes (on the CPU the ``cuda`` route's
+deepseek-7b smoke, minitron-4b smoke (GQA), qwen1.5-4b smoke (qkv
+bias) and paligemma-3b smoke (vlm: tied head, one KV head), on both of the port's routes (on the CPU the ``cuda`` route's
 kernel wrappers take their plain versions).
 
 Both packages serve the same weights, fault mask, tokens and calibrated
@@ -110,7 +110,7 @@ SERVE_CASES = [("deepseek-7b", m) for m in ("static-clamp-abft", "static",
                                             "dynamic-abft",
                                             "float-abft-clamp")] + [
     ("minitron-4b", "static-clamp-abft"), ("qwen1.5-4b", "static-clamp-abft"),
-    ("qwen1.5-4b", "dynamic-abft")]
+    ("qwen1.5-4b", "dynamic-abft"), ("paligemma-3b", "static-clamp-abft")]
 
 
 @pytest.mark.parametrize("faulted", [False, True], ids=["clean", "faulted"])

@@ -96,7 +96,8 @@ def port_prefill(arch, dtype, exported, prompt, kv, backend):
     ("in-place", "torch"), ("in-place-chunked", "torch"),
     ("in-place-chunked", "cuda")],
     ids=["in-place", "in-place-chunked", "kernel-route"])
-@pytest.mark.parametrize("arch", ["deepseek-7b", "minitron-4b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "minitron-4b",
+                                  "paligemma-3b"])
 def test_make_prefill_parity(arch, kv, backend, dtype, faulted):
     """On the ``cuda`` route every kernel wrapper takes its plain version
     here: the flash attention's plain version attends, the codec is the
@@ -160,7 +161,8 @@ def reference_chain(arch, faulted):
     ("in-place-chunked", "torch"), (ONE_PAGE_CHUNKS, "torch"),
     (ONE_PAGE_CHUNKS, "cuda")],
     ids=["chunked", "one-page-chunks", "kernel-route"])
-@pytest.mark.parametrize("arch", ["deepseek-7b", "minitron-4b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "minitron-4b",
+                                  "paligemma-3b"])
 def test_prefill_then_chunked_decode_chain(arch, kv, backend, faulted):
     """The port prefills, then decodes under the chunked kernel's plain
     version; the reference prefills and decodes through its XLA route.

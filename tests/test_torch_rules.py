@@ -70,6 +70,29 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
             call()
 
 
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "paligemma-3b"])
+def test_entry_points_of_every_family_default_to_cuda(arch, monkeypatch):
+    """The entry points with ``--arch`` (and their functions on the arch's
+    config) default to the card for the GQA 40/10 dense model and the vlm
+    family too: without a GPU each raises, none carries on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_smoke(arch)
+    for call in (lambda: lm.init_params(cfg),
+                 lambda: lm.init_cache(cfg, 1, 16),
+                 lambda: kvcache.init_cache(cfg, 1, 16,
+                                            kv_policy="in-place-chunked"),
+                 lambda: serve.serve(cfg, tokens=1, prompt_len=16,
+                                     kv_policy="in-place-chunked",
+                                     log=lambda *_: None),
+                 lambda: serve.main(["--arch", arch, "--tokens", "1"]),
+                 lambda: serve.main(["--arch", arch, "--burst"]),
+                 lambda: launch_train.train(cfg, steps=1,
+                                            log=lambda *_: None),
+                 lambda: launch_train.main(["--arch", arch, "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
 def test_copied_configs_equal_the_reference(arch):
     for mine, ref in ((configs.get(arch), jconfigs.get(arch)),

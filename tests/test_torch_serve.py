@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 import torch_parity as P
+from torch_parity import ARCHS
 
 # f32 on both sides: the only differences are the order of matmul sums and
 # last-ulp differences of cos/sin/exp/rsqrt between XLA and PyTorch
@@ -18,7 +19,7 @@ F32_TOL = 1e-4
 
 @pytest.mark.parametrize("faulted", [False, True], ids=["clean", "faulted"])
 @pytest.mark.parametrize("kv", [None, "in-place"], ids=["dense-kv", "paged-kv"])
-@pytest.mark.parametrize("arch", ["deepseek-7b", "minitron-4b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_serve_step_parity_f32(arch, kv, faulted):
     exported, fed, ref_logits, ref_tok, ref_flags = P.reference_run(
         arch, kv, "float32", faulted)
@@ -31,7 +32,7 @@ def test_serve_step_parity_f32(arch, kv, faulted):
 
 
 @pytest.mark.parametrize("faulted", [False, True], ids=["clean", "faulted"])
-@pytest.mark.parametrize("arch", ["deepseek-7b", "minitron-4b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_kernel_route_parity_f32(arch, faulted):
     """The ``cuda`` route with the fused KV preset — on the CPU every kernel
     wrapper takes its plain version — against the reference's XLA route

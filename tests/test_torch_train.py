@@ -33,16 +33,9 @@ F32_ATOL = 1e-4
 # (tests/test_torch_forward.py)
 BF16_MAX_ATOL = 0.125
 
-_ref_params, _port, _jax, _batch = (P.reference_params, P.port_params,
-                                    P.jax_params, P.token_batch)
-
-
-def _max_diff(port_tree, ref_tree):
-    out = 0.0
-    for path, t in tree.leaves_with_path(port_tree):
-        r = tree.get_path(ref_tree, path)
-        out = max(out, float(np.abs(t.detach().numpy() - np.asarray(r)).max()))
-    return out
+_ref_params, _port, _jax, _batch, _max_diff = (
+    P.reference_params, P.port_params, P.jax_params, P.token_batch,
+    P.max_diff)
 
 
 def test_fake_quant_and_dequantize_match_reference():

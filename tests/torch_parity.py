@@ -21,13 +21,15 @@ from repro.protection.tensor import is_protected_tensor
 from repro.serving import kvcache as jkv
 from repro.serving import protected as jprot
 from repro_torch import configs as tconfigs
-from repro_torch import convert
+from repro_torch import convert, tree
 from repro_torch.data import synthetic
 from repro_torch.models import lm as tlm
 from repro_torch.protection import ProtectionPolicy as TProtectionPolicy
 from repro_torch.serving import kvcache as tkv
 from repro_torch.serving import protected as tprot
 
+# every arch the port serves: the parity tests run each one's smoke config
+ARCHS = tuple(tconfigs.ARCH_IDS)
 BATCH, STEPS, MAX_LEN = 2, 3, 32
 FAULT_RATE = 2e-3
 CAL_SHAPE = (2, 16)   # calibration tokens of the int8 tests
@@ -145,6 +147,15 @@ def reference_params(arch, seed=0):
     cfg = configs.get_smoke(arch)
     p = jax.jit(lambda k: jlm.init_params(cfg, k))(jax.random.PRNGKey(seed))
     return jax.tree.map(np.asarray, p)
+
+
+def max_diff(port_tree, ref_tree) -> float:
+    """Largest |port - reference| over the leaves of a port tree."""
+    out = 0.0
+    for path, t in tree.leaves_with_path(port_tree):
+        r = tree.get_path(ref_tree, path)
+        out = max(out, float(np.abs(t.detach().numpy() - np.asarray(r)).max()))
+    return out
 
 
 def port_params(tree_np):
