@@ -64,7 +64,22 @@ d_model 4096, vocab 102400) at batch 4:
   rep 8); two QATT steps at batch 2 x (256 patch embeddings + 512 tokens)
   through ``launch.train.train`` (finite losses, the throttle bit-equal
   across routes, the WOT constraint on every leaf); and a profile of its
-  decode step (the embedding's decode and the tied head beside the rest).
+  decode step (the embedding's decode and the tied head beside the rest);
+* phase 12: full-width, full-depth whisper-base (the encdec family: 6
+  encoder and 6 decoder layers, d_model 512, 8 heads of 64, layer norms,
+  cross-attention, a 51,968-word head) on its dense KV cache: the decode
+  triple of the first bullet at batch 4 (the accounting counts only the
+  leaves a decode step reads: not the encoder's images, nor the decoder's
+  cross ``wk`` and ``wv``); 16 steps over cross caches filled from the
+  encoder on 4 x 1,500 seeded frames, kernel route against plain route in
+  lockstep; the cache-less decode-at-use forward over 8 x 1,500 frames and
+  8 x 448 tokens (the encoder's images decode at use; flash at head_dim
+  64), on both routes, and with correctable flips (bit-equal, every
+  flipped block counted once in its row); three QATT steps at batch 8 x
+  (1,500 frames + 448 tokens) in 4 microbatches (finite losses, the
+  throttle bit-equal across routes, the WOT constraint on every leaf),
+  deployed on both routes (byte-equal) and served 8 steps clean and
+  correctable-only (bit-equal); and a profile of 4 decode steps.
 
 Phase 2 also holds the parity-zero decode and the per-slot flags of both
 paged-attention kernels to their plain versions at the burst's shapes;
@@ -80,8 +95,10 @@ flash attention at head_dim 256 (paligemma-3b's prefill: B 4, H 8, S
 its TFLOP/s beside SDPA's; and the float ``ecc_qmatmul`` at every weight
 shape for the decode step (M = 4), the burst step (M = 8) and the 4 x
 2,048 prefill (M = 8,192), and at every weight shape of a phi3-medium-14b
-and a paligemma-3b decode step (M = 4), flags exact and a split-K launch
-repeated bit for bit; the fused KV write
+and a paligemma-3b decode step (M = 4), and at whisper-base's (K 512 ->
+N 512, 2,048 and 51,968; K 2,048 -> N 512), flags exact and a split-K
+launch repeated bit for bit; flash attention at whisper-base's decoder
+shape (B 8, H 8, S 448, head_dim 64, bf16); the fused KV write
 (``kv_write``: one launch per layer quantizes, throttles, encodes and
 stores K and V into the pool through the table) byte-equal to its plain
 version at the decode, burst, 4 x 2,048 prefill, minitron-4b and
@@ -142,6 +159,8 @@ QMM_RTOL = 2e-4     # |kernel - plain| <= QMM_RTOL * (|a| @ |w|) + 1e-6: both
 # run). A dropped bf16 rounding would change some outputs by an ulp.
 E2E_MAX_ATOL = 0.25  # 2-layer logits, bf16 activations: the kernel rounds
 E2E_MEAN_ATOL = 0.02  # each projection once from f32, cuBLAS rounds its own
+# (held to the same at whisper-base's 6 + 6 layers in phase 12, whose
+# layer norms renormalize the residual stream every sublayer)
 # chunked_page_attention: kernel and plain version are f32 to the end in
 # the same op order (sums in another order) and round the output to bf16
 # once, so they differ by at most one bf16 ulp of the output (2^-7 |o|)
@@ -248,9 +267,13 @@ def main():
     vlm_counts = phase_vlm(torch, dev, build)
     log(f"phase 11 (paligemma-3b: decode, long context, QATT) took "
         f"{time.time() - t0:.0f}s")
+    t0 = time.time()
+    encdec_counts = phase_encdec(torch, dev, build)
+    log(f"phase 12 (whisper-base: decode, cross caches, forward, QATT) took "
+        f"{time.time() - t0:.0f}s")
     counts = {k: decode_counts[k] + long_counts[k] + train_counts[k]
               + guarded_counts[k] + burst_counts[k] + phi3_counts[k]
-              + vlm_counts[k] for k in build.COUNTS}
+              + vlm_counts[k] + encdec_counts[k] for k in build.COUNTS}
     if sorted(entries) != sorted(counts):
         fail(f"kernels checked {sorted(entries)} != kernels counted "
              f"{sorted(counts)}")
@@ -277,7 +300,10 @@ def main():
             ("paligemma-3b", vlm_counts,
              ("ecc_decode", "ecc_encode", "ecc_qmatmul",
               "fused_page_attention", "kv_write", "flash_attention",
-              "chunked_page_attention", "quantize_throttle"))):
+              "chunked_page_attention", "quantize_throttle")),
+            ("whisper-base", encdec_counts,
+             ("ecc_decode", "ecc_encode", "ecc_qmatmul", "flash_attention",
+              "quantize_throttle"))):
         missing = [k for k in needed if cnt[k] <= 0]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
@@ -614,14 +640,20 @@ def _qmm_sum(cases) -> dict:
 
 
 def qmm_per_step(cfg):
-    """``[((k, n), launches per decode step)]`` of a dense or vlm config:
-    wq and wo, wk and wv, w_gate and w_up, w_down per layer, and an
+    """``[((k, n), launches per decode step)]`` of a dense, vlm or encdec
+    config: wq and wo, wk and wv, w_gate and w_up, w_down per layer (the
+    encdec decoder: wq and wo of the self- and the cross-attention, wk and
+    wv, w_up, w_down; its cross K and V come from the cache), and an
     untied head (a tied head is a ``torch.matmul`` over the decoded
     embedding)."""
     d, f, nl = cfg.d_model, cfg.d_ff, cfg.n_layers
     qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-    shapes = [((d, qd), nl), ((qd, d), nl), ((d, kvd), 2 * nl),
-              ((d, f), 2 * nl), ((f, d), nl)]
+    if cfg.family == "encdec":
+        shapes = [((d, qd), 2 * nl), ((qd, d), 2 * nl), ((d, kvd), 2 * nl),
+                  ((d, f), nl), ((f, d), nl)]
+    else:
+        shapes = [((d, qd), nl), ((qd, d), nl), ((d, kvd), 2 * nl),
+                  ((d, f), 2 * nl), ((f, d), nl)]
     if not cfg.tie_embeddings:
         shapes.append(((d, cfg.vocab_padded), 1))
     merged: dict = {}
@@ -671,15 +703,17 @@ def check_qmatmul_mixes(torch, dev, cfg, timer, gen):
 
 def check_qmatmul_models(torch, dev, timer, gen):
     """The float ecc_qmatmul at M = 4 at every weight shape of a
-    phi3-medium-14b and a paligemma-3b decode step (phi3's w_up 5,120 ->
-    17,920 and w_down 17,920 -> 5,120, its head 5,120 -> 100,352;
-    paligemma's wk and wv 2,048 -> 256, one KV head), as
+    phi3-medium-14b, a paligemma-3b and a whisper-base decode step (phi3's
+    w_up 5,120 -> 17,920 and w_down 17,920 -> 5,120, its head 5,120 ->
+    100,352; paligemma's wk and wv 2,048 -> 256, one KV head; whisper's K
+    512 -> N 512, 2,048 and its 51,968-word head, K 2,048 -> N 512: few K
+    blocks for the split-K grid), as
     :func:`check_qmatmul_mixes` holds deepseek-7b's: flags exact, within
     QMM_RTOL, split-K repeated bit for bit. -> {arch: per-step sums}."""
     from repro_torch.configs import get
     scale = torch.tensor(0.02, dtype=torch.float32, device=dev)
     out, err = {}, 0.0
-    for arch in ("phi3-medium-14b", "paligemma-3b"):
+    for arch in ("phi3-medium-14b", "paligemma-3b", "whisper-base"):
         cases = []
         for (k, n), count in qmm_per_step(get(arch)):
             w_enc, w_bf, flips = _qmm_weight(torch, dev, k, n, gen, scale)
@@ -1308,7 +1342,8 @@ def check_flash(torch, dev, cfg, timer, gen):
     bf16; 30 launches per prefill) and at a ragged S, against its plain
     version; then at head_dim 256 (paligemma-3b's prefill, B 4, H 8, S
     2,048, 18 launches per prefill, and a ragged S) in bf16 (tensor cores)
-    and f32 (CUDA cores). Library
+    and f32 (CUDA cores); and at head_dim 64 (whisper-base's decoder, B 8,
+    H 8, S 448, bf16, 6 launches per forward). Library
     yardstick SDPA with ``is_causal=True``; achieved TFLOP/s of both over
     the causal triangle's operations."""
     from repro_torch.kernels import flash_attention
@@ -1372,6 +1407,18 @@ def check_flash(torch, dev, cfg, timer, gen):
         {k: nl * one[k] for k in ("ms", "plain_ms", "bound_ms",
                                   "library_ms")},
         bound_by=one["bound_by"], launches=nl)
+    # whisper-base's decoder self-attention over its 448-token text context
+    # at batch 8 (phase 12's forward), once per decoder layer
+    qkv, e = check(8, 8, 448, 64, torch.bfloat16)
+    err = max(err, e)
+    one = timed(qkv)
+    del qkv
+    nl = get("whisper-base").n_layers
+    entry["whisper_forward"] = dict(
+        {k: nl * one[k] for k in ("ms", "plain_ms", "bound_ms",
+                                  "library_ms")},
+        bound_by=one["bound_by"], launches=nl, tflops=one["tflops"],
+        library_tflops=one["library_tflops"])
     entry["max_abs_err"] = err
     log(f"flash_attention (per prefill, 30 launches of (4, 32, 2048, 128)): "
         f"{entry}")
@@ -1908,6 +1955,21 @@ def route_bursts(torch, dev, cfg, enc):
 DEPLOY_KERNELS = ("quantize_throttle", "ecc_encode")
 
 
+def block_hist(torch, positions, keep=None) -> dict:
+    """Code blocks with 1, 2 and 3+ flips over the images of
+    ``positions`` ({leaf path: flipped bit positions}) whose path ``keep``
+    accepts (default: all)."""
+    hist = {1: 0, 2: 0, "3+": 0}
+    for name, pos in positions.items():
+        if keep is not None and not keep(name):
+            continue
+        _, c = torch.unique(pos // 64, return_counts=True)
+        hist[1] += int((c == 1).sum())
+        hist[2] += int((c == 2).sum())
+        hist["3+"] += int((c >= 3).sum())
+    return hist
+
+
 def phase_full(torch, dev, build, cfg, fname="chip_smoke_serve.json"):
     """Three 16-step runs of ``cfg`` at full width and depth: clean;
     faulted at ``rate`` (corrected and DUE counts against the injected
@@ -1940,17 +2002,8 @@ def phase_full(torch, dev, build, cfg, fname="chip_smoke_serve.json"):
                           "kv_due": 0}:
         fail(f"clean run reported faults: {clean['flags']}")
 
-    def block_counts(positions):
-        hist = {1: 0, 2: 0, "3+": 0}
-        for pos in positions.values():
-            _, c = torch.unique(pos // 64, return_counts=True)
-            hist[1] += int((c == 1).sum())
-            hist[2] += int((c == 2).sum())
-            hist["3+"] += int((c >= 3).sum())
-        return hist
-
-    wh = block_counts(faulted["weight_positions"])
-    kh = block_counts(faulted["kv_positions"])
+    wh = block_hist(torch, faulted["weight_positions"])
+    kh = block_hist(torch, faulted["kv_positions"])
     fl = faulted["flags"]
     log(f"faulted run: weight blocks with 1/2/3+ flips {wh}, KV {kh}; "
         f"reported {fl}")
@@ -1960,8 +2013,8 @@ def phase_full(torch, dev, build, cfg, fname="chip_smoke_serve.json"):
         fail(f"weight fault accounting {fl['corrected']}/{fl['due']} != "
              f"{tokens}x injected single/double blocks {wh[1]}/{wh[2]}")
 
-    ch = block_counts(fixed["weight_positions"])
-    ckh = block_counts(fixed["kv_positions"])
+    ch = block_hist(torch, fixed["weight_positions"])
+    ckh = block_hist(torch, fixed["kv_positions"])
     ff = fixed["flags"]
     log(f"correctable-only run: weight blocks with 1/2/3+ flips {ch}, KV "
         f"{ckh}; reported {ff}")
@@ -2299,6 +2352,29 @@ def throttle_both_routes(torch, params):
     return moved, n_w, thr_ms
 
 
+def deploy_both_routes(torch, params):
+    """Deploy the masters (quantize-throttle + in-place encode) on both
+    routes: every encoded image and scale must be byte-equal. -> the
+    kernel route's encoded tree."""
+    from repro_torch import tree
+    from repro_torch.protection.policy import ProtectionPolicy
+    enc = {route: ProtectionPolicy("in-place", backend=route).encode_tree(
+        params) for route in ("cuda", "torch")}
+    n_leaves = 0
+    for path, pt in tree.leaves_with_path(enc["cuda"]):
+        other = tree.get_path(enc["torch"], path)
+        if not hasattr(pt, "enc"):
+            continue
+        n_leaves += 1
+        if not (torch.equal(pt.enc, other.enc) and torch.equal(
+                pt.scale.view(torch.int32), other.scale.view(torch.int32))):
+            fail(f"deploy of {tree.path_str(path)}: encoded image or scale "
+                 f"differs between the routes")
+    log(f"deploy: {n_leaves} encoded images and scales byte-equal on both "
+        f"routes")
+    return enc["cuda"]
+
+
 def phase_train(torch, dev, build, cfg, *, batch=8, seq=2048, steps=4,
                 serve_tokens=8, rate=1e-6):
     """QAT training with WOT throttling of ``cfg`` through the port's
@@ -2313,11 +2389,9 @@ def phase_train(torch, dev, build, cfg, *, batch=8, seq=2048, steps=4,
     served from the deployed weights clean and with correctable weight
     faults only: bit-equal logits and tokens, each flipped block counted
     once per step. -> (launch counts over the path, the trained params)."""
-    from repro_torch import tree
     from repro_torch.data import synthetic
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import train
-    from repro_torch.protection.policy import ProtectionPolicy
     from repro_torch.training import train as train_mod
 
     lr, tok_per_step = 1e-4, batch * seq
@@ -2357,26 +2431,9 @@ def phase_train(torch, dev, build, cfg, *, batch=8, seq=2048, steps=4,
     del opt, step, b
     torch.cuda.empty_cache()
 
-    enc = {}
-    for route in ("cuda", "torch"):
-        enc[route] = ProtectionPolicy("in-place",
-                                      backend=route).encode_tree(params)
-    n_leaves = 0
-    for path, pt in tree.leaves_with_path(enc["cuda"]):
-        other = tree.get_path(enc["torch"], path)
-        if not hasattr(pt, "enc"):
-            continue
-        n_leaves += 1
-        if not (torch.equal(pt.enc, other.enc) and torch.equal(
-                pt.scale.view(torch.int32), other.scale.view(torch.int32))):
-            fail(f"deploy of {tree.path_str(path)}: encoded image or scale "
-                 f"differs between the routes")
-    del enc["torch"]
-    log(f"deploy: {n_leaves} encoded images and scales byte-equal on both "
-        f"routes")
-
+    enc = deploy_both_routes(torch, params)
     kw = dict(backend="cuda", kv_policy="in-place-fused", batch=4,
-              tokens=serve_tokens, device=dev, weights=enc["cuda"], log=log)
+              tokens=serve_tokens, device=dev, weights=enc, log=log)
     clean = serve(cfg, **kw)
     fixed = serve(cfg, fault_rate=rate, correctable_only=True, **kw)
     counts = dict(build.COUNTS)
@@ -2419,9 +2476,11 @@ def phase_train(torch, dev, build, cfg, *, batch=8, seq=2048, steps=4,
     return counts, params
 
 
-def phase_train_profile(torch, dev, cfg, params, *, batch=8, seq=2048):
+def phase_train_profile(torch, dev, cfg, params, *, batch=8, seq=2048,
+                        extras=None, fname="chip_smoke_train_profile.txt"):
     """One more throttled train step under ``torch.profiler``, from the
-    trained masters: device time split into projections (``aten::mm``),
+    trained masters (``extras``: the batch's other inputs, e.g. an encdec
+    model's frames): device time split into projections (``aten::mm``),
     attention matmuls (``aten::bmm``), the optimizer, the throttle and the
     forward's fake-quant (the step's ``sgd_momentum``, ``wot_throttle`` and
     ``fake_quant`` ranges), and the rest."""
@@ -2433,7 +2492,8 @@ def phase_train_profile(torch, dev, cfg, params, *, batch=8, seq=2048):
     opt = optim.sgd_init(params)
     step = train_mod.make_train_step(cfg, chunk=2048, backend="cuda")
     b = synthetic.token_batch(cfg.vocab_padded, batch, seq, seed=0, step=9)
-    b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    b = {**{k: torch.from_numpy(v).to(dev) for k, v in b.items()},
+         **(extras or {})}
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
@@ -2442,8 +2502,9 @@ def phase_train_profile(torch, dev, cfg, params, *, batch=8, seq=2048):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.time() - t0)
     ranges = ("sgd_momentum", "wot_throttle", "fake_quant")
-    kernels = _profile_table(torch, prof, wall_ms, "one full train step",
-                             "chip_smoke_train_profile.txt", ranges=ranges)
+    kernels = _profile_table(torch, prof, wall_ms,
+                             f"one full {cfg.name} train step", fname,
+                             ranges=ranges)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     split = {"projections (aten::mm)": 0.0,
              "attention matmuls (aten::bmm)": 0.0,
@@ -3116,6 +3177,455 @@ def profile_vlm_decode(torch, dev, cfg, batch=4):
             f"{k} {v:.2f}" for k, v in split.items()))
     del enc, cache
 
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the encdec family — whisper-base at full width and depth
+# ---------------------------------------------------------------------------
+
+# the decoder's text context in the forward and QATT runs: Whisper's 448
+# tokens (arXiv:2212.04356)
+WHISPER_TEXT_CTX = 448
+
+
+def decode_reads(path: str) -> bool:
+    """Whether a whisper decode step reads the leaf at ``path``: not the
+    encoder's images (the encoder runs only in the cache-less forward and
+    in training) and not the decoder's cross ``wk`` and ``wv`` (the step
+    reads cross K and V from the cache)."""
+    return not (path.startswith("enc_layers/")
+                or path in ("layers/cross/wk", "layers/cross/wv"))
+
+
+def phase_encdec(torch, dev, build):
+    """whisper-base (6 encoder and 6 decoder layers, d_model 512, 8 heads
+    of 64, a 51,968-word head) at full width and depth on its dense KV
+    cache: the decode triple (:func:`encdec_decode`), the decode over
+    encoder-filled cross caches on both routes (:func:`encdec_cross`), the
+    cache-less forward over frames (:func:`encdec_forward`), the QATT
+    steps with deploy and serve (:func:`encdec_train`), then a profile of
+    its decode step. -> the launch counts of the four runs."""
+    from repro_torch.configs import get
+    cfg = get("whisper-base")
+    torch.cuda.empty_cache()
+    build.reset_counts()
+    clean = encdec_decode(torch, dev, build, cfg)
+    encdec_cross(torch, dev, cfg, clean["logits"][0])
+    del clean
+    encdec_forward(torch, dev, build, cfg)
+    encdec_train(torch, dev, cfg)
+    counts = dict(build.COUNTS)
+    log(f"launch counts over the whisper-base path: {counts}")
+    profile_encdec_decode(torch, dev, cfg)
+    return counts
+
+
+def encdec_decode(torch, dev, build, cfg, *, tokens=16, batch=4, rate=2e-5):
+    """Phase 4's three 16-step runs through ``serve`` on the dense KV cache
+    (``kv_policy=None``): clean; faulted at ``rate``, its corrected and DUE
+    counts equal to ``tokens`` x the injected single- and double-flip
+    blocks of the leaves a decode step reads (:func:`decode_reads`; the
+    rate is high enough for double flips in a model of 97 MB); and
+    correctable-only, bit-equal to the clean run. -> the clean run."""
+    from repro_torch.launch.serve import serve
+
+    kw = dict(backend="cuda", kv_policy=None, batch=batch, tokens=tokens,
+              device=dev, log=log)
+    clean = serve(cfg, **kw)
+    per_step = {k: v / tokens for k, v in build.COUNTS.items()
+                if v and k not in DEPLOY_KERNELS}
+    faulted = serve(cfg, fault_rate=rate, **kw)
+    fixed = serve(cfg, fault_rate=rate, correctable_only=True, **kw)
+    lg = clean["logits"]
+    if lg.shape != (tokens, batch, cfg.vocab_padded) or \
+            not bool(torch.isfinite(lg.float()).all()):
+        fail(f"{cfg.name} clean logits: shape {tuple(lg.shape)} or "
+             f"non-finite values")
+    if clean["flags"] != {"corrected": 0, "due": 0, "kv_corrected": 0,
+                          "kv_due": 0}:
+        fail(f"{cfg.name} clean run reported faults: {clean['flags']}")
+    wh = block_hist(torch, faulted["weight_positions"], decode_reads)
+    unread = block_hist(torch, faulted["weight_positions"],
+                        lambda p: not decode_reads(p))
+    fl = faulted["flags"]
+    log(f"{cfg.name} faulted run: blocks with 1/2/3+ flips in the leaves "
+        f"a decode step reads {wh}, in the encoder and cross wk/wv {unread} "
+        f"(never read by the decode); reported {fl}")
+    if wh["3+"]:
+        fail("a read weight block took 3+ flips: its accounting is "
+             "undefined")
+    if wh[2] == 0 or fl["corrected"] != tokens * wh[1] or \
+            fl["due"] != tokens * wh[2]:
+        fail(f"{cfg.name} fault accounting {fl['corrected']}/{fl['due']} != "
+             f"{tokens} x the read single/double blocks {wh[1]}/{wh[2]} "
+             f"(or no double-flip block was injected)")
+    ch = block_hist(torch, fixed["weight_positions"], decode_reads)
+    ff = fixed["flags"]
+    if ch[1] == 0 or ch[2] or ch["3+"] or ff["due"] or \
+            ff["corrected"] != tokens * ch[1]:
+        fail(f"{cfg.name} correctable-only accounting {ff} != {tokens} x "
+             f"{ch[1]} read single-flip blocks and no DUE")
+    if not (torch.equal(fixed["logits"], clean["logits"])
+            and torch.equal(fixed["tokens"], clean["tokens"])):
+        fail(f"{cfg.name}: every flip was correctable, yet the logits "
+             f"differ from the clean run")
+    log(f"{cfg.name} correctable-only run ({ch[1]} read single-flip "
+        f"blocks): logits and tokens equal the clean run bit for bit")
+    runs = (("clean", clean), ("faulted", faulted),
+            ("correctable-only", fixed))
+    for name, r in runs:
+        log(f"{cfg.name} full width {name}: {r['tok_per_s']:.1f} tok/s, "
+            f"median {statistics.median(r['step_ms']):.2f} ms/step, first "
+            f"step {r['step_ms'][0]:.2f} ms")
+    log(f"{cfg.name} decode launches per step (clean run): "
+        f"{sum(per_step.values()):.1f} = {per_step}")
+    with open(OUT_DIR / "chip_smoke_whisper.json", "w") as fh:
+        json.dump({"config": cfg.name, "launches_per_step": per_step,
+                   **{n: {"tok_per_s": r["tok_per_s"],
+                          "step_ms": r["step_ms"], "flags": r["flags"]}
+                      for n, r in runs}}, fh, indent=1)
+    return clean
+
+
+def encoder_cross_kv(torch, cfg, enc, frames, route):
+    """Cross caches filled from the encoder: every encoder leaf and the
+    decoder's cross ``wk`` and ``wv`` decoded on ``route``, ``lm._encode``
+    over ``frames`` (B, enc_seq, d_model), then ``layers.cross_kv`` per
+    decoder layer -> (cross_k, cross_v), each (L, B, enc_seq, H, hd)
+    bf16."""
+    from repro_torch import tree
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.protection.policy import decode_leaf_with_flags
+    from repro_torch.protection.tensor import is_protected_tensor
+
+    def dense(sub):
+        return tree.map_with_path(
+            lambda _, t: decode_leaf_with_flags(t, torch.bfloat16,
+                                                backend=route)[0]
+            if is_protected_tensor(t) else t, sub)
+
+    params = {"enc_layers": dense(enc["enc_layers"]),
+              "enc_final_norm": enc["enc_final_norm"]}
+    cross = dense(enc["layers"]["cross"])
+    with torch.no_grad():
+        enc_out = lm._encode(cfg, params, frames, dtype=torch.bfloat16)[0]
+        kv = [L.cross_kv(lm._take(i, cross), enc_out, cfg)
+              for i in range(cfg.n_layers)]
+    return (torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv]))
+
+
+def encdec_cross(torch, dev, cfg, zero_first, *, tokens=16, batch=4):
+    """16 serve steps over cross caches filled from the encoder on
+    ``batch`` x 1,500 frames of the reference CLI's draw
+    (``np.random.default_rng(0)``, std 1), the kernel route against the
+    plain route in lockstep (the kernel route's greedy tokens fed to
+    both): the caches bit-equal, flags equal, logits within
+    E2E_MAX_ATOL / E2E_MEAN_ATOL. The first step's logits must move from
+    ``zero_first``, those of the same weights and tokens over zero cross
+    caches (where cross-attention adds exactly 0)."""
+    from repro_torch.launch.train import reference_frames
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
+    from repro_torch.serving import kvcache, protected
+
+    plan = policy_mod.ProtectionPolicy(backend="cuda").plan(
+        lm.param_shapes(cfg))
+    enc = lm.init_params(cfg, 0, device=dev, leaf_fn=plan.encode_leaf)
+    frames = reference_frames(cfg, batch, dev)
+    caches, steps = {}, {}
+    for route in ("cuda", "torch"):
+        caches[route] = kvcache.init_cache(cfg, batch, 64, device=dev)
+        ck, cv = encoder_cross_kv(torch, cfg, enc, frames, route)
+        caches[route]["cross_k"].copy_(ck)
+        caches[route]["cross_v"].copy_(cv)
+        steps[route] = protected.make_serve_step(cfg, backend=route)
+    del ck, cv
+    for name in ("cross_k", "cross_v"):
+        a, b = caches["cuda"][name], caches["torch"][name]
+        if not torch.equal(a, b) or not bool(torch.isfinite(a.float()).all()):
+            fail(f"{cfg.name} {name} from the encoder differs between the "
+                 f"routes or is not finite")
+    log(f"{cfg.name} cross caches from the encoder over {batch} x "
+        f"{cfg.enc_seq} frames: bit-equal on both routes, |cross_k| max "
+        f"{float(caches['cuda']['cross_k'].abs().max()):.3g}, |cross_v| max "
+        f"{float(caches['cuda']['cross_v'].abs().max()):.3g}")
+    tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+    logits = {"cuda": [], "torch": []}
+    for t in range(tokens):
+        pos = torch.full((batch,), t, dtype=torch.int32, device=dev)
+        res = {r: steps[r](enc, caches[r], tok, pos) for r in steps}
+        fk, fp = ({k: v.tolist() for k, v in res[r][2].items()}
+                  for r in ("cuda", "torch"))
+        if fk != fp or any(x for row in fk.values() for x in
+                           torch.tensor(row).reshape(-1).tolist()):
+            fail(f"{cfg.name} step {t} flags: cuda {fk} vs torch {fp} "
+                 f"(clean weights: all zero)")
+        for r in steps:
+            logits[r].append(res[r][0][:, 0].float())
+        tok = res["cuda"][0].argmax(dim=-1)
+    lk, lp = torch.stack(logits["cuda"]), torch.stack(logits["torch"])
+    diff = (lk - lp).abs()
+    moved = float((lk[0] - zero_first.float()).abs().max())
+    log(f"{cfg.name} {tokens} steps over encoder-filled cross caches, cuda "
+        f"vs torch route in lockstep: logits max abs diff "
+        f"{float(diff.max()):.4g}, mean {float(diff.mean()):.4g} (|logits| "
+        f"max {float(lp.abs().max()):.3g}); the first step moved by up to "
+        f"{moved:.3g} from the zero-cache run's")
+    if not bool(torch.isfinite(lk).all()) or \
+            float(diff.max()) > E2E_MAX_ATOL or \
+            float(diff.mean()) > E2E_MEAN_ATOL:
+        fail(f"{cfg.name}: kernel route logits over the encoder-filled "
+             f"cross caches out of tolerance of the plain route")
+    if moved < 0.05:
+        fail(f"{cfg.name}: the encoder-filled cross caches left the logits "
+             f"where zero caches put them")
+
+
+def encdec_forward(torch, dev, build, cfg, *, batch=8, rate=1e-6):
+    """The cache-less decode-at-use forward (``protected.make_prefill``
+    without a KV policy, frames as its ``extras``) over ``batch`` x 1,500
+    frames and ``batch`` x 448 seeded tokens: every image decodes at use
+    once, the encoder's too, and the decoder's causal self-attention runs
+    through flash at head_dim 64 on the kernel route. Both routes: flags
+    all zero (rows top, layers, enc_layers), logits within
+    E2E_MAX_ATOL / E2E_MEAN_ATOL. Then the kernel route with correctable
+    flips at ``rate``: logits bit-equal, and each row counts exactly the
+    flipped blocks of its images (top: embed and head)."""
+    from repro_torch.launch.train import reference_frames
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
+    from repro_torch.serving import protected
+
+    plan = policy_mod.ProtectionPolicy(backend="cuda").plan(
+        lm.param_shapes(cfg))
+    enc = lm.init_params(cfg, 0, device=dev, leaf_fn=plan.encode_leaf)
+    extras = {"enc_embeds": reference_frames(cfg, batch, dev)}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    prompt = torch.randint(0, cfg.vocab, (batch, WHISPER_TEXT_CTX),
+                           generator=gen, device=dev)
+    out, ms, again = {}, {}, {}
+    for route in ("cuda", "torch"):
+        prefill = protected.make_prefill(cfg, backend=route, with_flags=True)
+        before = build.COUNTS["flash_attention"]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out[route] = prefill(enc, prompt, extras)
+        torch.cuda.synchronize()
+        ms[route] = 1e3 * (time.time() - t0)
+        launched = build.COUNTS["flash_attention"] - before
+        if launched != (cfg.n_layers if route == "cuda" else 0):
+            fail(f"{cfg.name} forward on the {route} route launched flash "
+                 f"{launched} times")
+        again[route] = event_ms(torch, lambda: prefill(enc, prompt,
+                                                       extras))[0]
+    (lk, fk), (lp, fp) = out["cuda"], out["torch"]
+    for r, fl in (("cuda", fk), ("torch", fp)):
+        if sorted(fl) != ["enc_layers", "layers", "top"] or \
+                any(int(v.abs().sum()) for v in fl.values()):
+            fail(f"{cfg.name} clean forward flags on the {r} route: "
+                 f"{ {k: v.tolist() for k, v in fl.items()} }")
+    if lk.shape != (batch, WHISPER_TEXT_CTX, cfg.vocab_padded) or \
+            not bool(torch.isfinite(lk.float()).all()):
+        fail(f"{cfg.name} forward logits {tuple(lk.shape)} or not finite")
+    diff = (lk.float() - lp.float()).abs()
+    log(f"{cfg.name} forward over {batch} x ({cfg.enc_seq} frames + "
+        f"{WHISPER_TEXT_CTX} tokens), cuda vs torch route: logits max abs "
+        f"diff {float(diff.max()):.4g}, mean {float(diff.mean()):.4g}; "
+        f"{ms['cuda']:.1f} ms on the kernel route, {ms['torch']:.1f} ms on "
+        f"the plain route (host clock, first call); a second call "
+        f"{again['cuda']:.1f} and {again['torch']:.1f} ms (CUDA events)")
+    if float(diff.max()) > E2E_MAX_ATOL or float(diff.mean()) > E2E_MEAN_ATOL:
+        fail(f"{cfg.name}: kernel route forward logits out of tolerance of "
+             f"the plain route")
+    del out, lp, fp, diff
+    gen.manual_seed(13)
+    fenc, positions = policy_mod.inject_tree_device(enc, rate, gen,
+                                                    one_per_block=True)
+    lf, ff = protected.make_prefill(cfg, backend="cuda", with_flags=True)(
+        fenc, prompt, extras)
+    rows = {"top": lambda p: p in ("embed", "head"),
+            "layers": lambda p: p.startswith("layers/"),
+            "enc_layers": lambda p: p.startswith("enc_layers/")}
+    want = {k: block_hist(torch, positions, keep) for k, keep in rows.items()}
+    got = {k: v.reshape(-1, 2).sum(0).tolist() for k, v in ff.items()}
+    log(f"{cfg.name} forward with correctable flips: single-flip blocks per "
+        f"row {({k: h[1] for k, h in want.items()})}, reported {got}")
+    if any(h[2] or h["3+"] for h in want.values()) or \
+            any(got[k] != [want[k][1], 0] for k in rows) or \
+            want["enc_layers"][1] == 0:
+        fail(f"{cfg.name} forward accounting {got} != the flipped blocks "
+             f"of each row's images")
+    if not torch.equal(lf, lk):
+        fail(f"{cfg.name}: every flip was correctable, yet the forward's "
+             f"logits differ from the clean run")
+    log(f"{cfg.name} forward with correctable flips: logits equal the clean "
+        f"run bit for bit; the encoder's flips counted in its own row")
+    with open(OUT_DIR / "chip_smoke_whisper_forward.json", "w") as fh:
+        json.dump({"config": cfg.name, "batch": batch,
+                   "frames": cfg.enc_seq, "tokens": WHISPER_TEXT_CTX,
+                   "first_call_ms": ms, "second_call_ms": again,
+                   "faulted_flags": got}, fh, indent=1)
+
+
+def encdec_train(torch, dev, cfg, *, batch=8, steps=3, lr=1e-4,
+                 serve_tokens=8, rate=1e-6):
+    """QATT of full-width, full-depth whisper-base through
+    ``launch.train.train`` on the kernel route: ``steps - 1`` throttled
+    steps at ``batch`` x (1,500 frames of the reference CLI's draw + 448
+    tokens) in the config's 4 microbatches, then an update without the
+    throttle whose masters are throttled on both routes (bit-equal, the
+    WOT constraint on every leaf); finite losses. The trained masters are
+    deployed on both routes (byte-equal) and served ``serve_tokens``
+    greedy steps at batch 4 on the dense cache, clean and with
+    correctable flips only: bit-equal, each read flipped block counted
+    once per step. One more step from the trained masters is profiled
+    (:func:`phase_train_profile`)."""
+    from repro_torch.data import synthetic
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import reference_frames, train
+    from repro_torch.training import train as train_mod
+
+    seq = WHISPER_TEXT_CTX
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = train(cfg, steps=steps - 1, batch=batch, seq=seq, lr=lr, seed=0,
+                chunk=2048, backend="cuda", device=dev, log=log)
+    params, opt = out["params"], out["opt_state"]
+    losses, step_ms = list(out["losses"]), list(out["step_ms"])
+    b = synthetic.token_batch(cfg.vocab_padded, batch, seq, seed=0,
+                              step=steps - 1)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    b["enc_embeds"] = reference_frames(cfg, batch, dev)
+    step = train_mod.make_train_step(cfg, lr=lr, wot_throttle=False,
+                                     chunk=2048, backend="cuda")
+    torch.cuda.synchronize()
+    upd_ms, (params, opt, loss) = event_ms(torch,
+                                           lambda: step(params, opt, b))
+    losses.append(float(loss))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{cfg.name} QATT losses not finite: {losses}")
+    moved, n_w, thr_ms = throttle_both_routes(torch, params)
+    step_ms.append(upd_ms + thr_ms["cuda"])
+    med = statistics.median(step_ms[1:])
+    rows = batch * (cfg.enc_seq + seq)
+    log(f"QATT {cfg.name}, batch {batch} x ({cfg.enc_seq} frames + {seq} "
+        f"tokens), {cfg.microbatch} microbatches: losses {losses}; ms/step "
+        f"{[round(x, 2) for x in step_ms]} (the last: update {upd_ms:.2f} + "
+        f"kernel-route throttle {thr_ms['cuda']:.2f}); median of steps "
+        f"2..{steps} {med:.2f} ms/step, {batch * seq / med * 1e3:.1f} text "
+        f"tokens/s ({rows / med * 1e3:.1f} frames + tokens/s); peak device "
+        f"memory {peak_gb:.2f} GB")
+    log(f"{cfg.name} throttle: masters, q and scales bit-equal on both "
+        f"routes; {moved} of {n_w} weights moved; WOT constraint holds on "
+        f"every protected leaf; kernel route {thr_ms['cuda']:.2f} ms, plain "
+        f"route {thr_ms['torch']:.2f} ms")
+    del opt, step, b, out
+    enc = deploy_both_routes(torch, params)
+    phase_train_profile(torch, dev, cfg, params, batch=batch, seq=seq,
+                        extras={"enc_embeds": reference_frames(cfg, batch,
+                                                               dev)},
+                        fname="chip_smoke_whisper_train_profile.txt")
+    del params
+    kw = dict(backend="cuda", kv_policy=None, batch=4, tokens=serve_tokens,
+              device=dev, weights=enc, log=log)
+    clean = serve(cfg, **kw)
+    fixed = serve(cfg, fault_rate=rate, correctable_only=True, **kw)
+    lg = clean["logits"]
+    if lg.shape != (serve_tokens, 4, cfg.vocab_padded) or \
+            not bool(torch.isfinite(lg.float()).all()) or \
+            clean["flags"] != {"corrected": 0, "due": 0, "kv_corrected": 0,
+                               "kv_due": 0}:
+        fail(f"{cfg.name} served trained logits {tuple(lg.shape)} not "
+             f"finite, or faults reported: {clean['flags']}")
+    ch = block_hist(torch, fixed["weight_positions"], decode_reads)
+    ff = fixed["flags"]
+    if ch[1] == 0 or ch[2] or ch["3+"] or ff["due"] or \
+            ff["corrected"] != serve_tokens * ch[1]:
+        fail(f"{cfg.name} trained-weight serve accounting {ff} != "
+             f"{serve_tokens} x {ch[1]} read single-flip blocks, no DUE")
+    if not (torch.equal(fixed["logits"], clean["logits"])
+            and torch.equal(fixed["tokens"], clean["tokens"])):
+        fail(f"{cfg.name}: every flip was correctable, yet the served "
+             f"trained logits differ from the clean run")
+    log(f"served the trained {cfg.name}: {serve_tokens} steps x batch 4, "
+        f"clean and correctable-only ({ch[1]} read flipped blocks, {ff}) "
+        f"bit-equal; {statistics.median(clean['step_ms']):.2f} ms/step clean")
+    with open(OUT_DIR / "chip_smoke_whisper_train.json", "w") as fh:
+        json.dump({"config": cfg.name, "batch": batch,
+                   "frames": cfg.enc_seq, "seq": seq, "losses": losses,
+                   "step_ms": step_ms, "median_ms": med, "peak_gb": peak_gb,
+                   "throttle_ms": thr_ms, "moved": moved,
+                   "serve_step_ms": clean["step_ms"], "serve_flags": ff},
+                  fh, indent=1)
+    del enc, clean, fixed
+    torch.cuda.empty_cache()
+
+
+def profile_encdec_decode(torch, dev, cfg, batch=4):
+    """Profile 4 decode steps of whisper-base on the kernel route (dense
+    KV), after one step unprofiled: launches per step, the device-busy
+    share, and the device time split into the projections
+    (ecc_qmatmul), the embedding's decode (its ``decode_kernel`` and the
+    ``embed_decode`` range's dequantization), the attention matmuls
+    (``aten::bmm``: self-attention over the dense cache, cross-attention
+    over 1,500 frames) and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
+    from repro_torch.serving import kvcache, protected
+
+    torch.cuda.empty_cache()
+    plan = policy_mod.ProtectionPolicy(backend="cuda").plan(
+        lm.param_shapes(cfg))
+    enc = lm.init_params(cfg, 0, device=dev, leaf_fn=plan.encode_leaf)
+    step = protected.make_serve_step(cfg, plan=plan, backend="cuda")
+    cache = kvcache.init_cache(cfg, batch, 64, device=dev)
+    tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+
+    def run(t0, t1):
+        nonlocal cache, tok
+        for t in range(t0, t1):
+            pos = torch.full((batch,), t, dtype=torch.int32, device=dev)
+            logits, cache, _ = step(enc, cache, tok, pos)
+            tok = logits.argmax(dim=-1)
+
+    run(0, 1)
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.time()
+        run(1, 5)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+    kernels = _profile_table(torch, prof, wall_ms,
+                             f"4 full-width {cfg.name} decode steps",
+                             "chip_smoke_whisper_profile.txt",
+                             ranges=("embed_decode",), steps=4)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    split = _kernel_split(kernels, {
+        "projections (ecc_qmatmul)": QMM_KERNELS,
+        "embedding decode (decode_kernel)": ("::decode_kernel",)})
+    split["embedding dequantization (embed_decode)"] = 0.0
+    split["attention matmuls (aten::bmm)"] = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        if e.name == "embed_decode":
+            split["embedding dequantization (embed_decode)"] += \
+                e.device_time_total / 1e3
+        elif e.name == "aten::bmm":
+            split["attention matmuls (aten::bmm)"] += \
+                e.self_device_time_total / 1e3
+    split["the rest (norms, GELU, softmax, rope, argmax, glue)"] = \
+        busy - sum(split.values())
+    log(f"{cfg.name} decode profile split (device ms over 4 steps, "
+        f"{busy:.2f} busy of {wall_ms:.2f} wall): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in split.items()))
+    del enc, cache
 
 if __name__ == "__main__":
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")

@@ -19,6 +19,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import configs
@@ -39,7 +40,8 @@ default_backend = device_mod.default_backend
 
 def train(cfg, *, steps: int = 30, batch: int = 8, seq: int = 64,
           lr: float = 3e-3, wot: bool = True, seed: int = 0, chunk: int = 64,
-          backend=None, device=None, prefix_embeds=None, log=print) -> dict:
+          backend=None, device=None, prefix_embeds=None, enc_embeds=None,
+          log=print) -> dict:
     """Run ``steps`` QATT steps of ``cfg`` on ``synthetic.token_batch``
     batches (seed ``seed``, step index ``0..steps-1``) from random params
     drawn from ``seed``. A vlm batch also carries image-patch embeddings
@@ -49,7 +51,10 @@ def train(cfg, *, steps: int = 30, batch: int = 8, seq: int = 64,
     the RMS norm's backward scales by 1/sqrt(eps) = 1,000: at
     paligemma-3b's depth of 18 layers the loss's gradient is NaN, in the
     reference as in the port; at 12 it is finite. Non-zero patches, such
-    as a real image's, train.)
+    as a real image's, train.) An encdec batch carries frame embeddings
+    (batch, enc_seq, d_model) for the encoder: ``enc_embeds`` if given,
+    else the reference CLI's, ``np.random.default_rng(0).normal`` in bf16
+    (drawn with NumPy, so they are the same values).
 
     Returns ``{"params", "opt_state", "losses", "step_ms"}``: the per-step
     losses (floats) and times (host clock, each step ended by a device
@@ -58,8 +63,9 @@ def train(cfg, *, steps: int = 30, batch: int = 8, seq: int = 64,
     dev = device_mod.resolve(device)
     if backend is None:
         backend = default_backend(dev)
-    rows = (f"{cfg.n_patches} patches + {seq} tokens"
-            if cfg.family == "vlm" else f"{seq}")
+    rows = {"vlm": f"{cfg.n_patches} patches + {seq} tokens",
+            "encdec": f"({cfg.enc_seq} frames + {seq} tokens)"}.get(
+        cfg.family, f"{seq}")
     log(f"[train] {cfg.name} ({cfg.family}) layers={cfg.n_layers} "
         f"d={cfg.d_model} vocab={cfg.vocab_padded}, batch {batch} x {rows}, "
         f"{cfg.microbatch} microbatches, wot={wot}, backend={backend}, "
@@ -73,6 +79,9 @@ def train(cfg, *, steps: int = 30, batch: int = 8, seq: int = 64,
         extras["prefix_embeds"] = torch.zeros(
             (batch, cfg.n_patches, cfg.d_model), dtype=torch.bfloat16,
             device=dev) if prefix_embeds is None else prefix_embeds
+    if cfg.family == "encdec":
+        extras["enc_embeds"] = reference_frames(cfg, batch, dev) \
+            if enc_embeds is None else enc_embeds
     losses, step_ms = [], []
     for step in range(steps):
         b = synthetic.token_batch(cfg.vocab_padded, batch, seq, seed=seed,
@@ -89,6 +98,15 @@ def train(cfg, *, steps: int = 30, batch: int = 8, seq: int = 64,
         log(f"  step {step:4d} loss {loss:.4f} ({step_ms[-1]:.1f} ms)")
     return {"params": params, "opt_state": opt_state, "losses": losses,
             "step_ms": step_ms}
+
+
+def reference_frames(cfg, batch: int, device) -> torch.Tensor:
+    """The reference training CLI's encoder frames: (batch, enc_seq,
+    d_model) drawn by ``np.random.default_rng(0).normal`` in f64, rounded
+    to bf16 once on the device."""
+    x = np.random.default_rng(0).normal(size=(batch, cfg.enc_seq,
+                                              cfg.d_model))
+    return torch.from_numpy(x).to(device).to(torch.bfloat16)
 
 
 def main(argv=None):

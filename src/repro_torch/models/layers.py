@@ -1,9 +1,11 @@
-"""Model building blocks of the dense decoder (pure functions over dicts).
+"""Model building blocks of the dense decoder and the encoder-decoder
+(pure functions over dicts).
 
-Counterpart of the dense subset of ``repro.models.layers``: norms, RoPE,
-single-token GQA attention, full-sequence GQA attention (training and
-the cache-less forward), chunked causal attention, SwiGLU, embedding and
-logits. ``wt`` is the weight transform of QAT training (fake-quant): it
+Counterpart of the dense and encoder-decoder subset of
+``repro.models.layers``: RMS and layer norms, RoPE, single-token GQA
+attention, full-sequence GQA attention (training, the cache-less forward
+and the bidirectional encoder), chunked causal attention,
+cross-attention, the SwiGLU and GELU MLPs, embedding and logits. ``wt`` is the weight transform of QAT training (fake-quant): it
 applies to projection weights and the head only, never to the embedding
 lookup or to norms, and defaults to the identity so the serve paths are
 untouched. Where the reference routes fault flags, ABFT counts and
@@ -94,10 +96,22 @@ def rms_norm(x, w, eps=1e-6):
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * w.to(x.dtype)
 
 
+def layer_norm(x, w, b, eps=1e-5):
+    """``(x - mean) * rsqrt(var + eps) * w + b`` in f32 with the population
+    variance, cast to x's dtype once, as the reference computes it."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w + b).to(x.dtype)
+
+
 def apply_norm(x, p, kind):
-    if kind != "rms":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet (rms only)")
-    return rms_norm(x, p["w"])
+    if kind == "rms":
+        return rms_norm(x, p["w"])
+    if kind == "layer":
+        return layer_norm(x, p["w"], p["b"])
+    raise ValueError(f"norm {kind!r}; one of ('rms', 'layer')")
 
 
 # --------------------------------------------------------------------------
@@ -279,7 +293,41 @@ def gqa_decode(p, x, cfg, cache, *, pos):
 
 
 # --------------------------------------------------------------------------
-# MLP, embedding, logits
+# cross-attention (the encoder-decoder's decoder)
+# --------------------------------------------------------------------------
+
+
+def cross_params_shape(cfg):
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    return {"wq": (d, h * hd), "wk": (d, h * hd), "wv": (d, h * hd),
+            "wo": (h * hd, d)}
+
+
+def cross_kv(p, enc_out, cfg, wt=Identity):
+    """Cross-attention K and V from the encoder's output: (B, Se, H, hd)
+    each, with ``n_heads`` heads (not ``n_kv_heads``)."""
+    b, se, _ = enc_out.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    k = _proj(enc_out, p["wk"], None, wt).reshape(b, se, h, hd)
+    v = _proj(enc_out, p["wv"], None, wt).reshape(b, se, h, hd)
+    return k, v
+
+
+def cross_attention(p, x, kv, cfg, wt=Identity):
+    """x: (B, Sd, D); kv: (k, v) each (B, Se, H, hd). Every query attends
+    over every encoder position (no mask)."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    q = _proj(x, p["wq"], None, wt).reshape(b, s, h, hd).transpose(1, 2)
+    k, v = (t.transpose(1, 2) for t in kv)
+    o, _, l = _attend_chunk(q, k, v, None, 1.0 / np.sqrt(hd))
+    o = o / torch.clamp(l, min=1e-30)[..., None].to(o.dtype)
+    o = o.transpose(1, 2).reshape(b, s, h * hd)
+    return _proj(o, p["wo"], None, wt)
+
+
+# --------------------------------------------------------------------------
+# MLPs, embedding, logits
 # --------------------------------------------------------------------------
 
 
@@ -292,6 +340,18 @@ def swiglu_params_shape(cfg, d_ff=None):
 def swiglu(p, x, wt=Identity):
     g = F.silu(_proj(x, p["w_gate"], None, wt))
     return _proj(g * _proj(x, p["w_up"], None, wt), p["w_down"], None, wt)
+
+
+def gelu_mlp_params_shape(cfg):
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_up": (d, f), "b_up": (f,), "w_down": (f, d), "b_down": (d,)}
+
+
+def gelu_mlp(p, x, wt=Identity):
+    """The biased GELU MLP. The tanh form of GELU: the reference's
+    ``jax.nn.gelu`` defaults to it (torch's default is the erf form)."""
+    h = F.gelu(_proj(x, p["w_up"], p["b_up"], wt), approximate="tanh")
+    return _proj(h, p["w_down"], p["b_down"], wt)
 
 
 def embed(tokens, emb, dtype=torch.bfloat16):

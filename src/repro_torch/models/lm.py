@@ -1,15 +1,20 @@
-"""Decoder LM of the dense and vlm families: parameter init, the
+"""LM of the dense, vlm and encdec families: parameter init, the
 cache-less full-sequence forward and its loss (training), KV cache, the
 decode step and the prefill into a paged KV cache.
 
-Counterpart of the dense and vlm families of ``repro.models.lm``. The vlm
-family (PaliGemma's backbone) is the dense decoder with the Gemma input
-scale ``sqrt(d_model)``, tied embeddings (the head is ``embed.T``) and,
-in ``forward`` and ``loss_fn`` only, precomputed image-patch embeddings
-prepended to the tokens. Per-layer params are stacked along a leading L
-axis, as in the reference; a Python loop over layers takes the place of
-``lax.scan``. Other families (MoE, MLA, SSM, hybrid, enc-dec) are not
-ported yet.
+Counterpart of the dense, vlm and encdec families of ``repro.models.lm``.
+The vlm family (PaliGemma's backbone) is the dense decoder with the Gemma
+input scale ``sqrt(d_model)``, tied embeddings (the head is ``embed.T``)
+and, in ``forward`` and ``loss_fn`` only, precomputed image-patch
+embeddings prepended to the tokens. The encdec family (Whisper's
+backbone) has layer norms with biases, a bidirectional encoder over
+precomputed frame embeddings (``enc_embeds``, in ``forward`` and
+``loss_fn``), and decoder blocks of causal self-attention,
+cross-attention over the encoder's output and a biased GELU MLP; its
+decode step reads the cross-attention K and V from the cache
+(``cross_k``, ``cross_v``). Per-layer params are stacked along a leading
+L axis, as in the reference; a Python loop over layers takes the place of
+``lax.scan``. Other families (MoE, MLA, SSM, hybrid) are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from repro_torch import tree
 from . import layers as L
 from .config import ArchConfig
 
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "encdec")
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -33,13 +38,27 @@ def _check_family(cfg: ArchConfig) -> None:
 
 
 def _norm_shape(cfg):
-    return {"w": (cfg.d_model,)}
+    return {"w": (cfg.d_model,)} if cfg.norm == "rms" else \
+        {"w": (cfg.d_model,), "b": (cfg.d_model,)}
 
 
 def _layer_shapes(cfg: ArchConfig) -> dict:
     """Per-layer (pre-stacking) param shapes of the scanned decoder block."""
     _check_family(cfg)
+    if cfg.family == "encdec":
+        return {"attn": L.gqa_params_shape(cfg),
+                "cross": L.cross_params_shape(cfg),
+                "mlp": L.gelu_mlp_params_shape(cfg),
+                "ln1": _norm_shape(cfg), "ln2": _norm_shape(cfg),
+                "ln3": _norm_shape(cfg)}
     return {"attn": L.gqa_params_shape(cfg), "mlp": L.swiglu_params_shape(cfg),
+            "ln1": _norm_shape(cfg), "ln2": _norm_shape(cfg)}
+
+
+def _enc_layer_shapes(cfg: ArchConfig) -> dict:
+    """Per-layer param shapes of the encoder block."""
+    return {"attn": L.gqa_params_shape(cfg),
+            "mlp": L.gelu_mlp_params_shape(cfg),
             "ln1": _norm_shape(cfg), "ln2": _norm_shape(cfg)}
 
 
@@ -66,10 +85,16 @@ def _leaf_specs(cfg: ArchConfig):
         yield ("final_norm", name), shp, _init_kind(name, shp)
     if not cfg.tie_embeddings:   # tied: the head is embed.T, no leaf
         yield ("head",), (d, v), ("normal", 1.0 / np.sqrt(d))
-    nl = n_scan_layers(cfg)
-    for sub, shapes in sorted(_layer_shapes(cfg).items()):
-        for name, shp in sorted(shapes.items()):
-            yield ("layers", sub, name), (nl, *shp), _init_kind(name, shp)
+    stacks = [("layers", n_scan_layers(cfg), _layer_shapes(cfg))]
+    if cfg.family == "encdec":
+        stacks.append(("enc_layers", cfg.enc_layers, _enc_layer_shapes(cfg)))
+    for key, nl, subs in stacks:
+        for sub, shapes in sorted(subs.items()):
+            for name, shp in sorted(shapes.items()):
+                yield (key, sub, name), (nl, *shp), _init_kind(name, shp)
+    if cfg.family == "encdec":
+        for name, shp in sorted(_norm_shape(cfg).items()):
+            yield ("enc_final_norm", name), shp, _init_kind(name, shp)
 
 
 def param_shapes(cfg: ArchConfig) -> dict:
@@ -109,12 +134,20 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device=None) -> dict:
-    """Dense KV cache ``{"k", "v": (L, B, max_len, kv, hd)}``."""
+    """Dense KV cache ``{"k", "v": (L, B, max_len, kv, hd)}``; the encdec
+    family adds the cross-attention ``{"cross_k", "cross_v": (L, B,
+    enc_seq, H, hd)}``, zero until the caller fills them."""
     dev = device_mod.resolve(device)
     _check_family(cfg)
-    shape = (n_scan_layers(cfg), batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    nl = n_scan_layers(cfg)
+    shape = (nl, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if cfg.family == "encdec":
+        cross = (nl, batch, cfg.enc_seq, cfg.n_heads, cfg.head_dim)
+        cache["cross_k"] = torch.zeros(cross, dtype=dtype, device=dev)
+        cache["cross_v"] = torch.zeros(cross, dtype=dtype, device=dev)
+    return cache
 
 
 def _embed_in(cfg: ArchConfig, tokens, emb, dtype, prefix_embeds=None):
@@ -158,62 +191,52 @@ def _unstack(sub, n: int) -> list:
     return [_take(i, sub) for i in range(n)]
 
 
+def _scoped_lt(layer_transform, scope: str):
+    """``layer_transform`` is one callable (applied to every stacked
+    subtree) or a ``{"layers" | "enc_layers": fn}`` dict that routes each
+    stacked subtree by its own."""
+    if layer_transform is None or not isinstance(layer_transform, dict):
+        return layer_transform
+    return layer_transform.get(scope)
+
+
 def _block_full(cfg: ArchConfig, lp, x, positions, wt, chunk,
-                attention="torch"):
-    """One dense decoder block over a full sequence."""
+                attention="torch", enc_out=None):
+    """One decoder block over a full sequence: dense, or with
+    cross-attention over ``enc_out`` and the GELU MLP (encdec)."""
     nk = cfg.norm
     x = x + L.gqa_attention(lp["attn"], L.apply_norm(x, lp["ln1"], nk), cfg,
                             positions=positions, wt=wt, chunk=chunk,
                             attention=attention)
-    return x + L.swiglu(lp["mlp"], L.apply_norm(x, lp["ln2"], nk), wt)
+    if cfg.family != "encdec":
+        return x + L.swiglu(lp["mlp"], L.apply_norm(x, lp["ln2"], nk), wt)
+    kv = L.cross_kv(lp["cross"], enc_out, cfg, wt)
+    x = x + L.cross_attention(lp["cross"], L.apply_norm(x, lp["ln2"], nk),
+                              kv, cfg, wt)
+    return x + L.gelu_mlp(lp["mlp"], L.apply_norm(x, lp["ln3"], nk), wt)
 
 
-def forward(cfg: ArchConfig, params, tokens, *, wt=L.Identity,
-            dtype=torch.bfloat16, chunk: int = 2048, layer_transform=None,
-            collect_flags=False, collect_acts=False, recorder=None,
-            attention="torch", prefix_embeds=None, enc_embeds=None):
-    """tokens: (B, S) int -> logits (B, S', V). For the vlm family
-    ``prefix_embeds`` (B, P, D), precomputed image-patch embeddings, is
-    prepended (S' = P + S); other families take none. ``wt`` transforms
-    each projection weight and the head at use (a tied head is the
-    transposed embedding; the lookup reads the raw one) (QAT's fake-quant;
-    per layer slice, as the reference's scan applies it);
-    ``layer_transform`` maps
-    each layer's param slice. With ``cfg.remat`` each layer is recomputed
-    in the backward pass (``torch.utils.checkpoint``) instead of keeping
-    its activations. ``attention`` routes the causal attention: "torch"
-    (``layers.chunked_causal_attention``) or "cuda" (the flash kernel).
+def _enc_block(cfg: ArchConfig, lp, x, positions, wt):
+    """One bidirectional encoder block."""
+    nk = cfg.norm
+    x = x + L.gqa_attention(lp["attn"], L.apply_norm(x, lp["ln1"], nk), cfg,
+                            positions=positions, wt=wt, causal=False)
+    return x + L.gelu_mlp(lp["mlp"], L.apply_norm(x, lp["ln2"], nk), wt)
 
-    ``collect_flags`` / ``collect_acts`` drain the ``recorder``
-    (:class:`layers.FlagRecorder`) once per layer, as the reference drains
-    its sinks per scanned layer, and return ``(logits, flags)``,
-    ``(logits, acts)`` or ``(logits, flags, acts)``: ``flags["layers"]``
-    (L, 2) per-layer (corrected, due), plus ``flags["layers_abft"]`` (L, 2)
-    (mismatches, clamp hits) when the recorder's ABFT channel is on;
-    ``acts["layers"]`` ``{leaf path: (L,) f32 absmax}``. The output head
-    records after the layers and stays in the recorder for the caller."""
-    _check_family(cfg)
-    if (collect_flags or collect_acts) and recorder is None:
-        raise ValueError("collect_flags / collect_acts drain a recorder: "
-                         "pass layers.FlagRecorder")
-    if prefix_embeds is not None and cfg.family != "vlm":
-        raise ValueError(f"prefix_embeds feed the vlm family, not "
-                         f"{cfg.family!r}")
-    if enc_embeds is not None:
-        raise NotImplementedError("encoder embeddings come with the enc-dec "
-                                  "family")
-    x = _embed_in(cfg, tokens, params["embed"], dtype, prefix_embeds)
-    b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device).expand(b, s)
 
+def _run_stack(cfg: ArchConfig, block, x, stacked, n: int, *, lt,
+               collect_flags, collect_acts, recorder):
+    """Run ``block(x, lp)`` over the ``n`` layers of a stacked subtree
+    (``lt`` maps each layer's slice; remat as ``forward`` says), draining
+    the recorder per layer -> (x, per-layer (corrected, due) rows, ABFT
+    rows, acts)."""
     def blk(x, lp):
-        if layer_transform is not None:
-            lp = layer_transform(lp)
-        return _block_full(cfg, lp, x, positions, wt, chunk, attention)
+        if lt is not None:
+            lp = lt(lp)
+        return block(x, lp)
 
     layer_flags, layer_abft, layer_acts = [], [], []
-    for lp in _unstack(params["layers"], n_scan_layers(cfg)):
+    for lp in _unstack(stacked, n):
         if cfg.remat and torch.is_grad_enabled():
             x = checkpoint(blk, x, lp, use_reentrant=False)
         else:
@@ -222,28 +245,115 @@ def forward(cfg: ArchConfig, params, tokens, *, wt=L.Identity,
             _drain_layer(recorder, layer_flags, layer_abft)
         if collect_acts:
             layer_acts.append(recorder.drain_acts())
+    return x, layer_flags, layer_abft, layer_acts
+
+
+def _stack_acts(layer_acts: list) -> dict:
+    return {p: torch.stack([d[p] for d in layer_acts]) for p in layer_acts[0]}
+
+
+def _encode(cfg: ArchConfig, params, enc_embeds, *, wt=L.Identity,
+            dtype=torch.bfloat16, layer_transform=None, collect_flags=False,
+            collect_acts=False, recorder=None):
+    """The bidirectional encoder over frame embeddings (B, Se, D) -> (the
+    final-normed output (B, Se, D) in ``dtype``, per-layer (corrected, due)
+    rows, ABFT rows, acts), as the reference's ``_encode``."""
+    x = enc_embeds.to(dtype)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    x, fl, ab, acts = _run_stack(
+        cfg, lambda x, lp: _enc_block(cfg, lp, x, positions, wt), x,
+        params["enc_layers"], cfg.enc_layers,
+        lt=_scoped_lt(layer_transform, "enc_layers"),
+        collect_flags=collect_flags, collect_acts=collect_acts,
+        recorder=recorder)
+    return L.apply_norm(x, params["enc_final_norm"], cfg.norm), fl, ab, acts
+
+
+def forward(cfg: ArchConfig, params, tokens, *, wt=L.Identity,
+            dtype=torch.bfloat16, chunk: int = 2048, layer_transform=None,
+            collect_flags=False, collect_acts=False, recorder=None,
+            attention="torch", prefix_embeds=None, enc_embeds=None):
+    """tokens: (B, S) int -> logits (B, S', V). For the vlm family
+    ``prefix_embeds`` (B, P, D), precomputed image-patch embeddings, is
+    prepended (S' = P + S); for the encdec family ``enc_embeds`` (B, Se,
+    D), precomputed frame embeddings, feed the encoder, whose output every
+    decoder block cross-attends; other families take neither. ``wt``
+    transforms each projection weight and the head at use (a tied head is
+    the transposed embedding; the lookup reads the raw one) (QAT's
+    fake-quant; per layer slice, as the reference's scan applies it);
+    ``layer_transform`` maps each layer's param slice: one callable, or a
+    ``{"layers" | "enc_layers": fn}`` dict with one per stacked subtree.
+    With ``cfg.remat`` each layer is recomputed in the backward pass
+    (``torch.utils.checkpoint``) instead of keeping its activations. ``attention`` routes the causal attention: "torch"
+    (``layers.chunked_causal_attention``) or "cuda" (the flash kernel).
+
+    ``collect_flags`` / ``collect_acts`` drain the ``recorder``
+    (:class:`layers.FlagRecorder`) once per layer, as the reference drains
+    its sinks per scanned layer, and return ``(logits, flags)``,
+    ``(logits, acts)`` or ``(logits, flags, acts)``: ``flags["layers"]``
+    (L, 2) per-layer (corrected, due), plus ``flags["layers_abft"]`` (L, 2)
+    (mismatches, clamp hits) when the recorder's ABFT channel is on;
+    ``acts["layers"]`` ``{leaf path: (L,) f32 absmax}``; the encdec family
+    adds the encoder's rows under ``"enc_layers"`` (and
+    ``"enc_layers_abft"``). The output head records after the layers and
+    stays in the recorder for the caller."""
+    _check_family(cfg)
+    if (collect_flags or collect_acts) and recorder is None:
+        raise ValueError("collect_flags / collect_acts drain a recorder: "
+                         "pass layers.FlagRecorder")
+    if prefix_embeds is not None and cfg.family != "vlm":
+        raise ValueError(f"prefix_embeds feed the vlm family, not "
+                         f"{cfg.family!r}")
+    if (enc_embeds is not None) != (cfg.family == "encdec"):
+        raise ValueError(f"enc_embeds feed the encdec family (and it needs "
+                         f"them), not {cfg.family!r}")
+    flags, acts = {}, {}
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out, fl, ab, ea = _encode(
+            cfg, params, enc_embeds, wt=wt, dtype=dtype,
+            layer_transform=layer_transform, collect_flags=collect_flags,
+            collect_acts=collect_acts, recorder=recorder)
+        if collect_flags:
+            flags.update(_layer_rows(fl, ab, "enc_layers"))
+        if collect_acts:
+            acts["enc_layers"] = _stack_acts(ea)
+    x = _embed_in(cfg, tokens, params["embed"], dtype, prefix_embeds)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    x, fl, ab, la = _run_stack(
+        cfg, lambda x, lp: _block_full(cfg, lp, x, positions, wt, chunk,
+                                       attention, enc_out),
+        x, params["layers"], n_scan_layers(cfg),
+        lt=_scoped_lt(layer_transform, "layers"),
+        collect_flags=collect_flags, collect_acts=collect_acts,
+        recorder=recorder)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     out = L.logits(x, _head(cfg, params), wt)
     if not (collect_flags or collect_acts):
         return out
     extra = ()
     if collect_flags:
-        extra += (_layer_rows(layer_flags, layer_abft),)
+        extra += ({**_layer_rows(fl, ab), **flags},)
     if collect_acts:
-        extra += ({"layers": {p: torch.stack([d[p] for d in layer_acts])
-                              for p in layer_acts[0]}},)
+        extra += ({"layers": _stack_acts(la), **acts},)
     return (out, *extra)
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, wt=L.Identity,
             dtype=torch.bfloat16, chunk: int = 2048):
     """Causal-LM cross entropy: mean of the f32 ``logsumexp`` minus the
-    target logit. batch: {"tokens", "targets"} (B, S) int, and for the vlm
+    target logit. batch: {"tokens", "targets"} (B, S) int; for the vlm
     family optionally ``"prefix_embeds"`` (B, P, D): the loss then covers
-    the text positions only, the last S."""
+    the text positions only, the last S; for the encdec family
+    ``"enc_embeds"`` (B, Se, D), the encoder's frames."""
     targets = batch["targets"]
     logits = forward(cfg, params, batch["tokens"], wt=wt, dtype=dtype,
-                     chunk=chunk, prefix_embeds=batch.get("prefix_embeds"))
+                     chunk=chunk, prefix_embeds=batch.get("prefix_embeds"),
+                     enc_embeds=batch.get("enc_embeds"))
     if cfg.family == "vlm":
         logits = logits[:, -targets.shape[1]:]
     logits = logits.to(torch.float32)
@@ -265,6 +375,9 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
     for a paged protected KV cache (marked by its ``"k_pages"`` pools,
     served under ``kv_policy``) — ``"layers_kv"`` (L, 2) KV counts. The
     output head's counts stay in the recorder for the caller to drain.
+    The encdec family cross-attends the cache's ``cross_k`` and
+    ``cross_v`` (read, never written) after the self-attention, then runs
+    the GELU MLP after ``ln3``; the encoder does not run here.
     """
     _check_family(cfg)
     x = _embed_in(cfg, tokens, params["embed"], dtype)
@@ -275,11 +388,12 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
         if kvp is None:
             raise ValueError("cache is paged (k_pages present) but no "
                              "kv_policy was passed to decode_step")
+    lt = _scoped_lt(layer_transform, "layers")
     layer_flags, kv_flags, abft_flags = [], [], []
     for i in range(n_scan_layers(cfg)):
         lp = _take(i, params["layers"])
-        if layer_transform is not None:
-            lp = layer_transform(lp)
+        if lt is not None:
+            lp = lt(lp)
         lc = {k: v[i] for k, v in cache.items()}
         h = L.apply_norm(x, lp["ln1"], cfg.norm)
         if paged:
@@ -289,7 +403,14 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
         else:
             o, _ = L.gqa_decode(lp["attn"], h, cfg, lc, pos=pos)
         x = x + o
-        x = x + L.swiglu(lp["mlp"], L.apply_norm(x, lp["ln2"], cfg.norm))
+        if cfg.family == "encdec":
+            h = L.apply_norm(x, lp["ln2"], cfg.norm)
+            x = x + L.cross_attention(lp["cross"], h,
+                                      (lc["cross_k"], lc["cross_v"]), cfg)
+            x = x + L.gelu_mlp(lp["mlp"], L.apply_norm(x, lp["ln3"],
+                                                       cfg.norm))
+        else:
+            x = x + L.swiglu(lp["mlp"], L.apply_norm(x, lp["ln2"], cfg.norm))
         _drain_layer(recorder, layer_flags, abft_flags)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     logits = L.logits(x, _head(cfg, params))
@@ -311,10 +432,11 @@ def _drain_layer(recorder, layer_flags: list, abft_flags: list) -> None:
         abft_flags.append(recorder.drain_abft())
 
 
-def _layer_rows(layer_flags: list, abft_flags: list) -> dict:
-    flags = {"layers": torch.stack(layer_flags)}
+def _layer_rows(layer_flags: list, abft_flags: list,
+                key: str = "layers") -> dict:
+    flags = {key: torch.stack(layer_flags)}
     if abft_flags:
-        flags["layers_abft"] = torch.stack(abft_flags)
+        flags[f"{key}_abft"] = torch.stack(abft_flags)
     return flags
 
 
@@ -340,17 +462,18 @@ def prefill_with_cache(cfg: ArchConfig, params, cache, tokens, *,
     if kvp is None:
         raise ValueError("kv_policy is required for a paged cache")
     if not kvcache.supports_paged(cfg):
-        raise NotImplementedError(f"paged prefill for family {cfg.family!r} "
-                                  f"is not ported yet")
+        raise ValueError(f"paged prefill unsupported for family "
+                         f"{cfg.family!r}")
     x = _embed_in(cfg, tokens, params["embed"], dtype)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     layer_flags, kv_flags, abft_flags = [], [], []
+    lt = _scoped_lt(layer_transform, "layers")
     for i in range(n_scan_layers(cfg)):
         lp = _take(i, params["layers"])
-        if layer_transform is not None:
-            lp = layer_transform(lp)
+        if lt is not None:
+            lp = lt(lp)
         lc = {k: v[i] for k, v in cache.items()}
         h = L.apply_norm(x, lp["ln1"], cfg.norm)
         o, _, kvf = kvcache.paged_gqa_prefill(lp["attn"], h, cfg, lc,

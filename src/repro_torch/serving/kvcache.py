@@ -156,7 +156,8 @@ def get_kv_policy(policy) -> Optional[KVProtectionPolicy]:
 def supports_paged(cfg: ArchConfig) -> bool:
     """Families whose decode KV state is the dense (B, S, kv, hd) GQA
     cache the paged pool replaces: dense and vlm (the reference also takes
-    MoE without MLA, which the port does not have yet)."""
+    MoE without MLA, which the port does not have yet). The encdec family
+    serves its dense cache only, as in the reference."""
     return cfg.family in ("dense", "vlm")
 
 
@@ -193,9 +194,10 @@ def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int, policy, *,
     policy = get_kv_policy(policy)
     if policy is None:
         raise ValueError("init_paged_cache needs a KV policy")
-    if not supports_paged(cfg):
-        raise NotImplementedError(f"paged KV cache for family {cfg.family!r} "
-                                  f"is not ported yet")
+    if not supports_paged(cfg):   # the reference's error
+        raise ValueError(f"paged KV cache supports dense/vlm/moe-gqa decode "
+                         f"caches, not family {cfg.family!r}"
+                         + (" with MLA" if cfg.use_mla else ""))
     if cfg.head_dim % ecc.BLOCK_BYTES:
         raise ValueError(f"head_dim {cfg.head_dim} must be a multiple of "
                          f"{ecc.BLOCK_BYTES} (ECC blocks run along head_dim)")
@@ -570,14 +572,16 @@ def from_protected_tree(cache: dict, tree: dict) -> dict:
 
 def dense_kv_bytes(cfg: ArchConfig, batch: int, max_len: int,
                    dtype=torch.bfloat16) -> int:
-    """Bytes of the dense cache the paged pool replaces (per model): the
-    ``lm.init_cache`` K and V of every layer, counted from shapes."""
+    """Bytes of the dense cache (per model): every tensor of
+    ``lm.init_cache`` (K and V of every layer, and the encdec family's
+    cross K and V), counted from shapes."""
     from repro_torch.models import lm
-    if not supports_paged(cfg):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    item = torch.empty((), dtype=dtype).element_size()
-    return 2 * (lm.n_scan_layers(cfg) * batch * max_len * cfg.n_kv_heads
-                * cfg.head_dim * item)
+    lm._check_family(cfg)
+    nl = lm.n_scan_layers(cfg)
+    n = nl * batch * max_len * cfg.n_kv_heads * cfg.head_dim
+    if cfg.family == "encdec":
+        n += nl * batch * cfg.enc_seq * cfg.n_heads * cfg.head_dim
+    return 2 * n * torch.empty((), dtype=dtype).element_size()
 
 
 def kv_bytes(cache: dict) -> dict:

@@ -33,7 +33,7 @@ from repro_torch.protection.tensor import ProtectedTensor, is_protected_tensor
 
 from . import kvcache
 
-STACKED_KEYS = ("layers",)
+STACKED_KEYS = ("layers", "enc_layers")
 
 
 class _Router:
@@ -131,17 +131,20 @@ def _scan_ready(subtree, prefix: str, router: _Router, dtype,
 
 
 def _layer_transform(router: _Router, dtype, recorder: L.FlagRecorder):
-    """Wrap each protected leaf of one layer's params in its view, resolving
-    the route by the leaf's full plan path."""
+    """``{stacked key: fn}``: each fn wraps every protected leaf of one
+    layer's params in its view, resolving the route by the leaf's full
+    plan path (``layers/...``, ``enc_layers/...``)."""
 
-    def lt(lp):
-        def wrap(path, leaf):
-            if not is_protected_tensor(leaf):
-                return leaf
-            return router.wrap(f"layers/{tree.path_str(path)}", leaf, dtype,
-                               recorder)
-        return tree.map_with_path(wrap, lp)
-    return lt
+    def scoped(prefix):
+        def lt(lp):
+            def wrap(path, leaf):
+                if not is_protected_tensor(leaf):
+                    return leaf
+                return router.wrap(f"{prefix}/{tree.path_str(path)}", leaf,
+                                   dtype, recorder)
+            return tree.map_with_path(wrap, lp)
+        return lt
+    return {k: scoped(k) for k in STACKED_KEYS}
 
 
 def _use_tree(enc_params, router: _Router, dtype, recorder: L.FlagRecorder):
@@ -245,10 +248,13 @@ def make_prefill(cfg: ArchConfig, *, plan=None, dtype=torch.bfloat16,
     With a ``kv_policy``: ``prefill(enc_params, cache, tokens) -> (logits,
     cache)`` fills the paged protected KV cache through
     ``lm.prefill_with_cache`` so decode steps continue from it. Without
-    one: ``prefill(enc_params, tokens) -> logits``, the cache-less
-    ``lm.forward``. ``with_flags`` adds the flags dict: ``"top"``,
-    ``"layers"``, ``"layers_kv"`` (paged) and, for a guarded plan,
-    ``"top_abft"`` and ``"layers_abft"``. ``backend`` routes the codec and
+    one: ``prefill(enc_params, tokens, extras=None) -> logits``, the
+    cache-less ``lm.forward``; ``extras`` are its keyword inputs beside
+    the tokens, as in the reference (``{"enc_embeds": frames}`` for the
+    encdec family, whose encoder then decodes its images at use too).
+    ``with_flags`` adds the flags dict: ``"top"``, ``"layers"``,
+    ``"layers_kv"`` (paged), ``"enc_layers"`` (encdec) and, for a guarded
+    plan, ``"top_abft"`` and the ``*_abft`` rows. ``backend`` routes the codec and
     the attention (the flash kernel on "cuda"); ``chunk`` is the plain
     route's attention chunk. The whole-tree decode ablation
     (``decode_at_use=False``) raises ``NotImplementedError``.
@@ -263,7 +269,7 @@ def make_prefill(cfg: ArchConfig, *, plan=None, dtype=torch.bfloat16,
     track_abft = router.any_abft
     attention = get_backend(backend).name
 
-    def run(enc_params, cache, tokens):
+    def run(enc_params, cache, tokens, extras=None):
         recorder = L.FlagRecorder(tokens.device, abft=track_abft)
         params = _use_tree(enc_params, router, dtype, recorder)
         top = recorder.drain()
@@ -276,12 +282,12 @@ def make_prefill(cfg: ArchConfig, *, plan=None, dtype=torch.bfloat16,
             logits, flags = lm.forward(
                 cfg, params, tokens, dtype=dtype, chunk=chunk,
                 layer_transform=lt, collect_flags=True, recorder=recorder,
-                attention=attention)
+                attention=attention, **(extras or {}))
         return logits, cache, {**_top_rows(recorder, top), **flags}
 
     if kvp is None:
-        def prefill(enc_params, tokens):
-            logits, _, flags = run(enc_params, None, tokens)
+        def prefill(enc_params, tokens, extras=None):
+            logits, _, flags = run(enc_params, None, tokens, extras)
             return (logits, flags) if with_flags else logits
         return prefill
 
@@ -306,7 +312,16 @@ def calibrate_act_scales(cfg: ArchConfig, enc_params, tokens, *, plan=None,
     activation must not bake a zero scale); feed it to
     ``plan.with_act_quant("static", scales)``. The maxima stay on the
     device until one transfer at the end.
+
+    The encdec family raises ``ValueError``: the reference calibrates
+    through ``lm.forward`` without encoder frames and cannot run it for
+    this family (``repro/models/lm.py:343`` reads the missing frames).
     """
+    if cfg.family == "encdec":
+        raise ValueError(
+            "calibrate_act_scales cannot calibrate the encdec family: the "
+            "reference's calibration runs lm.forward without encoder frames "
+            "and fails at repro/models/lm.py:343 (enc_embeds is None)")
     router = _Router(plan, backend, calibrate=True)
     recorder = L.FlagRecorder(tokens.device)
     params = _use_tree(enc_params, router, dtype, recorder)

@@ -3,7 +3,10 @@ loss's gradients against the reference, in f32 and bf16, with and without
 QAT's fake-quant, at the smoke sizes of every ported arch: deepseek-7b,
 minitron-4b and phi3-medium-14b (GQA), qwen1.5-4b (qkv biases) and
 paligemma-3b (the vlm family: the sqrt(d_model) input scale and a tied
-head; its image-patch prefix is in tests/test_torch_vlm.py). Weights come from the reference's
+head; its image-patch prefix is in tests/test_torch_vlm.py) and
+whisper-base (the encdec family: layer norms, a bidirectional encoder over
+frame embeddings, cross-attention and the GELU MLP; the frames are bf16
+values from a NumPy seed). Weights come from the reference's
 ``lm.init_params`` through NumPy, tokens from ``synthetic.token_batch``."""
 import jax
 import jax.numpy as jnp
@@ -30,7 +33,20 @@ F32_ATOL = 1e-4
 BF16_MAX_ATOL = 0.125
 BF16_MEAN_ATOL = 0.02
 
-_ref_params, _port, _batch = P.reference_params, P.port_params, P.token_batch
+_ref_params, _port = P.reference_params, P.port_params
+
+
+def _batch(arch, b, s, step=0):
+    """Tokens and targets; for the encdec family also (b, enc_seq,
+    d_model) frame embeddings, bf16 values as f32."""
+    out = P.token_batch(arch, b, s, step=step)
+    cfg = configs.get_smoke(arch)
+    if cfg.family == "encdec":
+        x = np.random.default_rng(8 + step).standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+        out["enc_embeds"] = np.array(jnp.asarray(x, jnp.bfloat16).astype(
+            jnp.float32))
+    return out
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -46,10 +62,12 @@ def test_forward_and_loss_match_reference(arch, dtype, qat):
     twt = train.qat_wt if qat else L.Identity
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     ref, jloss = jax.jit(lambda p, b: (
-        jlm.forward(cfg, p, b["tokens"], wt=jwt, dtype=jdt, chunk=8),
+        jlm.forward(cfg, p, b["tokens"], enc_embeds=b.get("enc_embeds"),
+                    wt=jwt, dtype=jdt, chunk=8),
         jlm.loss_fn(cfg, p, b, wt=jwt, dtype=jdt, chunk=8)))(p, b)
     tb = {k: torch.from_numpy(v) for k, v in b.items()}
-    got = lm.forward(tcfg, _port(p), tb["tokens"], wt=twt, dtype=tdt,
+    got = lm.forward(tcfg, _port(p), tb["tokens"],
+                     enc_embeds=tb.get("enc_embeds"), wt=twt, dtype=tdt,
                      chunk=8)
     d = np.abs(got.float().numpy() - np.asarray(ref, np.float32))
     if dtype == "float32":
@@ -64,7 +82,8 @@ def test_forward_and_loss_match_reference(arch, dtype, qat):
     assert abs(float(tloss) - float(jloss)) < tol / 10
 
 
-@pytest.mark.parametrize("arch", ["minitron-4b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["minitron-4b", "qwen1.5-4b",
+                                  "whisper-base"])
 def test_loss_gradients_match_jax_grad(arch):
     cfg, tcfg = jconfigs.get_smoke(arch), configs.get_smoke(arch)
     p = _ref_params(arch)

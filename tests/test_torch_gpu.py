@@ -118,8 +118,12 @@ def test_gpu_qmatmul_regimes_match_plain(cuda, path, kn, m):
 
 
 # phi3-medium-14b's w_up and w_down, paligemma-3b's wk and wv (one KV head
-# of 256) at the decode step's M = 4
-@pytest.mark.parametrize("k,n", [(5120, 17920), (17920, 5120), (2048, 256)])
+# of 256), and whisper-base's projections (K 512 -> N 512 and 2,048, K
+# 2,048 -> N 512) and head (K 512 -> N 51,968: few K blocks for the
+# split-K grid) at the decode step's M = 4
+@pytest.mark.parametrize("k,n", [(5120, 17920), (17920, 5120), (2048, 256),
+                                 (512, 512), (512, 2048), (2048, 512),
+                                 (512, 51968)])
 def test_gpu_qmatmul_model_shapes_match_plain(cuda, k, n):
     """The float path at the new archs' decode shapes: flags exact, within
     2e-4 of sum |a| |w| of the plain version (both sum the same exact f32
@@ -457,6 +461,25 @@ def test_gpu_flash_attention_kernel_matches_plain(cuda, dtype, s, d):
     # round across a boundary, and the output rounds once
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(ko.float(), po.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_flash_attention_whisper_decoder_shape(cuda, dtype):
+    """whisper-base's decoder self-attention over 448 text positions at
+    batch 8 (8 heads of 64): within the tolerance above of the plain
+    version, and of SDPA (causal) within that of the plain version plus
+    one bf16 rounding of the output."""
+    gen = torch.Generator(device=cuda).manual_seed(448)
+    q, k, v = (torch.randn((8, 8, 448, 64), generator=gen,
+                           device=cuda).to(dtype) for _ in range(3))
+    ko = flash_attention.flash_attention(q, k, v)
+    po = flash_attention.flash_attention_plain(q, k, v)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(ko.float(), po.float(), rtol=tol, atol=tol)
+    so = torch.nn.functional.scaled_dot_product_attention(
+        q.float(), k.float(), v.float(), is_causal=True)
+    torch.testing.assert_close(ko.float(), so, rtol=2 * tol + 2 ** -8,
+                               atol=2 * tol)
 
 
 def _tie_blocks(nblk, dev, gen):

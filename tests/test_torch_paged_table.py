@@ -233,7 +233,7 @@ def test_decode_path_reads_the_pool_through_the_table(kv_policy,
 
 
 @pytest.mark.parametrize("arch", ["deepseek-7b", "minitron-4b",
-                                  "qwen1.5-4b"])
+                                  "qwen1.5-4b", "whisper-base"])
 def test_dense_kv_bytes_equals_the_reference(arch):
     from repro import configs as jconfigs
     for batch, max_len in ((1, 16), (4, 64), (8, 2064)):

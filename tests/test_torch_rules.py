@@ -70,11 +70,13 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
             call()
 
 
-@pytest.mark.parametrize("arch", ["phi3-medium-14b", "paligemma-3b"])
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "paligemma-3b",
+                                  "whisper-base"])
 def test_entry_points_of_every_family_default_to_cuda(arch, monkeypatch):
     """The entry points with ``--arch`` (and their functions on the arch's
-    config) default to the card for the GQA 40/10 dense model and the vlm
-    family too: without a GPU each raises, none carries on on the CPU."""
+    config) default to the card for the GQA 40/10 dense model, the vlm and
+    the encdec families too: without a GPU each raises, none carries on on
+    the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = configs.get_smoke(arch)
     for call in (lambda: lm.init_params(cfg),

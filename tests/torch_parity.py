@@ -30,6 +30,10 @@ from repro_torch.serving import protected as tprot
 
 # every arch the port serves: the parity tests run each one's smoke config
 ARCHS = tuple(tconfigs.ARCH_IDS)
+# the archs with a paged KV cache (the encdec family serves its dense cache
+# only, in the reference too)
+PAGED_ARCHS = tuple(a for a in ARCHS
+                    if tkv.supports_paged(tconfigs.get_smoke(a)))
 BATCH, STEPS, MAX_LEN = 2, 3, 32
 FAULT_RATE = 2e-3
 CAL_SHAPE = (2, 16)   # calibration tokens of the int8 tests
