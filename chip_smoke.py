@@ -79,7 +79,22 @@ d_model 4096, vocab 102400) at batch 4:
   (1,500 frames + 448 tokens) in 4 microbatches (finite losses, the
   throttle bit-equal across routes, the WOT constraint on every leaf),
   deployed on both routes (byte-equal) and served 8 steps clean and
-  correctable-only (bit-equal); and a profile of 4 decode steps.
+  correctable-only (bit-equal); and a profile of 4 decode steps;
+* phase 13: full-width, full-depth recurrentgemma-2b (the hybrid family:
+  8 super-blocks of two RG-LRU layers and one local-attention layer over
+  a 2,048-token window, 2 tail RG-LRU layers, d_model 2,560, 10 query
+  heads over one KV head of 256, a tied 256,000-word head) on its dense
+  cache (RG-LRU states, a ring of 2,048 K/V slots): the decode triple of
+  the first bullet at batch 4 (every leaf is read by a step: the tail,
+  the conv kernels and both gates of every RG-LRU layer); 16 steps at
+  positions 2,040..2,055 across the ring wrap over a seeded cache, kernel
+  route against plain route in lockstep; the cache-less decode-at-use
+  forward over 2 x 4,096 tokens (flash with the 2,048-token sliding
+  window) and 2 x 2,048 (the window dropped), on both routes and with
+  correctable flips (bit-equal, every flipped block counted once in its
+  row: top, layers, tail); and a profile of 4 decode steps split into
+  the projections, the gate and conv decodes, the RG-LRU glue and the
+  local attention.
 
 Phase 2 also holds the parity-zero decode and the per-slot flags of both
 paged-attention kernels to their plain versions at the burst's shapes;
@@ -96,9 +111,14 @@ its TFLOP/s beside SDPA's; and the float ``ecc_qmatmul`` at every weight
 shape for the decode step (M = 4), the burst step (M = 8) and the 4 x
 2,048 prefill (M = 8,192), and at every weight shape of a phi3-medium-14b
 and a paligemma-3b decode step (M = 4), and at whisper-base's (K 512 ->
-N 512, 2,048 and 51,968; K 2,048 -> N 512), flags exact and a split-K
+N 512, 2,048 and 51,968; K 2,048 -> N 512) and recurrentgemma-2b's (K
+2,560 -> N 2,560, 7,680 and 256; K 7,680 -> N 2,560), flags exact and a split-K
 launch repeated bit for bit; flash attention at whisper-base's decoder
-shape (B 8, H 8, S 448, head_dim 64, bf16); the fused KV write
+shape (B 8, H 8, S 448, head_dim 64, bf16); flash with a sliding window
+at recurrentgemma-2b's local attention (B 2, H 10, S 4,096, head_dim
+256, window 2,048, bf16), timed beside SDPA with the band as a boolean
+mask, and at a ragged S with a window of 300 in bf16 and f32; the fused
+KV write
 (``kv_write``: one launch per layer quantizes, throttles, encodes and
 stores K and V into the pool through the table) byte-equal to its plain
 version at the decode, burst, 4 x 2,048 prefill, minitron-4b and
@@ -172,6 +192,18 @@ ORACLE_RTOL = 0.02
 # probability across a bf16 rounding boundary before PV (one ulp, 2^-8 p)
 # and the output rounds once (one ulp of |o|).
 FLASH_RTOL, FLASH_ATOL = 2.0 ** -6, 2e-3
+# recurrentgemma-2b's logits at 26 layers (phase 13: the cache-less
+# forward, and the decode across the ring wrap): the routes round each
+# bf16 projection at different points and the differences grow with
+# depth, so nearly every logit differs; the logits reach |16|..|32|,
+# where a bf16 ulp is 0.125. Held to 4 such ulps at most and to 0.03 on
+# average (readings on the H100: forward max 0.25, mean 0.0184; ring
+# wrap max 0.1406, mean 0.0189), and, sharper, to the f32 plain route
+# over the same weights and inputs: the kernel route must be no farther
+# from it than the bf16 plain route (mean within HYBRID_F32_RATIO, max
+# within 1.5x), which an error in a kernel would break.
+HYBRID_MAX_ATOL, HYBRID_MEAN_ATOL = 0.5, 0.03
+HYBRID_F32_RATIO = 1.1
 # the burst routes in f32 at 2 layers: the routes' K/V differ by int8
 # rounding (an f32 last-ulp difference in k can cross a quantization
 # boundary: one LSB of the token's absmax/127), which moved logits of
@@ -271,9 +303,15 @@ def main():
     encdec_counts = phase_encdec(torch, dev, build)
     log(f"phase 12 (whisper-base: decode, cross caches, forward, QATT) took "
         f"{time.time() - t0:.0f}s")
+    t0 = time.time()
+    hybrid_counts, windowed = phase_hybrid(torch, dev, build)
+    entries["flash_attention"]["window"]["launches_per_forward"] = windowed
+    log(f"phase 13 (recurrentgemma-2b: decode, ring wrap, forward) took "
+        f"{time.time() - t0:.0f}s")
     counts = {k: decode_counts[k] + long_counts[k] + train_counts[k]
               + guarded_counts[k] + burst_counts[k] + phi3_counts[k]
-              + vlm_counts[k] + encdec_counts[k] for k in build.COUNTS}
+              + vlm_counts[k] + encdec_counts[k] + hybrid_counts[k]
+              for k in build.COUNTS}
     if sorted(entries) != sorted(counts):
         fail(f"kernels checked {sorted(entries)} != kernels counted "
              f"{sorted(counts)}")
@@ -303,7 +341,10 @@ def main():
               "chunked_page_attention", "quantize_throttle")),
             ("whisper-base", encdec_counts,
              ("ecc_decode", "ecc_encode", "ecc_qmatmul", "flash_attention",
-              "quantize_throttle"))):
+              "quantize_throttle")),
+            ("recurrentgemma-2b", hybrid_counts,
+             ("ecc_decode", "ecc_encode", "ecc_qmatmul",
+              "flash_attention"))):
         missing = [k for k in needed if cnt[k] <= 0]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
@@ -640,15 +681,26 @@ def _qmm_sum(cases) -> dict:
 
 
 def qmm_per_step(cfg):
-    """``[((k, n), launches per decode step)]`` of a dense, vlm or encdec
-    config: wq and wo, wk and wv, w_gate and w_up, w_down per layer (the
-    encdec decoder: wq and wo of the self- and the cross-attention, wk and
-    wv, w_up, w_down; its cross K and V come from the cache), and an
-    untied head (a tied head is a ``torch.matmul`` over the decoded
-    embedding)."""
+    """``[((k, n), launches per decode step)]`` of a dense, vlm, encdec or
+    hybrid config: wq and wo, wk and wv, w_gate and w_up, w_down per layer
+    (the encdec decoder: wq and wo of the self- and the cross-attention,
+    wk and wv, w_up, w_down; its cross K and V come from the cache; a
+    hybrid super-block: w_x, w_y_gate and w_out of each of its two RG-LRU
+    layers, wq, wk, wv and wo of its local attention, and three SwiGLU
+    MLPs; a tail layer: one RG-LRU and one MLP. The RG-LRU's two gate
+    weights decode whole and multiply in ``torch.matmul``, as the
+    reference's do), and an untied head (a tied head is a
+    ``torch.matmul`` over the decoded embedding)."""
     d, f, nl = cfg.d_model, cfg.d_ff, cfg.n_layers
     qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-    if cfg.family == "encdec":
+    if cfg.family == "hybrid":
+        w, nb = cfg.lru_width or d, nl // 3
+        nrg = 2 * nb + (nl - 3 * nb)          # RG-LRU layers
+        nmlp = 3 * nb + (nl - 3 * nb)         # SwiGLU MLPs
+        shapes = [((d, w), 2 * nrg), ((w, d), nrg), ((d, qd), nb),
+                  ((qd, d), nb), ((d, kvd), 2 * nb), ((d, f), 2 * nmlp),
+                  ((f, d), nmlp)]
+    elif cfg.family == "encdec":
         shapes = [((d, qd), 2 * nl), ((qd, d), 2 * nl), ((d, kvd), 2 * nl),
                   ((d, f), nl), ((f, d), nl)]
     else:
@@ -703,17 +755,20 @@ def check_qmatmul_mixes(torch, dev, cfg, timer, gen):
 
 def check_qmatmul_models(torch, dev, timer, gen):
     """The float ecc_qmatmul at M = 4 at every weight shape of a
-    phi3-medium-14b, a paligemma-3b and a whisper-base decode step (phi3's
+    phi3-medium-14b, a paligemma-3b, a whisper-base and a
+    recurrentgemma-2b decode step (phi3's
     w_up 5,120 -> 17,920 and w_down 17,920 -> 5,120, its head 5,120 ->
     100,352; paligemma's wk and wv 2,048 -> 256, one KV head; whisper's K
     512 -> N 512, 2,048 and its 51,968-word head, K 2,048 -> N 512: few K
-    blocks for the split-K grid), as
+    blocks for the split-K grid; recurrentgemma's 2,560 -> 2,560, 7,680
+    and 256, 7,680 -> 2,560: 164 launches), as
     :func:`check_qmatmul_mixes` holds deepseek-7b's: flags exact, within
     QMM_RTOL, split-K repeated bit for bit. -> {arch: per-step sums}."""
     from repro_torch.configs import get
     scale = torch.tensor(0.02, dtype=torch.float32, device=dev)
     out, err = {}, 0.0
-    for arch in ("phi3-medium-14b", "paligemma-3b", "whisper-base"):
+    for arch in ("phi3-medium-14b", "paligemma-3b", "whisper-base",
+                 "recurrentgemma-2b"):
         cases = []
         for (k, n), count in qmm_per_step(get(arch)):
             w_enc, w_bf, flips = _qmm_weight(torch, dev, k, n, gen, scale)
@@ -1419,10 +1474,74 @@ def check_flash(torch, dev, cfg, timer, gen):
                                   "library_ms")},
         bound_by=one["bound_by"], launches=nl, tflops=one["tflops"],
         library_tflops=one["library_tflops"])
-    entry["max_abs_err"] = err
+    entry["window"], e = check_flash_window(torch, dev, timer, gen)
+    entry["max_abs_err"] = max(err, e)
     log(f"flash_attention (per prefill, 30 launches of (4, 32, 2048, 128)): "
         f"{entry}")
     return entry
+
+
+def check_flash_window(torch, dev, timer, gen, *, b=2, h=10, s=4096, hd=256,
+                       window=2048):
+    """The sliding window of flash at recurrentgemma-2b's local attention
+    over a 2 x 4,096-token forward (B 2, its 10 query heads, S 4,096,
+    head_dim 256, bf16, window 2,048: one launch per super-block), and at
+    a ragged S with a window that is not a multiple of 64 (S 1,000, window
+    300) in bf16 and f32: the kernel against its plain version (which
+    walks the same key tiles) within FLASH_RTOL / FLASH_ATOL; timed per
+    launch beside the plain version and SDPA over the same inputs with the
+    band as a boolean mask. The bound counts the visible (query, key)
+    pairs of this run, 4 * hd operations each (QK^T and PV), at the bf16
+    peak, against each of q, k, v read once and the output written once.
+    -> (entry, max abs err)."""
+    from repro_torch.kernels import flash_attention
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def check(shape, win, dtype):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        ko = flash_attention.flash_attention(q, k, v, window=win)
+        po = flash_attention.flash_attention_plain(q, k, v, window=win)
+        e = (ko.float() - po.float()).abs()
+        if bool((e > FLASH_RTOL * po.float().abs() + FLASH_ATOL).any()):
+            fail(f"windowed flash_attention out of tolerance of its plain "
+                 f"version at {shape} window {win} {dtype}: max abs err "
+                 f"{float(e.max())}")
+        log(f"flash_attention {shape} window {win} {dtype}: max abs err vs "
+            f"plain {float(e.max()):.3g}, mean {float(e.mean()):.3g}")
+        return (q, k, v), float(e.max())
+
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        err = max(err, check((1, 4, 1000, hd), 300, dtype)[1])
+    qkv, e = check((b, h, s, hd), window, torch.bfloat16)
+    err = max(err, e)
+    pos = torch.arange(s, device=dev)
+    age = pos[:, None] - pos[None, :]
+    band = (age >= 0) & (age < window)
+    pairs = int(band.sum())
+    km = timer.ms(lambda: flash_attention.flash_attention(*qkv,
+                                                          window=window))
+    pm = timer.ms(lambda: flash_attention.flash_attention_plain(
+        *qkv, window=window))
+    lm_ = timer.ms(lambda: sdpa(*qkv, attn_mask=band))
+    so = sdpa(*qkv, attn_mask=band)
+    ko = flash_attention.flash_attention(*qkv, window=window)
+    lib_err = float((so.float() - ko.float()).abs().max())
+    del so, ko
+    causal_ms = timer.ms(lambda: flash_attention.flash_attention(*qkv))
+    ops = 4 * b * h * hd * pairs
+    bb, by = bound_ms(4 * b * h * s * hd * 2, ops)
+    log(f"flash_attention {(b, h, s, hd)} bf16 window {window} per launch: "
+        f"kernel {km:.4f} ms ({ops / km / 1e9:.1f} TFLOP/s over {pairs} "
+        f"visible pairs per head), plain {pm:.4f} ms, sdpa(band mask) "
+        f"{lm_:.4f} ms ({ops / lm_ / 1e9:.1f} TFLOP/s; max abs diff from "
+        f"the kernel {lib_err:.3g}), bound {bb:.4f} ms ({by}); the causal "
+        f"kernel over the same inputs {causal_ms:.4f} ms")
+    del qkv
+    return dict(ms=km, plain_ms=pm, bound_ms=bb, bound_by=by, library_ms=lm_,
+                visible_pairs=pairs, tflops=ops / km / 1e9,
+                library_tflops=ops / lm_ / 1e9, causal_ms=causal_ms), err
 
 
 def _tie_blocks(torch, dev, nblk, gen):
@@ -3189,10 +3308,12 @@ WHISPER_TEXT_CTX = 448
 
 
 def decode_reads(path: str) -> bool:
-    """Whether a whisper decode step reads the leaf at ``path``: not the
-    encoder's images (the encoder runs only in the cache-less forward and
-    in training) and not the decoder's cross ``wk`` and ``wv`` (the step
-    reads cross K and V from the cache)."""
+    """Whether a decode step on a dense cache reads the leaf at ``path``:
+    not whisper's encoder images (the encoder runs only in the cache-less
+    forward and in training) and not its decoder's cross ``wk`` and ``wv``
+    (the step reads cross K and V from the cache); every other leaf, which
+    is every leaf of recurrentgemma-2b (its tail, conv kernels and both
+    gates included)."""
     return not (path.startswith("enc_layers/")
                 or path in ("layers/cross/wk", "layers/cross/wv"))
 
@@ -3200,16 +3321,17 @@ def decode_reads(path: str) -> bool:
 def phase_encdec(torch, dev, build):
     """whisper-base (6 encoder and 6 decoder layers, d_model 512, 8 heads
     of 64, a 51,968-word head) at full width and depth on its dense KV
-    cache: the decode triple (:func:`encdec_decode`), the decode over
-    encoder-filled cross caches on both routes (:func:`encdec_cross`), the
-    cache-less forward over frames (:func:`encdec_forward`), the QATT
-    steps with deploy and serve (:func:`encdec_train`), then a profile of
-    its decode step. -> the launch counts of the four runs."""
+    cache: the decode triple (:func:`dense_cache_decode_triple`), the
+    decode over encoder-filled cross caches on both routes
+    (:func:`encdec_cross`), the cache-less forward over frames
+    (:func:`encdec_forward`), the QATT steps with deploy and serve
+    (:func:`encdec_train`), then a profile of its decode step. -> the
+    launch counts of the four runs."""
     from repro_torch.configs import get
     cfg = get("whisper-base")
     torch.cuda.empty_cache()
     build.reset_counts()
-    clean = encdec_decode(torch, dev, build, cfg)
+    clean = dense_cache_decode_triple(torch, dev, build, cfg)
     encdec_cross(torch, dev, cfg, clean["logits"][0])
     del clean
     encdec_forward(torch, dev, build, cfg)
@@ -3220,13 +3342,18 @@ def phase_encdec(torch, dev, build):
     return counts
 
 
-def encdec_decode(torch, dev, build, cfg, *, tokens=16, batch=4, rate=2e-5):
-    """Phase 4's three 16-step runs through ``serve`` on the dense KV cache
-    (``kv_policy=None``): clean; faulted at ``rate``, its corrected and DUE
-    counts equal to ``tokens`` x the injected single- and double-flip
-    blocks of the leaves a decode step reads (:func:`decode_reads`; the
-    rate is high enough for double flips in a model of 97 MB); and
-    correctable-only, bit-equal to the clean run. -> the clean run."""
+def dense_cache_decode_triple(torch, dev, build, cfg, *, tokens=16, batch=4,
+                              rate=2e-5):
+    """Phase 4's three 16-step runs through ``serve`` on a family's dense
+    cache (``kv_policy=None``; whisper-base's, recurrentgemma-2b's ring):
+    clean; faulted at ``rate``, its corrected and DUE counts equal to
+    ``tokens`` x the injected single- and double-flip blocks of the leaves
+    a decode step reads (:func:`decode_reads`; the rate must give double
+    flips at the model's size); and correctable-only, bit-equal to the
+    clean run. Writes ``chip_smoke_<cfg.name>.json``. -> the clean run,
+    with the clean run's launches per step under ``"launches_per_step"``
+    (every count since the last ``build.reset_counts()`` but the deploy's
+    kernels, over ``tokens``)."""
     from repro_torch.launch.serve import serve
 
     kw = dict(backend="cuda", kv_policy=None, batch=batch, tokens=tokens,
@@ -3249,8 +3376,8 @@ def encdec_decode(torch, dev, build, cfg, *, tokens=16, batch=4, rate=2e-5):
                         lambda p: not decode_reads(p))
     fl = faulted["flags"]
     log(f"{cfg.name} faulted run: blocks with 1/2/3+ flips in the leaves "
-        f"a decode step reads {wh}, in the encoder and cross wk/wv {unread} "
-        f"(never read by the decode); reported {fl}")
+        f"a decode step reads {wh}, in the leaves it does not read "
+        f"{unread}; reported {fl}")
     if wh["3+"]:
         fail("a read weight block took 3+ flips: its accounting is "
              "undefined")
@@ -3279,11 +3406,12 @@ def encdec_decode(torch, dev, build, cfg, *, tokens=16, batch=4, rate=2e-5):
             f"step {r['step_ms'][0]:.2f} ms")
     log(f"{cfg.name} decode launches per step (clean run): "
         f"{sum(per_step.values()):.1f} = {per_step}")
-    with open(OUT_DIR / "chip_smoke_whisper.json", "w") as fh:
+    with open(OUT_DIR / f"chip_smoke_{cfg.name}.json", "w") as fh:
         json.dump({"config": cfg.name, "launches_per_step": per_step,
                    **{n: {"tok_per_s": r["tok_per_s"],
                           "step_ms": r["step_ms"], "flags": r["flags"]}
                       for n, r in runs}}, fh, indent=1)
+    clean["launches_per_step"] = per_step
     return clean
 
 
@@ -3626,6 +3754,395 @@ def profile_encdec_decode(torch, dev, cfg, batch=4):
         f"{busy:.2f} busy of {wall_ms:.2f} wall): " + ", ".join(
             f"{k} {v:.2f}" for k, v in split.items()))
     del enc, cache
+
+# ---------------------------------------------------------------------------
+# phase 13: the hybrid family — recurrentgemma-2b at full width and depth
+# ---------------------------------------------------------------------------
+
+# the serve step's positions across the ring wrap: 8 steps before the
+# window's 2,048 slots fill and 8 after
+RING_START = 2040
+# the cache-less forward's lengths: past the window (flash windowed) and
+# at it (the window covers the sequence and is dropped)
+HYBRID_FORWARD_S = (4096, 2048)
+
+
+def phase_hybrid(torch, dev, build):
+    """recurrentgemma-2b (26 layers: 8 super-blocks of [RG-LRU, RG-LRU,
+    local attention] and 2 tail RG-LRU layers; d_model 2,560, 10 query
+    heads over one KV head of 256, a tied 256,000-word embedding) at full
+    width and depth, no cut, on its dense cache (the RG-LRU states and a
+    ring of 2,048 K/V slots): the decode triple through ``serve``
+    (:func:`dense_cache_decode_triple`: every leaf is read by a decode
+    step, the tail, the conv kernels and both gates included), whose clean
+    run must launch ``ecc_decode`` exactly 1 + 2 x 18 + 18 times a step
+    (the embedding, both gates and the conv kernel of each of the 18
+    RG-LRU layers); 16 steps across the ring wrap on both routes in
+    lockstep (:func:`hybrid_ring`), the cache-less forward past and at the
+    window on both routes (:func:`hybrid_forward`), then a profile of its
+    decode step. -> (the launch counts of the path, flash's launches in
+    one kernel-route forward past the window)."""
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
+    cfg = get("recurrentgemma-2b")
+    torch.cuda.empty_cache()
+    build.reset_counts()
+    clean = dense_cache_decode_triple(torch, dev, build, cfg, rate=3e-6)
+    per_step = clean["launches_per_step"]
+    del clean
+    n_rglru = 2 * lm.n_scan_layers(cfg) + lm.hybrid_tail_layers(cfg)
+    if per_step.get("ecc_decode") != 1 + 3 * n_rglru:
+        fail(f"{cfg.name} decode step: {per_step.get('ecc_decode')} "
+             f"ecc_decode launches a step, not 1 embedding + {2 * n_rglru} "
+             f"gate + {n_rglru} conv-kernel decodes")
+    plan = policy_mod.ProtectionPolicy(backend="cuda").plan(
+        lm.param_shapes(cfg))
+    t0 = time.time()
+    enc = lm.init_params(cfg, 0, device=dev, leaf_fn=plan.encode_leaf)
+    torch.cuda.synchronize()
+    leaves = _protected(enc)
+    nbytes = sum(t.enc.numel() for t in leaves)
+    log(f"{cfg.name}: drew and encoded {len(leaves)} protected "
+        f"leaves ({nbytes / 1e9:.3f} GB of image, "
+        f"{lm.n_scan_layers(cfg)} super-blocks + "
+        f"{lm.hybrid_tail_layers(cfg)} tail layers) in "
+        f"{time.time() - t0:.1f}s")
+    hybrid_ring(torch, dev, cfg, enc)
+    report = hybrid_forward(torch, dev, build, cfg, enc)
+    counts = dict(build.COUNTS)
+    log(f"launch counts over the recurrentgemma-2b path: {counts}")
+    profile_hybrid_decode(torch, dev, cfg, plan, enc)
+    del enc
+    torch.cuda.empty_cache()
+    windowed = [r for r in report.values() if r["window"]]
+    return counts, windowed[0]["flash_launches"]
+
+
+def _protected(enc) -> list:
+    from repro_torch import tree
+    from repro_torch.protection.tensor import is_protected_tensor
+    return [t for _, t in tree.leaves_with_path(enc)
+            if is_protected_tensor(t)]
+
+
+def hybrid_ring(torch, dev, cfg, enc, *, tokens=16, batch=4):
+    """16 serve steps at positions RING_START .. RING_START + 15 over a
+    cache seeded with random K/V in every ring slot (std 1) and random
+    RG-LRU states and conv histories (std 0.5 and 1), so the ring wraps
+    at position 2,048 halfway: the kernel route against the plain route
+    in lockstep (the kernel route's greedy tokens fed to both), flags
+    equal and zero, logits within HYBRID_MAX_ATOL / HYBRID_MEAN_ATOL; and
+    against the plain route in f32 over the same cache upcast, fed the
+    same tokens: the kernel route no farther from it than the bf16 plain
+    route (mean within HYBRID_F32_RATIO, max within 1.5x). Each bf16
+    route's step writes slot ``pos % 2,048`` of every layer's ring and no
+    other."""
+    from repro_torch.serving import kvcache, protected
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    base = kvcache.init_cache(cfg, batch, RING_START + tokens, device=dev)
+    for name, t in base.items():
+        std = 0.5 if name.endswith("_h") else 1.0
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev) * std)
+    caches = {r: {k: v.clone() for k, v in base.items()}
+              for r in ("cuda", "torch")}
+    caches["f32"] = {k: v.float() for k, v in base.items()}
+    steps = {r: protected.make_serve_step(cfg, backend=r)
+             for r in ("cuda", "torch")}
+    steps["f32"] = protected.make_serve_step(cfg, backend="torch",
+                                             dtype=torch.float32)
+    tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=dev)
+    logits = {r: [] for r in steps}
+    for t in range(tokens):
+        pos = torch.full((batch,), RING_START + t, dtype=torch.int32,
+                         device=dev)
+        res = {r: steps[r](enc, caches[r], tok, pos) for r in steps}
+        fk, fp, ff = ({k: v.tolist() for k, v in res[r][2].items()}
+                      for r in steps)
+        if fk != fp or fk != ff or sorted(fk) != ["layers", "tail", "top"] \
+                or any(x for row in fk.values() for x in
+                       torch.tensor(row).reshape(-1).tolist()):
+            fail(f"{cfg.name} ring step {t} flags: cuda {fk} vs torch {fp} "
+                 f"vs f32 {ff} (clean weights: all zero, rows top, layers, "
+                 f"tail)")
+        for r in steps:
+            logits[r].append(res[r][0][:, 0].float())
+        tok = res["cuda"][0].argmax(dim=-1)
+    smax = cfg.attn_window
+    written = torch.zeros(smax, dtype=torch.bool, device=dev)
+    written[torch.arange(RING_START, RING_START + tokens, device=dev)
+            % smax] = True
+    for r in ("cuda", "torch"):
+        c = caches[r]
+        for name in ("k", "v"):
+            same = (c[name] == base[name]).flatten(3).all(-1)  # (L, B, S)
+            if bool(same[:, :, written].any()) or \
+                    not bool(same[:, :, ~written].all()):
+                fail(f"{cfg.name} {r} route: the ring writes of {name} are "
+                     f"not exactly slots pos % {smax}")
+    lk, lp, lf = (torch.stack(logits[r]) for r in ("cuda", "torch", "f32"))
+    dmax, dmean = _max_mean_diff(torch, lk, lp)
+    to_f32 = {"cuda": _max_mean_diff(torch, lk, lf),
+              "torch": _max_mean_diff(torch, lp, lf)}
+    log(f"{cfg.name} {tokens} steps at positions {RING_START}.."
+        f"{RING_START + tokens - 1} across the ring wrap at {smax}, cuda vs "
+        f"torch route in lockstep: logits max abs diff {dmax:.4g}, mean "
+        f"{dmean:.4g} (|logits| max {float(lp.abs().max()):.3g}); against "
+        f"the f32 plain route: cuda max {to_f32['cuda'][0]:.4g} mean "
+        f"{to_f32['cuda'][1]:.4g}, torch max {to_f32['torch'][0]:.4g} mean "
+        f"{to_f32['torch'][1]:.4g}; each bf16 route wrote exactly slots "
+        f"pos % {smax}")
+    if not bool(torch.isfinite(lk).all()) or dmax > HYBRID_MAX_ATOL or \
+            dmean > HYBRID_MEAN_ATOL:
+        fail(f"{cfg.name}: kernel route logits across the ring wrap out of "
+             f"tolerance of the plain route")
+    if to_f32["cuda"][1] > HYBRID_F32_RATIO * to_f32["torch"][1] or \
+            to_f32["cuda"][0] > 1.5 * to_f32["torch"][0]:
+        fail(f"{cfg.name}: across the ring wrap the kernel route is farther "
+             f"from the f32 plain route than the bf16 plain route: {to_f32}")
+    del caches, base
+
+
+def _max_mean_diff(torch, a, b) -> tuple:
+    """(max, mean) |a - b| in f32, one batch row at a time (the logits of
+    a long forward take GBs in f32)."""
+    mx, tot = 0.0, 0.0
+    for x, y in zip(a, b):
+        d = (x.float() - y.float()).abs()
+        mx, tot = max(mx, float(d.max())), tot + float(d.sum())
+    return mx, tot / a.numel()
+
+
+def hybrid_forward(torch, dev, build, cfg, enc, *, batch=2, rate=1e-6):
+    """The cache-less decode-at-use forward (``protected.make_prefill``
+    without a KV policy) over ``batch`` x S seeded tokens for S in
+    HYBRID_FORWARD_S: at 4,096 the window of 2,048 is shorter than S and
+    flash runs windowed on the kernel route, at 2,048 the window covers
+    the sequence and flash runs causal (the wrapper records the window of
+    every launch). Both routes: flags all zero (rows top, layers, tail),
+    logits within HYBRID_MAX_ATOL / HYBRID_MEAN_ATOL of each other, and
+    each route's distance to the f32 forward (the plain route in f32)
+    compared: the kernel route no farther (HYBRID_F32_RATIO). Then the
+    kernel route with correctable flips at ``rate``: logits bit-equal,
+    and each row counts each flipped block of its images once. -> per S,
+    the measurements (``flash_launches``: flash's launches in the
+    kernel-route forward)."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
+    from repro_torch.serving import protected
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    fenc, positions = policy_mod.inject_tree_device(enc, rate, gen,
+                                                    one_per_block=True)
+    rows = {"top": lambda p: p == "embed",
+            "layers": lambda p: p.startswith("layers/"),
+            "tail": lambda p: p.startswith("tail/")}
+    want = {k: block_hist(torch, positions, keep) for k, keep in rows.items()}
+    if any(h[2] or h["3+"] for h in want.values()) or \
+            any(h[1] == 0 for h in want.values()):
+        fail(f"{cfg.name} forward: the correctable-only injection put "
+             f"{want} flips into the rows' blocks")
+    real = flash_attention.flash_attention
+    seen = []
+
+    def spy(q, k, v, **kw):
+        seen.append(kw.get("window", 0))
+        return real(q, k, v, **kw)
+    nb = lm.n_scan_layers(cfg)
+    report = {}
+    for s in HYBRID_FORWARD_S:
+        prompt = torch.randint(0, cfg.vocab, (batch, s), generator=gen,
+                               device=dev)
+        out, ms, launches = {}, {}, {}
+        for route in ("cuda", "torch"):
+            prefill = protected.make_prefill(cfg, backend=route,
+                                             with_flags=True)
+            before = build.COUNTS["flash_attention"]
+            seen.clear()
+            flash_attention.flash_attention = spy
+            try:
+                torch.cuda.synchronize()
+                t0 = time.time()
+                out[route] = prefill(enc, prompt)
+                torch.cuda.synchronize()
+                ms[route] = 1e3 * (time.time() - t0)
+            finally:
+                flash_attention.flash_attention = real
+            launched = launches[route] = \
+                build.COUNTS["flash_attention"] - before
+            win = cfg.attn_window if s > cfg.attn_window else 0
+            if (route == "cuda" and (launched != nb or seen != [win] * nb)) \
+                    or (route == "torch" and (launched or seen)):
+                fail(f"{cfg.name} forward at S {s} on the {route} route: "
+                     f"flash launched {launched} times with windows {seen}")
+        prefill = protected.make_prefill(cfg, backend="cuda",
+                                         with_flags=True)
+        again = event_ms(torch, lambda: prefill(enc, prompt))[0]
+        (lk, fk), (lp, fp) = out["cuda"], out["torch"]
+        for r, fl in (("cuda", fk), ("torch", fp)):
+            if sorted(fl) != ["layers", "tail", "top"] or \
+                    any(int(v.abs().sum()) for v in fl.values()):
+                fail(f"{cfg.name} clean forward flags on the {r} route: "
+                     f"{ {k: v.tolist() for k, v in fl.items()} }")
+        if lk.shape != (batch, s, cfg.vocab_padded) or \
+                not all(bool(torch.isfinite(x.float()).all()) for x in lk):
+            fail(f"{cfg.name} forward logits {tuple(lk.shape)} or not "
+                 f"finite")
+        dmax, dmean = _max_mean_diff(torch, lk, lp)
+        ref = protected.make_prefill(cfg, backend="torch",
+                                     dtype=torch.float32)(enc, prompt)
+        to_f32 = {"cuda": _max_mean_diff(torch, lk, ref),
+                  "torch": _max_mean_diff(torch, lp, ref)}
+        del out, lp, fp, ref
+        log(f"{cfg.name} forward over {batch} x {s} tokens (flash window "
+            f"{win}), cuda vs torch route: logits max abs diff {dmax:.4g}, "
+            f"mean {dmean:.4g}; against the f32 forward: cuda max "
+            f"{to_f32['cuda'][0]:.4g} mean {to_f32['cuda'][1]:.4g}, torch "
+            f"max {to_f32['torch'][0]:.4g} mean {to_f32['torch'][1]:.4g}; "
+            f"{ms['cuda']:.1f} ms on the kernel route, {ms['torch']:.1f} ms "
+            f"on the plain route (host clock, first call); a second "
+            f"kernel-route call {again:.1f} ms (CUDA events, "
+            f"{batch * s / again * 1e3:.0f} tok/s)")
+        if dmax > HYBRID_MAX_ATOL or dmean > HYBRID_MEAN_ATOL:
+            fail(f"{cfg.name}: kernel route forward logits at S {s} out of "
+                 f"tolerance of the plain route")
+        if to_f32["cuda"][1] > HYBRID_F32_RATIO * to_f32["torch"][1] or \
+                to_f32["cuda"][0] > 1.5 * to_f32["torch"][0]:
+            fail(f"{cfg.name}: at S {s} the kernel route is farther from "
+                 f"the f32 forward than the plain route: {to_f32}")
+        lf, ff = protected.make_prefill(cfg, backend="cuda",
+                                        with_flags=True)(fenc, prompt)
+        got = {k: v.reshape(-1, 2).sum(0).tolist() for k, v in ff.items()}
+        if any(got[k] != [want[k][1], 0] for k in rows) or sorted(got) != \
+                sorted(rows):
+            fail(f"{cfg.name} forward accounting {got} != the flipped blocks "
+                 f"of each row's images {want}")
+        if not torch.equal(lf, lk):
+            fail(f"{cfg.name}: every flip was correctable, yet the forward's "
+                 f"logits at S {s} differ from the clean run")
+        log(f"{cfg.name} forward at S {s} with correctable flips: logits "
+            f"equal the clean run bit for bit; single-flip blocks per row "
+            f"{({k: h[1] for k, h in want.items()})} counted once each: "
+            f"{got}")
+        report[s] = {"window": win, "flash_launches": launches["cuda"],
+                     "first_call_ms": ms, "second_call_ms": again,
+                     "max_abs_diff": dmax,
+                     "mean_abs_diff": dmean, "to_f32": to_f32,
+                     "faulted_flags": got}
+        del lk, fk, lf, ff
+        torch.cuda.empty_cache()
+    with open(OUT_DIR / "chip_smoke_hybrid_forward.json", "w") as fh:
+        json.dump({"config": cfg.name, "batch": batch,
+                   "runs": {str(k): v for k, v in report.items()}}, fh,
+                  indent=1)
+    del fenc
+    return report
+
+
+def profile_hybrid_decode(torch, dev, cfg, plan, enc, batch=4):
+    """Profile 4 decode steps of recurrentgemma-2b on the kernel route
+    (its dense ring cache), after one step unprofiled: launches per step,
+    the device-busy share, and the device time split into the projections
+    (ecc_qmatmul), the ``ecc_decode`` kernel's launches (ranked by time:
+    per step the embedding's one, the 36 gate leaves' and the 18 conv
+    kernels'), the embedding's dequantization (``embed_decode`` range),
+    the gates' dequantization and matmuls (``rglru_gates``), the rest of
+    the RG-LRU step (``rglru`` less ``rglru_gates``: conv, recurrence,
+    GELU, state writes), the local attention (``local_attention``), the
+    tied head (``aten::mm`` outside ``rglru_gates``) and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+    from repro_torch.serving import kvcache, protected
+
+    torch.cuda.empty_cache()
+    step = protected.make_serve_step(cfg, plan=plan, backend="cuda")
+    cache = kvcache.init_cache(cfg, batch, 64, device=dev)
+    tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+
+    def run(t0, t1):
+        nonlocal cache, tok
+        for t in range(t0, t1):
+            pos = torch.full((batch,), t, dtype=torch.int32, device=dev)
+            logits, cache, _ = step(enc, cache, tok, pos)
+            tok = logits.argmax(dim=-1)
+
+    n = 4
+    run(0, 1)
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.time()
+        run(1, 1 + n)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+    ranges = ("embed_decode", "rglru", "rglru_gates", "local_attention")
+    kernels = _profile_table(torch, prof, wall_ms,
+                             f"{n} full-width {cfg.name} decode steps",
+                             "chip_smoke_hybrid_profile.txt", ranges=ranges,
+                             steps=n)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    split = _kernel_split(kernels, {
+        "projections (ecc_qmatmul)": QMM_KERNELS})
+    dec = sorted((e.device_time_total / 1e3 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "::decode_kernel" in e.name), reverse=True)
+    n_conv = 2 * lm.n_scan_layers(cfg) + lm.hybrid_tail_layers(cfg)
+    n_gate = 2 * n_conv          # two gates per RG-LRU layer
+    # a step launches exactly these (phase_hybrid checks build.COUNTS),
+    # but the profiler can drop device events at the start of its
+    # window: the embedding's decodes (~50x a gate leaf's bytes) are told
+    # by their time, then each of them stands for one step's gate decodes,
+    # the largest of the rest, and the conv kernels' take what is left
+    emb = [d for d in dec if d > 0.25 * dec[0]]
+    steps_seen = len(emb)
+    log(f"{cfg.name} profile: {len(dec)} ecc_decode kernel events, "
+        f"{steps_seen} of them the embedding's, in {n} steps (a step "
+        f"launches 1 embedding + {n_gate} gate + {n_conv} conv-kernel "
+        f"decodes)")
+    rest = dec[steps_seen:]
+    split["embedding decode (decode_kernel)"] = sum(emb)
+    split["gate decodes (decode_kernel)"] = sum(rest[:steps_seen * n_gate])
+    split["conv-kernel decodes (decode_kernel)"] = \
+        sum(rest[steps_seen * n_gate:])
+    rng = dict.fromkeys(ranges, 0.0)
+    gate_mm = head_mm = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        if e.name in rng:
+            rng[e.name] += e.device_time_total / 1e3
+        elif e.name == "aten::mm":
+            p, inside = e.cpu_parent, False
+            while p is not None and not inside:
+                inside, p = p.name == "rglru_gates", p.cpu_parent
+            if inside:
+                gate_mm += e.self_device_time_total / 1e3
+            else:
+                head_mm += e.self_device_time_total / 1e3
+    split["embedding dequantization (embed_decode)"] = rng["embed_decode"]
+    split["gate dequantization + matmuls (rglru_gates)"] = rng["rglru_gates"]
+    split["RG-LRU glue (rglru less rglru_gates)"] = \
+        rng["rglru"] - rng["rglru_gates"]
+    split["local attention (local_attention)"] = rng["local_attention"]
+    split["tied head (aten::mm)"] = head_mm
+    split["the rest (norms, SwiGLU glue, argmax, decode dequant of conv)"] = \
+        busy - sum(split.values())
+    log(f"{cfg.name} decode profile split (device ms over {n} steps, "
+        f"{busy:.2f} busy of {wall_ms:.2f} wall; gate matmuls alone "
+        f"{gate_mm:.2f}): " + ", ".join(f"{k} {v:.2f}"
+                                        for k, v in split.items()))
+    with open(OUT_DIR / "chip_smoke_hybrid_profile.json", "w") as fh:
+        json.dump({"config": cfg.name, "steps": n, "wall_ms": wall_ms,
+                   "busy_ms": busy, "split_ms": split,
+                   "gate_matmul_ms": gate_mm,
+                   "launches": sum(e.count for e in kernels)}, fh, indent=1)
+    del cache
+
 
 if __name__ == "__main__":
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")

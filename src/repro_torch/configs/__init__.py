@@ -11,7 +11,7 @@ import importlib
 from repro_torch.models.config import ArchConfig  # noqa: F401
 
 ARCH_IDS = ["deepseek-7b", "minitron-4b", "qwen1.5-4b", "phi3-medium-14b",
-            "paligemma-3b", "whisper-base"]
+            "paligemma-3b", "whisper-base", "recurrentgemma-2b"]
 
 
 def _module(name: str):

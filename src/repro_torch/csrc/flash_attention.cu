@@ -1,4 +1,5 @@
-// Causal flash attention (online softmax) for the prefill.
+// Causal flash attention (online softmax) for the prefill, optionally over
+// a sliding window.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (its _kernel and the _norm_kernel second pass). q, k, v, out: (BH, S, D)
@@ -23,6 +24,20 @@
 // kernel computes what the TPU's two passes compute. A ragged S is masked:
 // key rows past S load as 0 and are causally invisible to every real
 // query; query rows past S are not written.
+//
+// Sliding window (window > 0; the hybrid family's local attention): key j
+// is visible to query q iff 0 <= q - j < window. The key-tile loop then
+// starts at the tile of the oldest key visible to the CTA's first query
+// row, (max(0, q0 - window + 1) / 64), so a CTA visits about window / 64
+// + 1 tiles, not all tiles up to the diagonal. Besides the diagonal tile,
+// the low edge tiles (those holding a key at least `window` older than
+// the CTA's last row) are masked. A row whose first visible key lies past
+// the CTA's first tile sees a wholly masked tile first: m stays -1e30, p
+// = exp(0) = 1 and l, o take those values, until its first visible tile,
+// where alpha = exp(-1e30 - m_new) is exactly 0 in f32 and wipes them.
+// The plain version walks the same tiles, so both take that path on the
+// same rows. The window is a template flag: window = 0 instantiates the
+// causal kernel exactly as it was.
 //
 // Routes by dtype:
 // * bf16 (tensor cores, FlashAttention-2 layout): 4 warps, each owning 16
@@ -80,12 +95,13 @@ constexpr size_t tc_smem_bytes() {
   return (size_t)(BQ + 4 * BK) * (D + 8) * sizeof(__nv_bfloat16);
 }
 
-template <int D>
+template <int D, bool WIN>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ out, int S, float sm_scale) {
+                __nv_bfloat16* __restrict__ out, int S, float sm_scale,
+                int window) {
   constexpr int LD = D + 8;      // padded row, in bf16
   constexpr int CH = D / 8;      // 16-byte chunks per row
   constexpr int KS = D / 16;     // k-steps of Q K^T
@@ -120,7 +136,10 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async16(vd + r * LD + c * 8, v + off, in);
     }
   };
-  load_kv(0, 0);
+  // the first key tile: 0, or with a window the tile of the oldest key
+  // visible to the CTA's first row
+  const int kt0 = WIN ? max(0, q0 - window + 1) / BK : 0;
+  load_kv(kt0, kt0 & 1);
   cp_async_commit();
 
   float o[NO][4];
@@ -133,13 +152,13 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* qrow = Qs + (warp * 16 + (lane & 15)) * LD +
                               (lane >> 4) * 8;
 
-  for (int kt = 0; kt <= qt; ++kt) {
+  for (int kt = kt0; kt <= qt; ++kt) {
     cp_async_wait<0>();
     __syncthreads();  // tile kt landed; every warp is done with tile kt-1
     if (kt < qt) load_kv(kt + 1, (kt + 1) & 1);
     cp_async_commit();
     if constexpr (Q_REGS) {
-      if (kt == 0) {
+      if (kt == kt0) {
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(qf[kk], qrow + kk * 16);
       }
@@ -173,14 +192,22 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     // online softmax on the fragments: s[j][e] is row row0 + 8*(e >> 1),
     // key kt*64 + 8j + 2*t4 + (e & 1)
     const bool diag = kt == qt;
+    // with a window, a tile holding a key `window` or more older than the
+    // CTA's last row is masked too
+    const bool low = WIN && q0 + BQ - 1 - kt * BK >= window;
     float mx[2] = {NEG, NEG};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[j][e] * sm_scale;
-        if (diag && kt * BK + 8 * j + 2 * t4 + (e & 1) > row0 + 8 * (e >> 1))
-          x = NEG;
+        const int key = kt * BK + 8 * j + 2 * t4 + (e & 1);
+        const int row = row0 + 8 * (e >> 1);
+        if constexpr (WIN) {
+          if ((diag || low) && (key > row || row - key >= window)) x = NEG;
+        } else {
+          if (diag && key > row) x = NEG;
+        }
         s[j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -273,11 +300,11 @@ constexpr size_t f32_smem_bytes() {
   return ((size_t)(BQ + 2 * BK) * (D + 1) + (size_t)BQ * PLD) * sizeof(float);
 }
 
-template <int D>
+template <int D, bool WIN>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int S,
-                 float sm_scale) {
+                 float sm_scale, int window) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
   extern __shared__ float sm[];
@@ -304,7 +331,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int last_row = min(q0 + BQ - 1, S - 1);
-  for (int k0 = 0; k0 <= last_row; k0 += BK) {
+  const int k_first = WIN ? max(0, q0 - window + 1) / BK * BK : 0;
+  for (int k0 = k_first; k0 <= last_row; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
     for (int i = tid; i < BK * D; i += F32_THREADS) {
       const int r = i / D, d = i % D;
@@ -341,7 +369,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx + 16 * j;
-        s[i][j] = row >= key ? s[i][j] * sm_scale : NEG;
+        const bool vis = WIN ? row >= key && row - key < window : row >= key;
+        s[i][j] = vis ? s[i][j] * sm_scale : NEG;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], half_max(mx));
@@ -394,50 +423,69 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool WIN>
 int launch(const void* q, const void* k, const void* v, void* out, int BH,
-           int S, float sm_scale, int is_bf16, cudaStream_t stream) {
+           int S, float sm_scale, int is_bf16, int window,
+           cudaStream_t stream) {
   const dim3 grid((S + BQ - 1) / BQ, BH);
   cudaError_t err;
   if (is_bf16) {
     constexpr size_t smem = tc_smem_bytes<D>();
-    err = cudaFuncSetAttribute(flash_tc_kernel<D>,
+    err = cudaFuncSetAttribute(flash_tc_kernel<D, WIN>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    flash_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+    flash_tc_kernel<D, WIN><<<grid, TC_THREADS, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, sm_scale);
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, sm_scale, window);
   } else {
     constexpr size_t smem = f32_smem_bytes<D>();
-    err = cudaFuncSetAttribute(flash_f32_kernel<D>,
+    err = cudaFuncSetAttribute(flash_f32_kernel<D, WIN>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    flash_f32_kernel<D><<<grid, F32_THREADS, smem, stream>>>(
+    flash_f32_kernel<D, WIN><<<grid, F32_THREADS, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)out, S,
-        sm_scale);
+        sm_scale, window);
   }
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_d(const void* q, const void* k, const void* v, void* out, int BH,
+             int S, float sm_scale, int is_bf16, int window,
+             cudaStream_t stream) {
+  return window > 0
+             ? launch<D, true>(q, k, v, out, BH, S, sm_scale, is_bf16, window,
+                               stream)
+             : launch<D, false>(q, k, v, out, BH, S, sm_scale, is_bf16, 0,
+                                stream);
 }
 
 }  // namespace
 
 // q/k/v/out: (BH, S, D) contiguous; is_bf16: 1 for bfloat16 (tensor
 // cores), 0 for float32 (CUDA cores). D in {16, 32, 64, 128, 256};
-// BH <= 65535.
+// BH <= 65535. window: 0 for causal attention, else the sliding window
+// (key j visible to query q iff 0 <= q - j < window).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int BH, int S,
                                       int D, float sm_scale, int is_bf16,
-                                      void* stream) {
-  if (BH < 1 || BH > 65535 || S < 1) return (int)cudaErrorInvalidValue;
+                                      int window, void* stream) {
+  if (BH < 1 || BH > 65535 || S < 1 || window < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
-    case 16: return launch<16>(q, k, v, out, BH, S, sm_scale, is_bf16, s);
-    case 32: return launch<32>(q, k, v, out, BH, S, sm_scale, is_bf16, s);
-    case 64: return launch<64>(q, k, v, out, BH, S, sm_scale, is_bf16, s);
-    case 128: return launch<128>(q, k, v, out, BH, S, sm_scale, is_bf16, s);
-    case 256: return launch<256>(q, k, v, out, BH, S, sm_scale, is_bf16, s);
+    case 16:
+      return launch_d<16>(q, k, v, out, BH, S, sm_scale, is_bf16, window, s);
+    case 32:
+      return launch_d<32>(q, k, v, out, BH, S, sm_scale, is_bf16, window, s);
+    case 64:
+      return launch_d<64>(q, k, v, out, BH, S, sm_scale, is_bf16, window, s);
+    case 128:
+      return launch_d<128>(q, k, v, out, BH, S, sm_scale, is_bf16, window, s);
+    case 256:
+      return launch_d<256>(q, k, v, out, BH, S, sm_scale, is_bf16, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

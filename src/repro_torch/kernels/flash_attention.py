@@ -1,4 +1,5 @@
-"""Causal flash attention (online softmax) for the prefill.
+"""Causal flash attention (online softmax) for the prefill, optionally
+over a sliding window.
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention`` (its
 ``_kernel`` and the ``_norm_kernel`` second pass; ``csrc/flash_attention.cu``).
@@ -21,6 +22,18 @@ tile; only the order of the f32 sums differs.
 Unlike the reference, which asserts that S divides into tiles, a ragged S
 is masked: keys past S are causally invisible to every real query, and
 query rows past S are not written.
+
+``window > 0`` (the hybrid family's local attention; the reference's
+models compute it with ``chunked_causal_attention(window=)`` and never
+reach its flash kernel) lets query q see key j iff ``0 <= q - j <
+window``. A query tile then starts at the first key tile that holds a
+visible key for its first row, so the work is about S * window, not S^2 /
+2. A row whose first visible key lies past that tile sees a wholly masked
+tile first: it accumulates ``p = exp(-1e30 - (-1e30)) = 1`` there, and the
+next tile's ``alpha = exp(-1e30 - m)`` is exactly 0 in f32, which wipes
+it. The plain version walks the same tiles per query tile, so both take
+that path on the same rows. ``window = 0`` is the causal kernel,
+unchanged.
 """
 from __future__ import annotations
 
@@ -36,43 +49,61 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def flash_attention_plain(q, k, v, *, bq: int = KERNEL_BQ,
-                          bk: int = KERNEL_BK):
+                          bk: int = KERNEL_BK, window: int = 0):
     """Plain PyTorch version with the reference kernel's op order.
 
-    q,k,v: (B, H, S, D) -> (B, H, S, D) in q's dtype, causal. Per key tile
-    of ``bk`` keys (``bk`` clamped to S; a ragged tail is zero-padded and
-    masked): scores from the inputs' values with f32 accumulation (not
-    rounded), times ``1/sqrt(D)``, masked with -1e30; ``m_new = max(m,
-    rowmax)``, ``p = exp(s - m_new)``, ``alpha = exp(m - m_new)``,
-    ``l = l*alpha + sum p``, ``o = o*alpha + p.astype(v.dtype) @ v`` in f32;
-    finally ``o / max(l, 1e-30)`` in q's dtype. Query tiles do not change
-    the arithmetic (a tile past the diagonal only multiplies by 1 and adds
-    0), so ``bq`` only has to be positive.
+    q,k,v: (B, H, S, D) -> (B, H, S, D) in q's dtype, causal, and with
+    ``window > 0`` blind to keys ``window`` or more positions back (see the
+    module docstring; ``window = 0`` means no window). Each query tile of
+    ``bq`` rows (zero-padded past S) walks the key tiles of ``bk`` keys
+    (``bk`` clamped to S; a ragged tail is zero-padded and masked) as the
+    kernel walks them: from the tile holding its first row's oldest visible
+    key (tile 0 without a window) to its last row's diagonal, every query
+    tile at once, step r visiting tile ``lo + r``. Per key tile: scores
+    from the inputs' values with f32 accumulation (not rounded), times
+    ``1/sqrt(D)``, masked with -1e30; ``m_new = max(m, rowmax)``, ``p =
+    exp(s - m_new)``, ``alpha = exp(m - m_new)``, ``l = l*alpha + sum p``,
+    ``o = o*alpha + p.astype(v.dtype) @ v`` in f32; finally ``o / max(l,
+    1e-30)`` in q's dtype. A step past a query tile's diagonal is wholly
+    masked and leaves its state exactly as it was (``p = 0``, ``alpha =
+    1``: every row has seen its own key by then), so ``bq`` changes the
+    arithmetic only where a window starts a walk.
     """
     if bq < 1 or bk < 1:
         raise ValueError(f"tile sizes must be positive, got {(bq, bk)}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
     b, h, s, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} must match")
+    window = window or s
     bk = min(bk, s)
-    pad = (-s) % bk
-    if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    dev = q.device
+    nq, nk = -(-s // bq), -(-s // bk)
+    qt = torch.nn.functional.pad(q, (0, 0, 0, nq * bq - s)).to(
+        torch.float32).reshape(b, h, nq, bq, d)
+    kt, vt = (torch.nn.functional.pad(t, (0, 0, 0, nk * bk - s)).reshape(
+        b, h, nk, bk, d) for t in (k, v))
+    q0 = torch.arange(nq, device=dev) * bq
+    lo = torch.clamp(q0 - window + 1, min=0) // bk
+    hi = torch.clamp(q0 + bq - 1, max=s - 1) // bk
+    qpos = (q0[:, None] + torch.arange(bq, device=dev))[:, :, None]
     scale = float(np.float32(1.0 / np.sqrt(d)))
-    qf = q.to(torch.float32)
-    qpos = torch.arange(s, device=q.device)[:, None]
-    m = torch.full((b, h, s, 1), NEG_INF, dtype=torch.float32,
-                   device=q.device)
+    m = torch.full((b, h, nq, bq, 1), NEG_INF, dtype=torch.float32,
+                   device=dev)
     l = torch.zeros_like(m)
-    o = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
-    for j in range((s + pad) // bk):
-        kj = k[:, :, j * bk:(j + 1) * bk]
-        vj = v[:, :, j * bk:(j + 1) * bk]
-        sc = qf @ kj.to(torch.float32).transpose(-1, -2) * scale
-        kpos = j * bk + torch.arange(bk, device=q.device)[None, :]
-        sc = torch.where(qpos >= kpos, sc, NEG_INF)
+    o = torch.zeros((b, h, nq, bq, d), dtype=torch.float32, device=dev)
+    for r in range(int((hi - lo).max()) + 1):
+        j = lo + r
+        live = j <= hi
+        j = torch.clamp(j, max=nk - 1)
+        kj, vj = kt[:, :, j], vt[:, :, j]               # (b, h, nq, bk, d)
+        sc = qt @ kj.to(torch.float32).transpose(-1, -2) * scale
+        kpos = (j * bk)[:, None, None] + torch.arange(bk, device=dev)
+        age = qpos - kpos
+        sc = torch.where((age >= 0) & (age < window) & live[:, None, None],
+                         sc, NEG_INF)
         m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
         p = torch.exp(sc - m_new)
         alpha = torch.exp(m - m_new)
@@ -80,16 +111,20 @@ def flash_attention_plain(q, k, v, *, bq: int = KERNEL_BQ,
         o = o * alpha + p.to(v.dtype).to(torch.float32) @ \
             vj.to(torch.float32)
         m = m_new
-    return (o / torch.clamp(l, min=1e-30)).to(q.dtype)
+    out = (o / torch.clamp(l, min=1e-30)).to(q.dtype)
+    return out.reshape(b, h, nq * bq, d)[:, :, :s].contiguous()
 
 
-def flash_attention(q, k, v, *, bq: int = KERNEL_BQ, bk: int = KERNEL_BK):
+def flash_attention(q, k, v, *, bq: int = KERNEL_BQ, bk: int = KERNEL_BK,
+                    window: int = 0):
     """Kernel wrapper of :func:`flash_attention_plain` (same contract). GQA
     callers broadcast KV heads beforehand. The kernel's tiles are fixed at
     64 x 64 and its head dims at :data:`KERNEL_HEAD_DIMS`; it raises on
     others."""
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v, bq=bq, bk=bk)
+        return flash_attention_plain(q, k, v, bq=bq, bk=bk, window=window)
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
     if (bq, bk) != (KERNEL_BQ, KERNEL_BK):
         raise ValueError(f"flash_attention kernel tiles are "
                          f"{(KERNEL_BQ, KERNEL_BK)}, got {(bq, bk)}")
@@ -115,7 +150,7 @@ def flash_attention(q, k, v, *, bq: int = KERNEL_BQ, bk: int = KERNEL_BK):
         build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), b * h, s, d,
                        float(np.float32(1.0 / np.sqrt(d))),
-                       int(q.dtype == torch.bfloat16),
+                       int(q.dtype == torch.bfloat16), int(window),
                        build.stream_ptr(q.device)), "flash_attention")
         build.COUNTS["flash_attention"] += 1
     return out

@@ -33,8 +33,12 @@ is the same path as a function.
 
 The CLI serves the smoke configs (``configs.get_smoke``), as the reference
 CLI does; :func:`serve` and :func:`burst` take any config, e.g. the
-full-width ``configs.get("deepseek-7b")``. The fault smoke-check campaigns
-and scrubbing are not ported yet.
+full-width ``configs.get("deepseek-7b")``. The encdec (whisper-base) and
+hybrid (recurrentgemma-2b: RG-LRU states and a ring KV cache of its
+attention window) families serve their dense caches only: a prompt, a
+paged ``--kv-policy`` or ``--burst`` raises ``ValueError`` for them, as
+the reference's paged cache does. The fault smoke-check campaigns and
+scrubbing are not ported yet.
 """
 from __future__ import annotations
 
@@ -59,6 +63,16 @@ def _sync(dev) -> None:
 
 
 default_backend = device_mod.default_backend
+
+
+def _needs_paged(cfg, what: str) -> None:
+    """Raise ``ValueError`` before any work when ``what`` needs the paged
+    KV cache and ``cfg``'s family has none (encdec, hybrid), in the
+    reference's ``init_paged_cache`` words."""
+    if not kvcache.supports_paged(cfg):
+        raise ValueError(f"{what} needs the paged KV cache: paged KV cache "
+                         f"supports dense/vlm/moe-gqa decode caches, not "
+                         f"family {cfg.family!r}")
 
 
 def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
@@ -112,6 +126,10 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
         f"head), scheme={scheme}, backend={backend}, fault_rate={fault_rate}"
         f"{' (correctable only)' if correctable_only else ''}, device={dev}")
     kvp = kvcache.get_kv_policy(kv_policy)
+    if prompt_len:
+        _needs_paged(cfg, "a prompt (prefilled into the KV cache)")
+    if kvp is not None:
+        _needs_paged(cfg, f"kv_policy {kv_policy!r}")
     if prompt_len and kvp is None:
         raise ValueError("a prompt is prefilled into the paged KV cache: "
                          "pass a kv_policy")
@@ -295,6 +313,7 @@ def burst(cfg, *, batch: int = 4, tokens: int = 16, seed: int = 0,
     from repro_torch.serving import frontend, telemetry
 
     dev = device_mod.resolve(device)
+    _needs_paged(cfg, "burst serving")
     if backend is None:
         backend = default_backend(dev)
     kvp = kvcache.get_kv_policy(kv_policy or "in-place")

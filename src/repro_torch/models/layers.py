@@ -1,11 +1,14 @@
-"""Model building blocks of the dense decoder and the encoder-decoder
-(pure functions over dicts).
+"""Model building blocks of the dense decoder, the encoder-decoder and the
+hybrid RG-LRU decoder (pure functions over dicts).
 
-Counterpart of the dense and encoder-decoder subset of
+Counterpart of the dense, encoder-decoder and hybrid subset of
 ``repro.models.layers``: RMS and layer norms, RoPE, single-token GQA
-attention, full-sequence GQA attention (training, the cache-less forward
-and the bidirectional encoder), chunked causal attention,
-cross-attention, the SwiGLU and GELU MLPs, embedding and logits. ``wt`` is the weight transform of QAT training (fake-quant): it
+attention (over a dense cache, or a ring of ``window`` slots), full-sequence
+GQA attention (training, the cache-less forward and the bidirectional
+encoder; causal, or over a sliding window), chunked causal attention,
+cross-attention, the SwiGLU and GELU MLPs, the RG-LRU recurrent block with
+its depthwise causal conv (full sequence and single step), embedding and
+logits. ``wt`` is the weight transform of QAT training (fake-quant): it
 applies to projection weights and the head only, never to the embedding
 lookup or to norms, and defaults to the identity so the serve paths are
 untouched. Where the reference routes fault flags, ABFT counts and
@@ -240,7 +243,10 @@ def gqa_attention(p, x, cfg, *, positions, wt=Identity, causal=True,
     """Attention over a full sequence (training, cache-less forward).
     x: (B, S, D); positions: (B, S) int. ``attention`` routes the causal
     attention: "torch" (:func:`chunked_causal_attention`) or "cuda" (the
-    flash kernel; no window)."""
+    flash kernel). ``window > 0`` restricts each query to the ``window``
+    newest keys up to itself on both routes; a window of at least S covers
+    every key and is dropped, as :func:`chunked_causal_attention` drops
+    it."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _proj(x, p["wq"], p.get("bq"), wt).reshape(b, s, h, hd)
@@ -253,11 +259,9 @@ def gqa_attention(p, x, cfg, *, positions, wt=Identity, causal=True,
     v = v.repeat_interleave(rep, dim=2)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     if causal and attention == "cuda":
-        if window:
-            raise NotImplementedError("the flash kernel has no sliding "
-                                      "window")
         from repro_torch.kernels import flash_attention
-        o = flash_attention.flash_attention(q, k, v)
+        o = flash_attention.flash_attention(q, k, v,
+                                            window=window if window < s else 0)
     elif causal:
         o = chunked_causal_attention(q, k, v, chunk=chunk, window=window)
     else:  # bidirectional (an encoder)
@@ -267,11 +271,16 @@ def gqa_attention(p, x, cfg, *, positions, wt=Identity, causal=True,
     return _proj(o, p["wo"], None, wt)
 
 
-def gqa_decode(p, x, cfg, cache, *, pos):
+def gqa_decode(p, x, cfg, cache, *, pos, window=0):
     """Single-token decode over a dense cache. x: (B,1,D); cache: {"k","v":
     (B, Smax, kv, hd)} — this layer's slice, written IN PLACE (the port
     updates the cache where the reference returns a new one).
-    Returns (out, cache)."""
+
+    ``window > 0`` makes the cache a ring: token ``pos`` goes to slot ``pos
+    % Smax``, and slot j, which holds the newest token t <= pos with t %
+    Smax == j (age ``(pos - j) % Smax``), is attended iff its age is below
+    ``min(window, Smax)`` and at most ``pos`` (it was written), as the
+    reference masks it. Returns (out, cache)."""
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _proj(x, p["wq"], p.get("bq")).reshape(b, 1, h, hd)
@@ -280,13 +289,19 @@ def gqa_decode(p, x, cfg, cache, *, pos):
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
     rows = torch.arange(b, device=x.device)
-    cache["k"][rows, pos] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, pos] = v[:, 0].to(cache["v"].dtype)
     smax = cache["k"].shape[1]
+    slot = pos % smax if window else pos
+    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
     rep = h // kv
     kh = cache["k"].repeat_interleave(rep, dim=2).transpose(1, 2)  # (B,H,S,hd)
     vh = cache["v"].repeat_interleave(rep, dim=2).transpose(1, 2)
-    valid = torch.arange(smax, device=x.device)[None, :] <= pos[:, None]
+    slots = torch.arange(smax, device=x.device)[None, :]
+    if window:
+        age = (pos[:, None] - slots) % smax
+        valid = (age < min(window, smax)) & (age <= pos[:, None])
+    else:
+        valid = slots <= pos[:, None]
     o = decode_attention(q.transpose(1, 2), kh, vh, valid)
     o = o.transpose(1, 2).reshape(b, 1, h * hd)
     return _proj(o, p["wo"]), cache
@@ -324,6 +339,114 @@ def cross_attention(p, x, kv, cfg, wt=Identity):
     o = o / torch.clamp(l, min=1e-30)[..., None].to(o.dtype)
     o = o.transpose(1, 2).reshape(b, s, h * hd)
     return _proj(o, p["wo"], None, wt)
+
+
+# --------------------------------------------------------------------------
+# RG-LRU (the hybrid family's recurrent block)
+# --------------------------------------------------------------------------
+
+
+def _causal_conv(x, w):
+    """Depthwise causal conv. x: (B, L, C); w: (K, C). Tap i reads the
+    input ``K - 1 - i`` steps back (zeros before the start), summed in the
+    reference's order in x's dtype."""
+    k = w.shape[0]
+    out = torch.zeros_like(x)
+    for i in range(k):
+        shift = k - 1 - i
+        xi = F.pad(x, (0, 0, shift, 0))[:, : x.shape[1]]
+        out = out + xi * w[i].to(x.dtype)
+    return out
+
+
+def rglru_params_shape(cfg):
+    d, w = cfg.d_model, cfg.lru_width or cfg.d_model
+    return {"w_x": (d, w), "w_y_gate": (d, w),
+            "conv_w": (cfg.ssm_conv_width or 4, w),
+            "w_input_gate": (w, w), "w_a_gate": (w, w), "a_param": (w,),
+            "w_out": (w, d)}
+
+
+_C_RGLRU = 8.0
+
+
+def _dense(w, dtype):
+    """A weight as a tensor in ``dtype``: a decode-at-use view decodes the
+    whole leaf (``ProtectedWeight.astype``, the ``ecc_decode`` kernel on
+    the card), a tensor is cast. The RG-LRU's two gate matmuls take their
+    weights so, as the reference's ``wt(w).astype(x.dtype)`` does."""
+    if getattr(w, "decode_at_use", False):
+        return w.astype(dtype)
+    return w.to(dtype)
+
+
+def _rglru_coeffs(x_in, i_gate, a_gate, a_param):
+    """The recurrence's f32 coefficients: ``a = exp(-8 softplus(a_param)
+    sigmoid(a_gate))`` and ``b = sqrt(max(1 - a^2, 1e-12)) (i_gate *
+    x_in)``."""
+    log_a = -_C_RGLRU * F.softplus(a_param) * torch.sigmoid(a_gate)
+    a = torch.exp(log_a.to(torch.float32))
+    gated = (i_gate * x_in).to(torch.float32)
+    return a, torch.sqrt(torch.clamp(1 - a * a, min=1e-12)) * gated
+
+
+def _linear_scan(a, b):
+    """``h_t = a_t h_{t-1} + b_t`` from ``h_{-1} = 0`` over axis 1, as a
+    log-depth doubling scan: for d = 1, 2, 4, ... each step composes
+    position t with t - d (``a_t a_{t-d}``, ``a_t b_{t-d} + b_t``), so an
+    L-step recurrence takes ceil(log2 L) whole-tensor passes, not L small
+    ones; multiplying the a's never underflows to a wrong value the way a
+    cumulative sum of ``log a`` exponentiated would. It sums in another
+    order than the reference's ``associative_scan``."""
+    d, n = 1, a.shape[1]
+    while d < n:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return b
+
+
+def _rglru_scan(x_in, i_gate, a_gate, a_param):
+    """h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t * x_t) over L, in f32,
+    returned in x_in's dtype."""
+    a, b = _rglru_coeffs(x_in, i_gate, a_gate, a_param)
+    return _linear_scan(a, b).to(x_in.dtype)
+
+
+def rglru_block(p, x, cfg, wt=Identity):
+    """The recurrent block over a full sequence (training, the cache-less
+    forward). x: (B, S, D)."""
+    xw = _proj(x, p["w_x"], None, wt)
+    xw = F.silu(_causal_conv(xw, p["conv_w"]))
+    i_gate = torch.sigmoid(xw @ _dense(wt(p["w_input_gate"]), xw.dtype))
+    a_gate = xw @ _dense(wt(p["w_a_gate"]), xw.dtype)
+    h = _rglru_scan(xw, i_gate, a_gate, p["a_param"])
+    y_gate = F.gelu(_proj(x, p["w_y_gate"], None, wt), approximate="tanh")
+    return _proj(h * y_gate, p["w_out"], None, wt)
+
+
+def rglru_decode(p, x, cfg, cache):
+    """One step of the recurrence. x: (B, 1, D); cache: {"h": (B, w),
+    "conv": (B, K-1, w)} — this layer's slice, written IN PLACE: ``h`` is
+    rounded to x's dtype every step (then stored in the cache's), as in
+    the reference. Returns (out (B, 1, D), cache). Profiler ranges:
+    ``rglru`` (the step's PyTorch ops), within it ``rglru_gates`` (the two
+    gate weights' dequantization and matmuls)."""
+    with torch.profiler.record_function("rglru"):
+        xw = _proj(x[:, 0], p["w_x"])                   # (B, w)
+        hist = torch.cat([cache["conv"], xw[:, None]], dim=1)
+        xw = F.silu(torch.einsum("bkc,kc->bc", hist,
+                                 p["conv_w"].to(hist.dtype)))
+        with torch.profiler.record_function("rglru_gates"):
+            i_gate = torch.sigmoid(xw @ _dense(p["w_input_gate"], xw.dtype))
+            a_gate = xw @ _dense(p["w_a_gate"], xw.dtype)
+        a, b = _rglru_coeffs(xw, i_gate, a_gate, p["a_param"])
+        h = (cache["h"].to(torch.float32) * a + b).to(x.dtype)
+        y_gate = F.gelu(_proj(x[:, 0], p["w_y_gate"]), approximate="tanh")
+        out = _proj(h * y_gate, p["w_out"])[:, None]
+        cache["h"].copy_(h)
+        cache["conv"].copy_(hist[:, 1:])
+    return out, cache
 
 
 # --------------------------------------------------------------------------

@@ -1,8 +1,9 @@
-"""LM of the dense, vlm and encdec families: parameter init, the
+"""LM of the dense, vlm, encdec and hybrid families: parameter init, the
 cache-less full-sequence forward and its loss (training), KV cache, the
 decode step and the prefill into a paged KV cache.
 
-Counterpart of the dense, vlm and encdec families of ``repro.models.lm``.
+Counterpart of the dense, vlm, encdec and hybrid families of
+``repro.models.lm``.
 The vlm family (PaliGemma's backbone) is the dense decoder with the Gemma
 input scale ``sqrt(d_model)``, tied embeddings (the head is ``embed.T``)
 and, in ``forward`` and ``loss_fn`` only, precomputed image-patch
@@ -12,9 +13,16 @@ precomputed frame embeddings (``enc_embeds``, in ``forward`` and
 ``loss_fn``), and decoder blocks of causal self-attention,
 cross-attention over the encoder's output and a biased GELU MLP; its
 decode step reads the cross-attention K and V from the cache
-(``cross_k``, ``cross_v``). Per-layer params are stacked along a leading
-L axis, as in the reference; a Python loop over layers takes the place of
-``lax.scan``. Other families (MoE, MLA, SSM, hybrid) are not ported yet.
+(``cross_k``, ``cross_v``). The hybrid family (RecurrentGemma) stacks
+super-blocks of two RG-LRU sublayers and one local-attention sublayer
+(each followed by a SwiGLU MLP) in ``layers``, and the ``n_layers % 3``
+RG-LRU layers left over in a second stacked subtree, ``tail``, with its
+own flags row; it has the Gemma input scale and a tied head, and its
+decode cache holds each RG-LRU's state and conv history and a ring KV
+cache of ``attn_window`` slots. Per-layer params are stacked along a
+leading L axis, as in the reference; a Python loop over layers takes the
+place of ``lax.scan``. The MoE (and MLA) and SSM families are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -28,7 +36,7 @@ from repro_torch import tree
 from . import layers as L
 from .config import ArchConfig
 
-FAMILIES = ("dense", "vlm", "encdec")
+FAMILIES = ("dense", "vlm", "encdec", "hybrid")
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -51,8 +59,25 @@ def _layer_shapes(cfg: ArchConfig) -> dict:
                 "mlp": L.gelu_mlp_params_shape(cfg),
                 "ln1": _norm_shape(cfg), "ln2": _norm_shape(cfg),
                 "ln3": _norm_shape(cfg)}
+    if cfg.family == "hybrid":
+        # a super-block of 3 layers: [rglru, rglru, local attention]
+        blk = {}
+        for i in range(2):
+            blk.update(_rg_shapes(cfg, f"rg{i}"))
+        blk.update({"attn": L.gqa_params_shape(cfg),
+                    "attn_mlp": L.swiglu_params_shape(cfg),
+                    "attn_ln1": _norm_shape(cfg),
+                    "attn_ln2": _norm_shape(cfg)})
+        return blk
     return {"attn": L.gqa_params_shape(cfg), "mlp": L.swiglu_params_shape(cfg),
             "ln1": _norm_shape(cfg), "ln2": _norm_shape(cfg)}
+
+
+def _rg_shapes(cfg: ArchConfig, name: str) -> dict:
+    """One RG-LRU layer's subtrees: the block, its MLP and their norms."""
+    return {name: L.rglru_params_shape(cfg),
+            f"{name}_mlp": L.swiglu_params_shape(cfg),
+            f"{name}_ln1": _norm_shape(cfg), f"{name}_ln2": _norm_shape(cfg)}
 
 
 def _enc_layer_shapes(cfg: ArchConfig) -> dict:
@@ -63,16 +88,33 @@ def _enc_layer_shapes(cfg: ArchConfig) -> dict:
 
 
 def n_scan_layers(cfg: ArchConfig) -> int:
+    """Stacked layers of ``layers``: the hybrid family's are super-blocks
+    of three."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // 3
     return cfg.n_layers
 
 
+def hybrid_tail_layers(cfg: ArchConfig) -> int:
+    """The hybrid family's RG-LRU layers after the last super-block (the
+    ``tail`` subtree); 0 for other families."""
+    if cfg.family != "hybrid":
+        return 0
+    return cfg.n_layers - 3 * (cfg.n_layers // 3)
+
+
 def _init_kind(name: str, shp: tuple):
-    """The reference's per-name init: norm weights one, biases zero, the
-    rest normal with std 0.02 (vectors) or 1/sqrt(fan_in) (matrices)."""
+    """The reference's per-name init: the RG-LRU's ``a_param`` 1.3, norm
+    weights one, biases zero, conv kernels normal with std 0.1, the rest
+    normal with std 0.02 (vectors) or 1/sqrt(fan_in) (matrices)."""
+    if name == "a_param":
+        return "full", 1.3
     if name == "w":
         return "ones", None
     if name == "b" or name.startswith("b_"):
         return "zeros", None
+    if name.startswith("conv"):
+        return "normal", 0.1
     return "normal", (0.02 if len(shp) < 2 else 1.0 / np.sqrt(shp[-2]))
 
 
@@ -86,6 +128,9 @@ def _leaf_specs(cfg: ArchConfig):
     if not cfg.tie_embeddings:   # tied: the head is embed.T, no leaf
         yield ("head",), (d, v), ("normal", 1.0 / np.sqrt(d))
     stacks = [("layers", n_scan_layers(cfg), _layer_shapes(cfg))]
+    if hybrid_tail_layers(cfg):
+        stacks.append(("tail", hybrid_tail_layers(cfg),
+                       _rg_shapes(cfg, "rg0")))
     if cfg.family == "encdec":
         stacks.append(("enc_layers", cfg.enc_layers, _enc_layer_shapes(cfg)))
     for key, nl, subs in stacks:
@@ -119,13 +164,15 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     out: dict = {}
-    for path, shape, (kind, std) in _leaf_specs(cfg):
+    for path, shape, (kind, val) in _leaf_specs(cfg):
         if kind == "ones":
             t = torch.ones(shape, device=dev)
+        elif kind == "full":
+            t = torch.full(shape, val, device=dev)
         elif kind == "zeros":
             t = torch.zeros(shape, device=dev)
         else:
-            t = torch.randn(shape, generator=gen, device=dev).mul_(std)
+            t = torch.randn(shape, generator=gen, device=dev).mul_(val)
         tree.set_path(out, path,
                       leaf_fn(path, t) if leaf_fn is not None else t)
         del t
@@ -136,13 +183,29 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device=None) -> dict:
     """Dense KV cache ``{"k", "v": (L, B, max_len, kv, hd)}``; the encdec
     family adds the cross-attention ``{"cross_k", "cross_v": (L, B,
-    enc_seq, H, hd)}``, zero until the caller fills them."""
+    enc_seq, H, hd)}``, zero until the caller fills them. The hybrid
+    family's K and V are a ring of ``attn_window`` slots whatever
+    ``max_len`` is, beside each super-block's RG-LRU states ``rg{0,1}_h``
+    (L, B, w) and conv histories ``rg{0,1}_conv`` (L, B, K-1, w), and the
+    tail's ``tail_h`` and ``tail_conv``; every state is in ``dtype``, as
+    in the reference."""
     dev = device_mod.resolve(device)
     _check_family(cfg)
     nl = n_scan_layers(cfg)
-    shape = (nl, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    slots = cfg.attn_window if cfg.family == "hybrid" else max_len
+    shape = (nl, batch, slots, cfg.n_kv_heads, cfg.head_dim)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
              "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if cfg.family == "hybrid":
+        w = cfg.lru_width or cfg.d_model
+        hist = (cfg.ssm_conv_width or 4) - 1
+        for name, n in [(f"rg{i}", nl) for i in range(2)] + \
+                [("tail", hybrid_tail_layers(cfg))]:
+            if n:
+                cache[f"{name}_h"] = torch.zeros((n, batch, w), dtype=dtype,
+                                                 device=dev)
+                cache[f"{name}_conv"] = torch.zeros((n, batch, hist, w),
+                                                    dtype=dtype, device=dev)
     if cfg.family == "encdec":
         cross = (nl, batch, cfg.enc_seq, cfg.n_heads, cfg.head_dim)
         cache["cross_k"] = torch.zeros(cross, dtype=dtype, device=dev)
@@ -152,11 +215,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 def _embed_in(cfg: ArchConfig, tokens, emb, dtype, prefix_embeds=None):
     """The token embeddings, after the vlm's image-patch prefix when one is
-    given; the vlm scales the whole sequence by ``sqrt(d_model)`` rounded
-    to the activation dtype first (Gemma's convention: 45.25 in bf16 at
-    d_model 2048), as the reference does."""
+    given; the vlm and hybrid families scale the whole sequence by
+    ``sqrt(d_model)`` rounded to the activation dtype first (Gemma's
+    convention: 45.25 in bf16 at d_model 2048, 50.5 at 2560), as the
+    reference does."""
     x = L.embed(tokens, emb, dtype)
-    if cfg.family == "vlm":
+    if cfg.family in ("vlm", "hybrid"):
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=dtype,
@@ -193,18 +257,40 @@ def _unstack(sub, n: int) -> list:
 
 def _scoped_lt(layer_transform, scope: str):
     """``layer_transform`` is one callable (applied to every stacked
-    subtree) or a ``{"layers" | "enc_layers": fn}`` dict that routes each
-    stacked subtree by its own."""
+    subtree) or a ``{"layers" | "tail" | "enc_layers": fn}`` dict that
+    routes each stacked subtree by its own (paths like ``rg0/...`` exist
+    in both the hybrid decoder and its tail)."""
     if layer_transform is None or not isinstance(layer_transform, dict):
         return layer_transform
     return layer_transform.get(scope)
 
 
+def _rg_full(cfg: ArchConfig, lp, x, name: str, wt):
+    """One RG-LRU layer over a full sequence: the recurrent block, then
+    its MLP, each after its norm."""
+    nk = cfg.norm
+    x = x + L.rglru_block(lp[name], L.apply_norm(x, lp[f"{name}_ln1"], nk),
+                          cfg, wt)
+    return x + L.swiglu(lp[f"{name}_mlp"],
+                        L.apply_norm(x, lp[f"{name}_ln2"], nk), wt)
+
+
 def _block_full(cfg: ArchConfig, lp, x, positions, wt, chunk,
                 attention="torch", enc_out=None):
-    """One decoder block over a full sequence: dense, or with
-    cross-attention over ``enc_out`` and the GELU MLP (encdec)."""
+    """One decoder block over a full sequence: dense, with cross-attention
+    over ``enc_out`` and the GELU MLP (encdec), or a hybrid super-block
+    (two RG-LRU layers, then local attention over ``attn_window`` keys
+    with the chunk cut to the window, as the reference cuts it)."""
     nk = cfg.norm
+    if cfg.family == "hybrid":
+        for i in range(2):
+            x = _rg_full(cfg, lp, x, f"rg{i}", wt)
+        x = x + L.gqa_attention(
+            lp["attn"], L.apply_norm(x, lp["attn_ln1"], nk), cfg,
+            positions=positions, wt=wt, window=cfg.attn_window,
+            chunk=min(chunk, cfg.attn_window or chunk), attention=attention)
+        return x + L.swiglu(lp["attn_mlp"],
+                            L.apply_norm(x, lp["attn_ln2"], nk), wt)
     x = x + L.gqa_attention(lp["attn"], L.apply_norm(x, lp["ln1"], nk), cfg,
                             positions=positions, wt=wt, chunk=chunk,
                             attention=attention)
@@ -284,7 +370,8 @@ def forward(cfg: ArchConfig, params, tokens, *, wt=L.Identity,
     the transposed embedding; the lookup reads the raw one) (QAT's
     fake-quant; per layer slice, as the reference's scan applies it);
     ``layer_transform`` maps each layer's param slice: one callable, or a
-    ``{"layers" | "enc_layers": fn}`` dict with one per stacked subtree.
+    ``{"layers" | "tail" | "enc_layers": fn}`` dict with one per stacked
+    subtree.
     With ``cfg.remat`` each layer is recomputed in the backward pass
     (``torch.utils.checkpoint``) instead of keeping its activations. ``attention`` routes the causal attention: "torch"
     (``layers.chunked_causal_attention``) or "cuda" (the flash kernel).
@@ -297,7 +384,8 @@ def forward(cfg: ArchConfig, params, tokens, *, wt=L.Identity,
     (mismatches, clamp hits) when the recorder's ABFT channel is on;
     ``acts["layers"]`` ``{leaf path: (L,) f32 absmax}``; the encdec family
     adds the encoder's rows under ``"enc_layers"`` (and
-    ``"enc_layers_abft"``). The output head records after the layers and
+    ``"enc_layers_abft"``), the hybrid family its tail's under ``"tail"``
+    (and ``"tail_abft"``). The output head records after the layers and
     stays in the recorder for the caller."""
     _check_family(cfg)
     if (collect_flags or collect_acts) and recorder is None:
@@ -331,6 +419,17 @@ def forward(cfg: ArchConfig, params, tokens, *, wt=L.Identity,
         lt=_scoped_lt(layer_transform, "layers"),
         collect_flags=collect_flags, collect_acts=collect_acts,
         recorder=recorder)
+    if cfg.family == "hybrid" and "tail" in params:
+        x, tfl, tab, tla = _run_stack(
+            cfg, lambda x, lp: _rg_full(cfg, lp, x, "rg0", wt), x,
+            params["tail"], hybrid_tail_layers(cfg),
+            lt=_scoped_lt(layer_transform, "tail"),
+            collect_flags=collect_flags, collect_acts=collect_acts,
+            recorder=recorder)
+        if collect_flags:
+            flags.update(_layer_rows(tfl, tab, "tail"))
+        if collect_acts:
+            acts["tail"] = _stack_acts(tla)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     out = L.logits(x, _head(cfg, params), wt)
     if not (collect_flags or collect_acts):
@@ -377,7 +476,10 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
     output head's counts stay in the recorder for the caller to drain.
     The encdec family cross-attends the cache's ``cross_k`` and
     ``cross_v`` (read, never written) after the self-attention, then runs
-    the GELU MLP after ``ln3``; the encoder does not run here.
+    the GELU MLP after ``ln3``; the encoder does not run here. The hybrid
+    family steps each super-block's two RG-LRU states and attends its ring
+    of ``attn_window`` slots, then steps the tail's RG-LRU layers, whose
+    counts come back in a ``"tail"`` (T, 2) row (and ``"tail_abft"``).
     """
     _check_family(cfg)
     x = _embed_in(cfg, tokens, params["embed"], dtype)
@@ -394,7 +496,12 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
         lp = _take(i, params["layers"])
         if lt is not None:
             lp = lt(lp)
-        lc = {k: v[i] for k, v in cache.items()}
+        # the tail's states have their own leading axis
+        lc = {k: v[i] for k, v in cache.items() if not k.startswith("tail")}
+        if cfg.family == "hybrid":
+            x = _hybrid_decode(cfg, lp, x, lc, pos)
+            _drain_layer(recorder, layer_flags, abft_flags)
+            continue
         h = L.apply_norm(x, lp["ln1"], cfg.norm)
         if paged:
             o, _, kvf = kvcache.paged_gqa_decode(lp["attn"], h, cfg, lc,
@@ -412,14 +519,55 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
         else:
             x = x + L.swiglu(lp["mlp"], L.apply_norm(x, lp["ln2"], cfg.norm))
         _drain_layer(recorder, layer_flags, abft_flags)
+    tail_flags, tail_abft = [], []
+    if cfg.family == "hybrid" and "tail" in params:
+        lt = _scoped_lt(layer_transform, "tail")
+        for i in range(hybrid_tail_layers(cfg)):
+            lp = _take(i, params["tail"])
+            if lt is not None:
+                lp = lt(lp)
+            x = _rg_decode(cfg, lp, x, {"h": cache["tail_h"][i],
+                                        "conv": cache["tail_conv"][i]}, "rg0")
+            _drain_layer(recorder, tail_flags, tail_abft)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     logits = L.logits(x, _head(cfg, params))
     if recorder is None:
         return logits, cache
     flags = _layer_rows(layer_flags, abft_flags)
+    if tail_flags:
+        flags.update(_layer_rows(tail_flags, tail_abft, "tail"))
     if paged:
         flags["layers_kv"] = torch.stack(kv_flags)
     return logits, cache, flags
+
+
+def _rg_decode(cfg: ArchConfig, lp, x, state: dict, name: str):
+    """One RG-LRU layer's decode step over its ``{"h", "conv"}`` state
+    (stepped in place), then its MLP."""
+    nk = cfg.norm
+    o, _ = L.rglru_decode(lp[name], L.apply_norm(x, lp[f"{name}_ln1"], nk),
+                          cfg, state)
+    x = x + o
+    return x + L.swiglu(lp[f"{name}_mlp"],
+                        L.apply_norm(x, lp[f"{name}_ln2"], nk))
+
+
+def _hybrid_decode(cfg: ArchConfig, lp, x, lc: dict, pos):
+    """One hybrid super-block's decode step: its two RG-LRU layers over
+    ``rg{0,1}_h`` / ``rg{0,1}_conv``, then local attention over the ring
+    ``k`` / ``v`` (``gqa_decode`` with the window, in a ``local_attention``
+    profiler range) and its MLP; every state of ``lc`` (this layer's
+    slice) is written in place."""
+    nk = cfg.norm
+    for i in range(2):
+        x = _rg_decode(cfg, lp, x, {"h": lc[f"rg{i}_h"],
+                                    "conv": lc[f"rg{i}_conv"]}, f"rg{i}")
+    with torch.profiler.record_function("local_attention"):
+        o, _ = L.gqa_decode(lp["attn"], L.apply_norm(x, lp["attn_ln1"], nk),
+                            cfg, {"k": lc["k"], "v": lc["v"]}, pos=pos,
+                            window=cfg.attn_window)
+    x = x + o
+    return x + L.swiglu(lp["attn_mlp"], L.apply_norm(x, lp["attn_ln2"], nk))
 
 
 def _drain_layer(recorder, layer_flags: list, abft_flags: list) -> None:

@@ -156,8 +156,9 @@ def get_kv_policy(policy) -> Optional[KVProtectionPolicy]:
 def supports_paged(cfg: ArchConfig) -> bool:
     """Families whose decode KV state is the dense (B, S, kv, hd) GQA
     cache the paged pool replaces: dense and vlm (the reference also takes
-    MoE without MLA, which the port does not have yet). The encdec family
-    serves its dense cache only, as in the reference."""
+    MoE without MLA, which the port does not have yet). The encdec and
+    hybrid families serve their dense caches only, as in the reference
+    (the hybrid's RG-LRU states and ring are no paged pool)."""
     return cfg.family in ("dense", "vlm")
 
 
@@ -234,7 +235,10 @@ def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int, policy, *,
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, kv_policy=None,
                dtype=torch.bfloat16, device=None) -> dict:
     """Paged + protected cache when a KV policy is given, else the dense
-    ``lm.init_cache``."""
+    ``lm.init_cache`` (the hybrid family's: a ring KV cache of
+    ``attn_window`` slots beside its RG-LRU states). A KV policy for a
+    family without a paged cache (encdec, hybrid) raises ``ValueError``,
+    as the reference's ``init_paged_cache`` does."""
     if kv_policy is None:
         from repro_torch.models import lm
         return lm.init_cache(cfg, batch, max_len, dtype, device=device)
@@ -573,15 +577,12 @@ def from_protected_tree(cache: dict, tree: dict) -> dict:
 def dense_kv_bytes(cfg: ArchConfig, batch: int, max_len: int,
                    dtype=torch.bfloat16) -> int:
     """Bytes of the dense cache (per model): every tensor of
-    ``lm.init_cache`` (K and V of every layer, and the encdec family's
-    cross K and V), counted from shapes."""
+    ``lm.init_cache`` (K and V of every layer, the encdec family's cross K
+    and V, the hybrid family's ring K and V and RG-LRU states), counted
+    from shapes on the ``meta`` device, where nothing is allocated."""
     from repro_torch.models import lm
-    lm._check_family(cfg)
-    nl = lm.n_scan_layers(cfg)
-    n = nl * batch * max_len * cfg.n_kv_heads * cfg.head_dim
-    if cfg.family == "encdec":
-        n += nl * batch * cfg.enc_seq * cfg.n_heads * cfg.head_dim
-    return 2 * n * torch.empty((), dtype=dtype).element_size()
+    cache = lm.init_cache(cfg, batch, max_len, dtype, device="meta")
+    return sum(t.numel() * t.element_size() for t in cache.values())
 
 
 def kv_bytes(cache: dict) -> dict:

@@ -33,7 +33,7 @@ from repro_torch.protection.tensor import ProtectedTensor, is_protected_tensor
 
 from . import kvcache
 
-STACKED_KEYS = ("layers", "enc_layers")
+STACKED_KEYS = ("layers", "tail", "enc_layers")
 
 
 class _Router:
@@ -133,7 +133,7 @@ def _scan_ready(subtree, prefix: str, router: _Router, dtype,
 def _layer_transform(router: _Router, dtype, recorder: L.FlagRecorder):
     """``{stacked key: fn}``: each fn wraps every protected leaf of one
     layer's params in its view, resolving the route by the leaf's full
-    plan path (``layers/...``, ``enc_layers/...``)."""
+    plan path (``layers/...``, ``tail/...``, ``enc_layers/...``)."""
 
     def scoped(prefix):
         def lt(lp):
@@ -204,7 +204,8 @@ def make_serve_step(cfg: ArchConfig, *, plan=None, dtype=torch.bfloat16,
     "cuda") is the route. ``backend`` is also the route of the paged KV
     cache's encode and decode: it replaces the KV policy's own. flags:
     ``"top"`` (2,) for the embedding and the head, ``"layers"`` (L, 2)
-    per-layer (corrected, DUE) counts, and with a paged protected KV cache
+    per-layer (corrected, DUE) counts (the hybrid family's tail layers in
+    ``"tail"`` (T, 2)), and with a paged protected KV cache
     (``kv_policy``) ``"layers_kv"`` (L, 2). When the plan guards leaves
     (``plan.with_abft`` or clamps) the flags also carry (checksum
     mismatches, clamp hits) rows: ``"top_abft"`` (2,) and
@@ -253,10 +254,12 @@ def make_prefill(cfg: ArchConfig, *, plan=None, dtype=torch.bfloat16,
     the tokens, as in the reference (``{"enc_embeds": frames}`` for the
     encdec family, whose encoder then decodes its images at use too).
     ``with_flags`` adds the flags dict: ``"top"``, ``"layers"``,
-    ``"layers_kv"`` (paged), ``"enc_layers"`` (encdec) and, for a guarded
+    ``"layers_kv"`` (paged), ``"enc_layers"`` (encdec), ``"tail"``
+    (hybrid) and, for a guarded
     plan, ``"top_abft"`` and the ``*_abft`` rows. ``backend`` routes the codec and
-    the attention (the flash kernel on "cuda"); ``chunk`` is the plain
-    route's attention chunk. The whole-tree decode ablation
+    the attention (the flash kernel on "cuda", with the hybrid family's
+    sliding window where it is shorter than the prompt); ``chunk`` is the
+    plain route's attention chunk. The whole-tree decode ablation
     (``decode_at_use=False``) raises ``NotImplementedError``.
     """
     if not decode_at_use:
@@ -330,7 +333,7 @@ def calibrate_act_scales(cfg: ArchConfig, enc_params, tokens, *, plan=None,
                                                           recorder),
                          collect_acts=True, recorder=recorder,
                          attention=get_backend(backend).name)
-    maxima = {p: v.max() for p, v in acts["layers"].items()}
+    maxima = {p: v.max() for sub in acts.values() for p, v in sub.items()}
     maxima.update(recorder.drain_acts())  # the head records after the layers
     values = torch.stack(list(maxima.values())).tolist()
     return {p: max(v, 1e-12) / 127.0 for p, v in zip(maxima, values)}

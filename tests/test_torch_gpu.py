@@ -464,6 +464,32 @@ def test_gpu_flash_attention_kernel_matches_plain(cuda, dtype, s, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# (S, window, D): whole tiles; a window that is not a multiple of 64 and
+# a ragged S; a window shorter than a tile (rows whose first loaded tile
+# is wholly masked); a window of at least S; recurrentgemma-2b's head dim
+@pytest.mark.parametrize("s,window,d", [(256, 64, 64), (300, 100, 128),
+                                        (200, 20, 32), (130, 500, 16),
+                                        (700, 256, 256), (333, 97, 256)])
+def test_gpu_flash_attention_window_matches_plain(cuda, dtype, s, window,
+                                                  d):
+    """The sliding window: the kernel against its plain version (the same
+    tiles walked per query tile), at the tolerances of the causal test."""
+    gen = torch.Generator(device=cuda).manual_seed(s + window + d)
+    q, k, v = (torch.randn((2, 3, s, d), generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    before = build.COUNTS["flash_attention"]
+    ko = flash_attention.flash_attention(q, k, v, window=window)
+    assert build.COUNTS["flash_attention"] == before + 1
+    po = flash_attention.flash_attention_plain(q, k, v, window=window)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(ko.float(), po.float(), rtol=tol, atol=tol)
+    if window >= s:   # covers every key: the causal kernel's result
+        torch.testing.assert_close(
+            ko.float(), flash_attention.flash_attention(q, k, v).float(),
+            rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_flash_attention_whisper_decoder_shape(cuda, dtype):
     """whisper-base's decoder self-attention over 448 text positions at
     batch 8 (8 heads of 64): within the tolerance above of the plain
