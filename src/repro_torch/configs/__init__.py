@@ -11,7 +11,8 @@ import importlib
 from repro_torch.models.config import ArchConfig  # noqa: F401
 
 ARCH_IDS = ["deepseek-7b", "minitron-4b", "qwen1.5-4b", "phi3-medium-14b",
-            "paligemma-3b", "whisper-base", "recurrentgemma-2b"]
+            "paligemma-3b", "whisper-base", "recurrentgemma-2b",
+            "mamba2-2.7b"]
 
 
 def _module(name: str):

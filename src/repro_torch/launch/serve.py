@@ -33,11 +33,12 @@ is the same path as a function.
 
 The CLI serves the smoke configs (``configs.get_smoke``), as the reference
 CLI does; :func:`serve` and :func:`burst` take any config, e.g. the
-full-width ``configs.get("deepseek-7b")``. The encdec (whisper-base) and
+full-width ``configs.get("deepseek-7b")``. The encdec (whisper-base),
 hybrid (recurrentgemma-2b: RG-LRU states and a ring KV cache of its
-attention window) families serve their dense caches only: a prompt, a
-paged ``--kv-policy`` or ``--burst`` raises ``ValueError`` for them, as
-the reference's paged cache does. The fault smoke-check campaigns and
+attention window) and ssm (mamba2-2.7b: each layer's recurrent state and
+conv history, no KV cache) families serve their dense caches only: a
+prompt, a paged ``--kv-policy`` or ``--burst`` raises ``ValueError`` for
+them, as the reference's paged cache does. The fault smoke-check campaigns and
 scrubbing are not ported yet.
 """
 from __future__ import annotations
@@ -67,7 +68,7 @@ default_backend = device_mod.default_backend
 
 def _needs_paged(cfg, what: str) -> None:
     """Raise ``ValueError`` before any work when ``what`` needs the paged
-    KV cache and ``cfg``'s family has none (encdec, hybrid), in the
+    KV cache and ``cfg``'s family has none (encdec, hybrid, ssm), in the
     reference's ``init_paged_cache`` words."""
     if not kvcache.supports_paged(cfg):
         raise ValueError(f"{what} needs the paged KV cache: paged KV cache "
@@ -202,6 +203,10 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
             f", attention {kvp.attention_impl if kvp.fused else 'reference'}"
             f"): stored {kb['stored']}B + checks {kb['checks']}B + scales "
             f"{kb['scales']}B (dense bf16 cache: {dense}B)")
+    else:
+        log(f"[serve] dense {'state' if cfg.family == 'ssm' else 'KV'} "
+            f"cache ({', '.join(sorted(cache))}): "
+            f"{kvcache.dense_kv_bytes(cfg, batch, max_len, dtype)}B")
     tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
     kv_positions: dict = {}
     out_tok, out_logits, step_flags, step_s = [], [], [], []

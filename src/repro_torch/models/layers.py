@@ -1,19 +1,22 @@
-"""Model building blocks of the dense decoder, the encoder-decoder and the
-hybrid RG-LRU decoder (pure functions over dicts).
+"""Model building blocks of the dense decoder, the encoder-decoder, the
+hybrid RG-LRU decoder and the Mamba2 (SSD) decoder (pure functions over
+dicts).
 
-Counterpart of the dense, encoder-decoder and hybrid subset of
+Counterpart of the dense, encoder-decoder, hybrid and ssm subset of
 ``repro.models.layers``: RMS and layer norms, RoPE, single-token GQA
 attention (over a dense cache, or a ring of ``window`` slots), full-sequence
 GQA attention (training, the cache-less forward and the bidirectional
 encoder; causal, or over a sliding window), chunked causal attention,
 cross-attention, the SwiGLU and GELU MLPs, the RG-LRU recurrent block with
-its depthwise causal conv (full sequence and single step), embedding and
-logits. ``wt`` is the weight transform of QAT training (fake-quant): it
-applies to projection weights and the head only, never to the embedding
-lookup or to norms, and defaults to the identity so the serve paths are
-untouched. Where the reference routes fault flags, ABFT counts and
-calibration absmaxes through module-level sinks (``layers.record_flags``,
-``record_abft``, ``record_act``), the port hands each decode-at-use view
+its depthwise causal conv (full sequence and single step), the Mamba2
+mixer (the SSD chunked scan over a full sequence, the single-step
+recurrence over its state), embedding and logits. ``wt`` is the weight
+transform of QAT training (fake-quant): it applies to projection weights
+and the head only, never to the embedding lookup or to norms, and
+defaults to the identity so the serve paths are untouched. Where the
+reference routes fault flags, ABFT counts and calibration absmaxes
+through module-level sinks (``layers.record_flags``, ``record_abft``,
+``record_act``), the port hands each decode-at-use view
 the methods of a :class:`FlagRecorder` that the serve step creates per
 step and the model drains per layer, so they come back as values.
 """
@@ -445,6 +448,144 @@ def rglru_decode(p, x, cfg, cache):
         y_gate = F.gelu(_proj(x[:, 0], p["w_y_gate"]), approximate="tanh")
         out = _proj(h * y_gate, p["w_out"])[:, None]
         cache["h"].copy_(h)
+        cache["conv"].copy_(hist[:, 1:])
+    return out, cache
+
+
+# --------------------------------------------------------------------------
+# Mamba2 (SSD) mixer (the ssm family)
+# --------------------------------------------------------------------------
+
+
+def mamba2_params_shape(cfg):
+    d, di, n, hd = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    h = di // hd
+    return {
+        "w_in": (d, 2 * di + 2 * n + h),   # [x, z, B, C, dt]
+        "conv_w": (cfg.ssm_conv_width, di + 2 * n),
+        "A_log": (h,), "D": (h,), "dt_bias": (h,),
+        "w_out": (di, d),
+    }
+
+
+def _ssd_chunked(x, dt, A, B, C, chunk):
+    """The SSD chunked scan. x: (b, l, h, p); dt: (b, l, h) f32; A: (h,)
+    f32; B, C: (b, l, n). Returns y (b, l, h, p) in x's dtype and the
+    final state (b, h, p, n).
+
+    The reference's 4-operand einsums, written pairwise so that no
+    intermediate has more than five dimensions (a (b, c, q, s, h, p) one
+    would take 10.7 GB in bf16 at 2 x 4,096 tokens of mamba2-2.7b): the
+    elementwise factors fold first, then one batched matmul contracts over
+    s (or n). The casts are the reference's: ``cum`` stays f32; the
+    decays, ``cb`` and ``dt`` are cast to x's dtype before the products.
+    The causal mask goes before the ``exp`` (the non-causal entries are
+    positive and would overflow). The scan across chunks is a loop over
+    them that rounds the carried state to x's dtype every chunk, as the
+    reference's ``lax.scan`` does."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    if l % chunk:
+        raise ValueError(f"the SSD chunked scan needs a length that is a "
+                         f"multiple of its chunk: length {l}, chunk {chunk} "
+                         f"(the reference reshapes by l // chunk)")
+    nc, dtype = l // chunk, x.dtype
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h)
+    Bc = B.reshape(b, nc, chunk, n)
+    Cc = C.reshape(b, nc, chunk, n)
+    dtx = dtc.to(dtype)
+
+    cum = torch.cumsum(dtc * A, dim=2)                     # (b,c,q,h) f32
+    # intra-chunk: y[t] = sum_{s<=t} C_t.B_s exp(cum_t - cum_s) dt_s x_s
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (b,c,q,s,h)
+    idx = torch.arange(chunk, device=x.device)
+    causal = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
+    decay = torch.exp(seg.masked_fill_(~causal, -torch.inf)).to(dtype)
+    del seg
+    cb = (Cc @ Bc.transpose(-1, -2)).to(dtype)             # (b,c,q,s)
+    m = decay.mul_(cb[..., None])                          # (b,c,q,s,h)
+    xdt = xc * dtx[..., None]                              # (b,c,s,h,p)
+    y = m.permute(0, 1, 4, 2, 3) @ xdt.permute(0, 1, 3, 2, 4)  # (b,c,h,q,p)
+    del m
+    y = y.permute(0, 1, 3, 2, 4)                           # (b,c,q,h,p)
+
+    # chunk states: S_c = sum_s exp(cum_last - cum_s) dt_s B_s x_s^T
+    last = cum[:, :, -1:, :]                               # (b,c,1,h)
+    dec_s = torch.exp(last - cum).to(dtype)                # (b,c,s,h)
+    xw = (xc * (dec_s * dtx)[..., None]).permute(0, 1, 3, 4, 2)  # (b,c,h,p,s)
+    S = (xw.reshape(b, nc, h * p, chunk) @ Bc).reshape(b, nc, h, p, n)
+    del xw, xdt
+    chunk_decay = torch.exp(last[:, :, 0, :])              # (b,c,h) f32
+
+    s_prev = torch.zeros((b, h, p, n), dtype=dtype, device=x.device)
+    prevs = []
+    for c in range(nc):
+        prevs.append(s_prev)
+        s_prev = s_prev * chunk_decay[:, c, :, None, None].to(dtype) + S[:, c]
+    s_prevs = torch.stack(prevs, dim=1)                    # (b,c,h,p,n)
+
+    # inter-chunk: y[t] = C_t . exp(cum_t) S_prev
+    dec_q = torch.exp(cum).to(dtype)                       # (b,c,q,h)
+    cs = Cc @ s_prevs.reshape(b, nc, h * p, n).transpose(-1, -2)  # (b,c,q,hp)
+    y_inter = cs.reshape(b, nc, chunk, h, p) * dec_q[..., None]
+    return (y + y_inter).reshape(b, l, h, p), s_prev
+
+
+def _mamba2_in(p, zxbcdt, cfg):
+    """The fused projection's output split into the conv input [x, B, C],
+    z and dt (the reference's order [x, z, B, C, dt]); ``dt`` is
+    ``softplus(dt + dt_bias)`` in f32 and ``A = -exp(A_log)``."""
+    di, n = cfg.d_inner, cfg.ssm_state
+    xi, z, B, C, dt = torch.split(zxbcdt, [di, di, n, n, cfg.ssm_heads], -1)
+    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"].to(torch.float32))
+    return torch.cat([xi, B, C], dim=-1), z, dt, A
+
+
+def mamba2_block(p, x, cfg, wt=Identity):
+    """The mixer over a full sequence (training, the cache-less forward).
+    x: (B, S, D). ``conv_w`` goes through :func:`_dense`, as the RG-LRU's
+    gates do. Profiler range: ``ssd`` (the chunked scan)."""
+    b, s, _ = x.shape
+    di, n, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    h = cfg.ssm_heads
+    conv_in, z, dt, A = _mamba2_in(p, _proj(x, p["w_in"], None, wt), cfg)
+    conv_out = F.silu(_causal_conv(conv_in, _dense(p["conv_w"], x.dtype)))
+    xi, B, C = torch.split(conv_out, [di, n, n], dim=-1)
+    xh = xi.reshape(b, s, h, hd)
+    with torch.profiler.record_function("ssd"):
+        y, _ = _ssd_chunked(xh, dt, A, B, C, min(cfg.ssm_chunk, s))
+    y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
+    y = y.reshape(b, s, di) * F.silu(z)
+    return _proj(y, p["w_out"], None, wt)
+
+
+def mamba2_decode(p, x, cfg, cache):
+    """One step of the SSD recurrence. x: (B, 1, D); cache: {"state": (B,
+    h, hd, n), "conv": (B, K-1, di+2n)} — this layer's slice, written IN
+    PLACE: the state is ``state * exp(dt A) + dt x B^T`` in x's dtype,
+    rounded to it every step (then stored in the cache's), and ``y = state
+    C`` reads the updated state, as in the reference. Returns (out (B, 1,
+    D), cache). Profiler range: ``mamba2`` (the step's PyTorch ops)."""
+    b = x.shape[0]
+    di, n, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    h = cfg.ssm_heads
+    with torch.profiler.record_function("mamba2"):
+        conv_in, z, dt, A = _mamba2_in(p, _proj(x[:, 0], p["w_in"]), cfg)
+        hist = torch.cat([cache["conv"], conv_in[:, None]], dim=1)  # (B,K,c)
+        conv_out = F.silu(torch.einsum("bkc,kc->bc", hist,
+                                       _dense(p["conv_w"], hist.dtype)))
+        xi, B, C = torch.split(conv_out, [di, n, n], dim=-1)
+        da = torch.exp(dt * A)                             # (B, h) f32
+        xh = xi.reshape(b, h, hd)
+        upd = (dt.to(x.dtype)[:, :, None] * xh)[..., None] * B[:, None, None]
+        state = cache["state"] * da[:, :, None, None].to(x.dtype) + upd
+        y = (state.reshape(b, h * hd, n) @ C[:, :, None]).reshape(b, h, hd)
+        y = y + xh * p["D"].to(x.dtype)[None, :, None]
+        y = y.reshape(b, di) * F.silu(z)
+        out = _proj(y, p["w_out"])[:, None]
+        cache["state"].copy_(state)
         cache["conv"].copy_(hist[:, 1:])
     return out, cache
 

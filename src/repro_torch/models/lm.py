@@ -1,8 +1,8 @@
-"""LM of the dense, vlm, encdec and hybrid families: parameter init, the
-cache-less full-sequence forward and its loss (training), KV cache, the
-decode step and the prefill into a paged KV cache.
+"""LM of the dense, vlm, encdec, hybrid and ssm families: parameter init,
+the cache-less full-sequence forward and its loss (training), KV cache,
+the decode step and the prefill into a paged KV cache.
 
-Counterpart of the dense, vlm, encdec and hybrid families of
+Counterpart of the dense, vlm, encdec, hybrid and ssm families of
 ``repro.models.lm``.
 The vlm family (PaliGemma's backbone) is the dense decoder with the Gemma
 input scale ``sqrt(d_model)``, tied embeddings (the head is ``embed.T``)
@@ -19,10 +19,12 @@ super-blocks of two RG-LRU sublayers and one local-attention sublayer
 RG-LRU layers left over in a second stacked subtree, ``tail``, with its
 own flags row; it has the Gemma input scale and a tied head, and its
 decode cache holds each RG-LRU's state and conv history and a ring KV
-cache of ``attn_window`` slots. Per-layer params are stacked along a
-leading L axis, as in the reference; a Python loop over layers takes the
-place of ``lax.scan``. The MoE (and MLA) and SSM families are not ported
-yet.
+cache of ``attn_window`` slots. The ssm family (Mamba2) stacks one
+Mamba2 mixer per layer (an RMS norm before it, no MLP, no attention); its
+decode cache is each layer's recurrent state and conv history, and holds
+no K or V. Per-layer params are stacked along a leading L axis, as in the
+reference; a Python loop over layers takes the place of ``lax.scan``. The
+MoE (and MLA) family is not ported yet.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from repro_torch import tree
 from . import layers as L
 from .config import ArchConfig
 
-FAMILIES = ("dense", "vlm", "encdec", "hybrid")
+FAMILIES = ("dense", "vlm", "encdec", "hybrid", "ssm")
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -69,6 +71,8 @@ def _layer_shapes(cfg: ArchConfig) -> dict:
                     "attn_ln1": _norm_shape(cfg),
                     "attn_ln2": _norm_shape(cfg)})
         return blk
+    if cfg.family == "ssm":
+        return {"mixer": L.mamba2_params_shape(cfg), "ln1": _norm_shape(cfg)}
     return {"attn": L.gqa_params_shape(cfg), "mlp": L.swiglu_params_shape(cfg),
             "ln1": _norm_shape(cfg), "ln2": _norm_shape(cfg)}
 
@@ -104,12 +108,18 @@ def hybrid_tail_layers(cfg: ArchConfig) -> int:
 
 
 def _init_kind(name: str, shp: tuple):
-    """The reference's per-name init: the RG-LRU's ``a_param`` 1.3, norm
-    weights one, biases zero, conv kernels normal with std 0.1, the rest
-    normal with std 0.02 (vectors) or 1/sqrt(fan_in) (matrices)."""
+    """The reference's per-name init: Mamba2's ``A_log`` log(linspace(1,
+    16, h)) in every layer, ``dt_bias`` 0.5 and ``D`` one, the RG-LRU's
+    ``a_param`` 1.3, norm weights one, biases zero, conv kernels normal
+    with std 0.1, the rest normal with std 0.02 (vectors) or 1/sqrt(fan_in)
+    (matrices)."""
+    if name == "A_log":
+        return "log_linspace", (1.0, 16.0)
+    if name == "dt_bias":
+        return "full", 0.5
     if name == "a_param":
         return "full", 1.3
-    if name == "w":
+    if name in ("w", "D"):
         return "ones", None
     if name == "b" or name.startswith("b_"):
         return "zeros", None
@@ -171,6 +181,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
             t = torch.full(shape, val, device=dev)
         elif kind == "zeros":
             t = torch.zeros(shape, device=dev)
+        elif kind == "log_linspace":   # f64, rounded once to f32
+            t = torch.log(torch.linspace(*val, shape[-1], dtype=torch.float64,
+                                         device=dev)).float()
+            t = t.expand(shape).contiguous()
         else:
             t = torch.randn(shape, generator=gen, device=dev).mul_(val)
         tree.set_path(out, path,
@@ -187,11 +201,20 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     family's K and V are a ring of ``attn_window`` slots whatever
     ``max_len`` is, beside each super-block's RG-LRU states ``rg{0,1}_h``
     (L, B, w) and conv histories ``rg{0,1}_conv`` (L, B, K-1, w), and the
-    tail's ``tail_h`` and ``tail_conv``; every state is in ``dtype``, as
-    in the reference."""
+    tail's ``tail_h`` and ``tail_conv``. The ssm family's cache is its
+    state cache alone, whatever ``max_len`` is: ``{"state": (L, B, h, hd,
+    n), "conv": (L, B, K-1, di + 2n)}``, no K or V. Every state is in
+    ``dtype``, as in the reference."""
     dev = device_mod.resolve(device)
     _check_family(cfg)
     nl = n_scan_layers(cfg)
+    if cfg.family == "ssm":
+        return {"state": torch.zeros((nl, batch, cfg.ssm_heads,
+                                      cfg.ssm_head_dim, cfg.ssm_state),
+                                     dtype=dtype, device=dev),
+                "conv": torch.zeros((nl, batch, cfg.ssm_conv_width - 1,
+                                     cfg.d_inner + 2 * cfg.ssm_state),
+                                    dtype=dtype, device=dev)}
     slots = cfg.attn_window if cfg.family == "hybrid" else max_len
     shape = (nl, batch, slots, cfg.n_kv_heads, cfg.head_dim)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -278,10 +301,14 @@ def _rg_full(cfg: ArchConfig, lp, x, name: str, wt):
 def _block_full(cfg: ArchConfig, lp, x, positions, wt, chunk,
                 attention="torch", enc_out=None):
     """One decoder block over a full sequence: dense, with cross-attention
-    over ``enc_out`` and the GELU MLP (encdec), or a hybrid super-block
+    over ``enc_out`` and the GELU MLP (encdec), a hybrid super-block
     (two RG-LRU layers, then local attention over ``attn_window`` keys
-    with the chunk cut to the window, as the reference cuts it)."""
+    with the chunk cut to the window, as the reference cuts it), or one
+    Mamba2 mixer (ssm)."""
     nk = cfg.norm
+    if cfg.family == "ssm":
+        return x + L.mamba2_block(lp["mixer"], L.apply_norm(x, lp["ln1"], nk),
+                                  cfg, wt)
     if cfg.family == "hybrid":
         for i in range(2):
             x = _rg_full(cfg, lp, x, f"rg{i}", wt)
@@ -480,6 +507,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
     family steps each super-block's two RG-LRU states and attends its ring
     of ``attn_window`` slots, then steps the tail's RG-LRU layers, whose
     counts come back in a ``"tail"`` (T, 2) row (and ``"tail_abft"``).
+    The ssm family steps each layer's Mamba2 state and conv history.
     """
     _check_family(cfg)
     x = _embed_in(cfg, tokens, params["embed"], dtype)
@@ -498,8 +526,9 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
             lp = lt(lp)
         # the tail's states have their own leading axis
         lc = {k: v[i] for k, v in cache.items() if not k.startswith("tail")}
-        if cfg.family == "hybrid":
-            x = _hybrid_decode(cfg, lp, x, lc, pos)
+        if cfg.family in ("hybrid", "ssm"):
+            step = _hybrid_decode if cfg.family == "hybrid" else _ssm_decode
+            x = step(cfg, lp, x, lc, pos)
             _drain_layer(recorder, layer_flags, abft_flags)
             continue
         h = L.apply_norm(x, lp["ln1"], cfg.norm)
@@ -568,6 +597,14 @@ def _hybrid_decode(cfg: ArchConfig, lp, x, lc: dict, pos):
                             window=cfg.attn_window)
     x = x + o
     return x + L.swiglu(lp["attn_mlp"], L.apply_norm(x, lp["attn_ln2"], nk))
+
+
+def _ssm_decode(cfg: ArchConfig, lp, x, lc: dict, pos):
+    """One Mamba2 layer's decode step over this layer's ``state`` and
+    ``conv`` (stepped in place)."""
+    o, _ = L.mamba2_decode(lp["mixer"], L.apply_norm(x, lp["ln1"], cfg.norm),
+                           cfg, lc)
+    return x + o
 
 
 def _drain_layer(recorder, layer_flags: list, abft_flags: list) -> None:

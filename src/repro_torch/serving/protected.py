@@ -205,11 +205,11 @@ def make_serve_step(cfg: ArchConfig, *, plan=None, dtype=torch.bfloat16,
     cache's encode and decode: it replaces the KV policy's own. flags:
     ``"top"`` (2,) for the embedding and the head, ``"layers"`` (L, 2)
     per-layer (corrected, DUE) counts (the hybrid family's tail layers in
-    ``"tail"`` (T, 2)), and with a paged protected KV cache
-    (``kv_policy``) ``"layers_kv"`` (L, 2). When the plan guards leaves
-    (``plan.with_abft`` or clamps) the flags also carry (checksum
-    mismatches, clamp hits) rows: ``"top_abft"`` (2,) and
-    ``"layers_abft"`` (L, 2). Under a KV policy with ``per_slot_flags``
+    ``"tail"`` (T, 2); the ssm family has these two rows only), and with
+    a paged protected KV cache (``kv_policy``) ``"layers_kv"`` (L, 2).
+    When the plan guards leaves (``plan.with_abft`` or clamps) the flags
+    also carry (checksum mismatches, clamp hits) rows: ``"top_abft"``
+    (2,) and ``"layers_abft"`` (L, 2). Under a KV policy with ``per_slot_flags``
     the KV rows are (L, 2, B) and the ABFT rows per slot as well:
     ``"top_abft"`` (2, B), ``"layers_abft"`` (L, 2, B) (the request
     front-end's per-request attribution). ``attention_impl`` ("strip" |

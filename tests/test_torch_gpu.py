@@ -120,18 +120,30 @@ def test_gpu_qmatmul_regimes_match_plain(cuda, path, kn, m):
 # phi3-medium-14b's w_up and w_down, paligemma-3b's wk and wv (one KV head
 # of 256), and whisper-base's projections (K 512 -> N 512 and 2,048, K
 # 2,048 -> N 512) and head (K 512 -> N 51,968: few K blocks for the
-# split-K grid) at the decode step's M = 4
-@pytest.mark.parametrize("k,n", [(5120, 17920), (17920, 5120), (2048, 256),
-                                 (512, 512), (512, 2048), (2048, 512),
-                                 (512, 51968)])
-def test_gpu_qmatmul_model_shapes_match_plain(cuda, k, n):
-    """The float path at the new archs' decode shapes: flags exact, within
-    2e-4 of sum |a| |w| of the plain version (both sum the same exact f32
-    products in other orders, over up to 17,920 terms: chip_smoke.py's
-    QMM_RTOL), a split-K launch repeated bit for bit."""
-    gen = torch.Generator(device=cuda).manual_seed(k + n)
+# split-K grid) at the decode step's M = 4; mamba2-2.7b's fused w_in (K
+# 2,560 -> N 10,576 = 82 x 128 + 80: the last N tile is ragged) and w_out
+# (5,120 -> 2,560) in the decode regime (M = 4) and the prefill regime (M
+# = 33, the least M of its 128-row tiles, and 520: five M tiles, the last
+# ragged)
+MODEL_SHAPES = [(4, 5120, 17920), (4, 17920, 5120), (4, 2048, 256),
+                (4, 512, 512), (4, 512, 2048), (4, 2048, 512),
+                (4, 512, 51968)] + [(m, k, n) for m in (4, 33, 520)
+                                    for k, n in ((2560, 10576),
+                                                 (5120, 2560))]
+
+
+@pytest.mark.parametrize("m,k,n", MODEL_SHAPES)
+def test_gpu_qmatmul_model_shapes_match_plain(cuda, m, k, n):
+    """The float path at the new archs' shapes: flags exact, within 2e-4
+    of sum |a| |w| of the plain version on every output, a ragged last N
+    tile's included (both sum the same exact f32 products in other
+    orders, over up to 17,920 terms: chip_smoke.py's QMM_RTOL), a launch
+    repeated bit for bit."""
+    plan = ecc_qmatmul.plan_launch(m, n, k, torch.bfloat16)
+    assert plan.regime == ("small" if m <= ecc_qmatmul.SMALL_M else "large")
+    gen = torch.Generator(device=cuda).manual_seed(k + n + m - 4)
     w, s = _encoded_weight(k, n, cuda, gen)
-    a = torch.randn((4, k), generator=gen, device=cuda).to(torch.bfloat16)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
     ko, kf = ecc_qmatmul.ecc_qmatmul(a, w, s, with_flags=True)
     po, pf = ecc_qmatmul.ecc_qmatmul_plain(a, w, s, with_flags=True)
     assert kf.tolist() == pf.tolist() and kf.tolist() != [0, 0]
@@ -155,6 +167,52 @@ def test_gpu_qmatmul_split_k_repeats_bit_equal(cuda):
         assert torch.equal(first[0].view(torch.int32),
                            again[0].view(torch.int32))
         assert torch.equal(first[1][0], again[1][0])
+
+
+def test_gpu_mamba2_decode_step_routes_agree(cuda):
+    """One decode-at-use step of full-width mamba2-2.7b cut to 2 layers,
+    from a seeded state cache (state std 0.5, conv history std 1), on the
+    kernel route and the plain route: flags equal (the weights carry
+    correctable flips), logits within 0.25 at most and 0.02 on average
+    (chip_smoke.py's 2-layer E2E limits); on the ``cuda`` route
+    the step launches ``ecc_decode`` 1 + 2 times (the embedding and each
+    layer's ``conv_w``) and ``ecc_qmatmul`` 2 x 2 + 1 times."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
+    from repro_torch.serving import protected
+
+    cfg = configs.get("mamba2-2.7b").with_(n_layers=2)
+    plan = ProtectionPolicy().plan(lm.param_shapes(cfg))
+    enc = lm.init_params(cfg, 0, device=cuda, leaf_fn=plan.encode_leaf)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    enc, _ = policy_mod.inject_tree_device(enc, 1e-5, gen,
+                                           one_per_block=True)
+    base = lm.init_cache(cfg, 4, 1, device=cuda)
+    for name, t in base.items():
+        std = 0.5 if name == "state" else 1.0
+        t.copy_(torch.randn(t.shape, generator=gen, device=cuda) * std)
+    tok = torch.randint(0, cfg.vocab, (4, 1), generator=gen, device=cuda)
+    pos = torch.zeros((4,), dtype=torch.int32, device=cuda)
+    out = {}
+    for r in ("cuda", "torch"):
+        cache = {k: v.clone() for k, v in base.items()}
+        before = dict(build.COUNTS)
+        step = protected.make_serve_step(cfg, backend=r)
+        out[r] = step(enc, cache, tok, pos)
+        torch.cuda.synchronize()
+        launched = {k: build.COUNTS[k] - before[k] for k in build.COUNTS
+                    if build.COUNTS[k] != before[k]}
+        want = {"ecc_decode": 3, "ecc_qmatmul": 5} if r == "cuda" else {}
+        assert launched == want, (r, launched)
+    lg, _, fl = out["cuda"]
+    lo, _, fo = out["torch"]
+    assert {k: v.tolist() for k, v in fl.items()} == \
+        {k: v.tolist() for k, v in fo.items()}
+    assert int(fl["layers"][:, 0].sum()) > 0
+    d = (lg.float() - lo.float()).abs()
+    assert bool(torch.isfinite(lg.float()).all())
+    assert float(d.max()) <= 0.25 and float(d.mean()) <= 0.02
 
 
 def _leaves(x) -> list:

@@ -71,12 +71,12 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["phi3-medium-14b", "paligemma-3b",
-                                  "whisper-base"])
+                                  "whisper-base", "mamba2-2.7b"])
 def test_entry_points_of_every_family_default_to_cuda(arch, monkeypatch):
     """The entry points with ``--arch`` (and their functions on the arch's
-    config) default to the card for the GQA 40/10 dense model, the vlm and
-    the encdec families too: without a GPU each raises, none carries on on
-    the CPU."""
+    config) default to the card for the GQA 40/10 dense model, the vlm,
+    the encdec and the ssm families too: without a GPU each raises, none
+    carries on on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = configs.get_smoke(arch)
     for call in (lambda: lm.init_params(cfg),
