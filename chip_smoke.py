@@ -109,7 +109,32 @@ d_model 4096, vocab 102400) at batch 4:
   the recurrence in f32 on the kernel route (the forward over 2 x 256
   tokens against 256 decode steps); and a profile of 4 decode steps split
   into the projections, the embedding's and the ``conv_w`` decodes, the
-  embedding's dequantization and the Mamba2 glue.
+  embedding's dequantization and the Mamba2 glue;
+* phase 15: deepseek-v2-236b (the moe family: MLA over a compressed
+  latent cache of 512 + 64 per token, 128 heads of 128 nope + 64 rope
+  dims, 160 routed experts of 1,536 with top-6 routing and 2 shared
+  experts, d_model 5,120, a 102,400-word head) at full width, cut to 4
+  layers (17.26 GB of image): the decode triple of the first bullet at
+  batch 4 (every expert leaf and the router decode whole each step;
+  exactly 17 ``ecc_decode`` and 33 ``ecc_qmatmul`` launches a clean
+  step); a profile of 4 decode steps split into the projections, the
+  embedding's, the routers' and the expert leaves' decodes and
+  dequantizations, the MLA glue and the routed experts' products; then
+  cut to 2 layers, 16 decode steps at batch 8 on the kernel and plain
+  routes in bf16 and the plain route in f32 in lockstep, and the
+  cache-less forward over 2 x 4,096 tokens (flash at the 192/128 head
+  split) on the same three routes: the shares of (token, layer) pairs
+  routed to another expert set on each pair of routes, the kernel route
+  no more often than the bf16 plain route, the logits held on the rows no
+  routing difference reaches, the pairs dropped at capacity; and the f32
+  forward against 8 f32 decode steps over 4 x 8 tokens (no drops
+  possible);
+* phase 16: deepseek-v3-671b (MLA with the low-rank query pair, 256
+  routed experts of 2,048 with top-8 and one shared expert, d_model
+  7,168, a 129,280-word head) at full width, cut to 1 layer (13.36 GB of
+  image; each expert leaf 3.76 GB, past 2^31 bytes): the decode triple,
+  a profile of its decode step, and the cache-less forward over 2 x
+  4,096 tokens through flash.
 
 Phase 2 also holds the parity-zero decode and the per-slot flags of both
 paged-attention kernels to their plain versions at the burst's shapes;
@@ -131,7 +156,11 @@ N 512, 2,048 and 51,968; K 2,048 -> N 512) and recurrentgemma-2b's (K
 (K 2,560 -> N 10,576, whose last N tile is ragged, and 50,304; K 5,120 ->
 N 2,560), flags exact and a split-K launch repeated bit for bit, and once
 in the prefill regime at mamba2-2.7b's w_in over 2 x 4,096 tokens (M
-8,192, the ragged last N tile); flash attention at whisper-base's decoder
+8,192, the ragged last N tile); ``ecc_decode`` at one routed-expert leaf
+of deepseek-v2-236b (1.26 G values) and of deepseek-v3-671b (3.76 G
+values, 3.76 GB of image); flash at MLA's head split (q and k of 192, v
+of 128) over B 2, H 128, S 4,096 in bf16 and a ragged S in bf16 and f32,
+timed beside SDPA; flash attention at whisper-base's decoder
 shape (B 8, H 8, S 448, head_dim 64, bf16); flash with a sliding window
 at recurrentgemma-2b's local attention (B 2, H 10, S 4,096, head_dim
 256, window 2,048, bf16), timed beside SDPA with the band as a boolean
@@ -170,6 +199,7 @@ without tensor cores 67 TFLOP/s).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -210,6 +240,11 @@ ORACLE_RTOL = 0.02
 # probability across a bf16 rounding boundary before PV (one ulp, 2^-8 p)
 # and the output rounds once (one ulp of |o|).
 FLASH_RTOL, FLASH_ATOL = 2.0 ** -6, 2e-3
+# flash at MLA's 192/128 split against SDPA (causal) over the same bf16
+# inputs: SDPA rounds its probabilities and sums in its own order, so the
+# two differ by a few bf16 ulps; held within 2^-6 of max |SDPA| (read:
+# 0.00391, H100 at 700 W), which a wrong tile or scale would break by O(1)
+FLASH_SDPA_RTOL = 2.0 ** -6
 # recurrentgemma-2b's logits at 26 layers (phase 13: the cache-less
 # forward, and the decode across the ring wrap): the routes round each
 # bf16 projection at different points and the differences grow with
@@ -330,10 +365,20 @@ def main():
     ssm_counts = phase_ssm(torch, dev, build)
     log(f"phase 14 (mamba2-2.7b: decode, state routes, forward, scan vs "
         f"recurrence) took {time.time() - t0:.0f}s")
+    t0 = time.time()
+    moe_v2_counts = phase_moe_v2(torch, dev, build)
+    log(f"phase 15 (deepseek-v2-236b at {MOE_V2_LAYERS} layers: decode, "
+        f"profile; at {MOE_ROUTE_LAYERS}: routes, forward) took "
+        f"{time.time() - t0:.0f}s")
+    t0 = time.time()
+    moe_v3_counts = phase_moe_v3(torch, dev, build)
+    log(f"phase 16 (deepseek-v3-671b at {MOE_V3_LAYERS} layer: decode, "
+        f"profile, forward) took {time.time() - t0:.0f}s")
     counts = {k: decode_counts[k] + long_counts[k] + train_counts[k]
               + guarded_counts[k] + burst_counts[k] + phi3_counts[k]
               + vlm_counts[k] + encdec_counts[k] + hybrid_counts[k]
-              + ssm_counts[k] for k in build.COUNTS}
+              + ssm_counts[k] + moe_v2_counts[k] + moe_v3_counts[k]
+              for k in build.COUNTS}
     if sorted(entries) != sorted(counts):
         fail(f"kernels checked {sorted(entries)} != kernels counted "
              f"{sorted(counts)}")
@@ -368,7 +413,13 @@ def main():
              ("ecc_decode", "ecc_encode", "ecc_qmatmul",
               "flash_attention")),
             ("ssm (mamba2-2.7b)", ssm_counts,
-             ("ecc_decode", "ecc_encode", "ecc_qmatmul"))):
+             ("ecc_decode", "ecc_encode", "ecc_qmatmul")),
+            ("moe (deepseek-v2-236b)", moe_v2_counts,
+             ("ecc_decode", "ecc_encode", "ecc_qmatmul", "flash_attention",
+              "quantize_throttle")),
+            ("moe (deepseek-v3-671b)", moe_v3_counts,
+             ("ecc_decode", "ecc_encode", "ecc_qmatmul", "flash_attention",
+              "quantize_throttle"))):
         missing = [k for k in needed if cnt[k] <= 0]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
@@ -530,6 +581,9 @@ def phase_kernels(torch, dev):
         bound_ms=bms, bound_by=by, library_ms=None)
     log(f"ecc_decode ({nblk} blocks): {out['ecc_decode']}")
     del enc, kd, kf, pd, pf
+    torch.cuda.empty_cache()
+    out["ecc_decode"]["expert_leaf"] = check_ecc_decode_expert_leaves(
+        torch, dev, timer, gen)
 
     # -- kernel 2: encode of every protected leaf, once per deploy ----------
     shapes = lm.param_shapes(cfg)
@@ -578,6 +632,10 @@ def phase_kernels(torch, dev):
     out["ecc_qmatmul"]["max_abs_err"] = max(
         out["ecc_qmatmul"]["max_abs_err"], ragged["err"])
     out["ecc_qmatmul"]["mamba2_prefill_w_in"] = ragged
+    moe, e = check_qmatmul_moe_prefill(torch, dev, timer, gen)
+    out["ecc_qmatmul"]["max_abs_err"] = max(
+        out["ecc_qmatmul"]["max_abs_err"], e)
+    out["ecc_qmatmul"]["moe_prefill_m8192"] = moe
     check_qmatmul_paths(torch, dev, cfg, timer, gen)
 
     # -- kernel 4: fused page attention, 30 launches per step ---------------
@@ -697,11 +755,13 @@ def _qmm_case(torch, dev, m, w_enc, w_bf, scale, flips, timer, gen):
 
 
 def _qmm_sum(cases) -> dict:
-    """Per-call sums over ``[(case, launches)]``."""
+    """Per-call sums over ``[(case, launches)]``, bound by what bounds
+    the case of the largest bound summed."""
     out = {k: sum(c[k] * n for c, n in cases)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "ops")}
     ops = out.pop("ops")
-    out.update(bound_by=cases[-1][0]["bound_by"],
+    out.update(bound_by=max(cases, key=lambda cn: cn[0]["bound_ms"] *
+                            cn[1])[0]["bound_by"],
                launches=sum(n for _, n in cases),
                tflops=ops / out["ms"] / 1e9,
                library_tflops=ops / out["library_ms"] / 1e9)
@@ -710,16 +770,19 @@ def _qmm_sum(cases) -> dict:
 
 def qmm_per_step(cfg):
     """``[((k, n), launches per decode step)]`` of a dense, vlm, encdec,
-    hybrid or ssm config: wq and wo, wk and wv, w_gate and w_up, w_down per
-    layer
+    hybrid, ssm or moe config: wq and wo, wk and wv, w_gate and w_up,
+    w_down per layer
     (the encdec decoder: wq and wo of the self- and the cross-attention,
     wk and wv, w_up, w_down; its cross K and V come from the cache; a
     hybrid super-block: w_x, w_y_gate and w_out of each of its two RG-LRU
     layers, wq, wk, wv and wo of its local attention, and three SwiGLU
     MLPs; a tail layer: one RG-LRU and one MLP. The RG-LRU's two gate
     weights decode whole and multiply in ``torch.matmul``, as the
-    reference's do; a Mamba2 layer: the fused ``w_in`` and ``w_out``), and
-    an untied head (a tied head is a ``torch.matmul`` over the decoded
+    reference's do; a Mamba2 layer: the fused ``w_in`` and ``w_out``; an
+    MLA moe layer: ``wq`` (or ``w_dq`` and ``w_uq``), ``w_dkv``, ``wo`` and
+    the three shared-expert projections, its ``w_uk`` and ``w_uv`` in
+    :func:`qmm_latent_per_step`, its routed experts decoded whole), and an
+    untied head (a tied head is a ``torch.matmul`` over the decoded
     embedding)."""
     d, f, nl = cfg.d_model, cfg.d_ff, cfg.n_layers
     qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
@@ -737,11 +800,34 @@ def qmm_per_step(cfg):
     elif cfg.family == "encdec":
         shapes = [((d, qd), 2 * nl), ((qd, d), 2 * nl), ((d, kvd), 2 * nl),
                   ((d, f), nl), ((f, d), nl)]
+    elif cfg.family == "moe":
+        if not cfg.use_mla:
+            raise ValueError(f"{cfg.name}: a moe config without MLA")
+        h, qr, ql = cfg.n_heads, cfg.qk_rope_dim, cfg.q_lora_rank
+        qk, fs = h * (cfg.qk_nope_dim + qr), cfg.n_shared_experts * \
+            cfg.moe_d_ff
+        shapes = [((d, ql), nl), ((ql, qk), nl)] if ql else [((d, qk), nl)]
+        shapes += [((d, cfg.kv_lora_rank + qr), nl),
+                   ((h * cfg.v_head_dim, d), nl), ((d, fs), 2 * nl),
+                   ((fs, d), nl)]
     else:
         shapes = [((d, qd), nl), ((qd, d), nl), ((d, kvd), 2 * nl),
                   ((d, f), 2 * nl), ((f, d), nl)]
     if not cfg.tie_embeddings:
         shapes.append(((d, cfg.vocab_padded), 1))
+    return _merged(shapes)
+
+
+def qmm_latent_per_step(cfg):
+    """``[((k, n), launches per decode step)]`` of an MLA config's latent
+    re-expansions ``w_uk`` and ``w_uv``: their rows are every cached
+    latent (M = B·Smax), not the step's tokens."""
+    r, h, nl = cfg.kv_lora_rank, cfg.n_heads, cfg.n_layers
+    return _merged([((r, h * cfg.qk_nope_dim), nl),
+                    ((r, h * cfg.v_head_dim), nl)])
+
+
+def _merged(shapes):
     merged: dict = {}
     for kn, c in shapes:
         merged[kn] = merged.get(kn, 0) + c
@@ -789,15 +875,23 @@ def check_qmatmul_mixes(torch, dev, cfg, timer, gen):
 
 def check_qmatmul_models(torch, dev, timer, gen):
     """The float ecc_qmatmul at M = 4 at every weight shape of a
-    phi3-medium-14b, a paligemma-3b, a whisper-base, a recurrentgemma-2b
-    and a mamba2-2.7b decode step (phi3's
+    phi3-medium-14b, a paligemma-3b, a whisper-base, a recurrentgemma-2b,
+    a mamba2-2.7b, a deepseek-v2-236b and a deepseek-v3-671b decode step
+    (phi3's
     w_up 5,120 -> 17,920 and w_down 17,920 -> 5,120, its head 5,120 ->
     100,352; paligemma's wk and wv 2,048 -> 256, one KV head; whisper's K
     512 -> N 512, 2,048 and its 51,968-word head, K 2,048 -> N 512: few K
     blocks for the split-K grid; recurrentgemma's 2,560 -> 2,560, 7,680
     and 256, 7,680 -> 2,560: 164 launches; mamba2's fused w_in 2,560 ->
     10,576, whose last N tile is ragged, w_out 5,120 -> 2,560 and its
-    50,304-word head: 129 launches), as
+    50,304-word head: 129 launches; deepseek-v2's wq 5,120 -> 24,576,
+    w_dkv 5,120 -> 576 (a ragged last N tile), wo 16,384 -> 5,120, its
+    shared experts 5,120 <-> 3,072 and 102,400-word head; deepseek-v3's
+    w_dq 7,168 -> 1,536 and w_uq 1,536 -> 24,576, w_dkv 7,168 -> 576, wo
+    16,384 -> 7,168, shared experts 7,168 <-> 2,048 and 129,280-word
+    head; both with w_uk and w_uv 512 -> 16,384 at M = 4 x MOE_SERVE_SMAX,
+    the latent cache of the decode triple, the launch count of each
+    equal to the one the decode triple checks), as
     :func:`check_qmatmul_mixes` holds deepseek-7b's: flags exact, within
     QMM_RTOL, split-K repeated bit for bit. -> ({arch: per-step sums},
     max abs err)."""
@@ -805,11 +899,17 @@ def check_qmatmul_models(torch, dev, timer, gen):
     scale = torch.tensor(0.02, dtype=torch.float32, device=dev)
     out, err = {}, 0.0
     for arch in ("phi3-medium-14b", "paligemma-3b", "whisper-base",
-                 "recurrentgemma-2b", "mamba2-2.7b"):
+                 "recurrentgemma-2b", "mamba2-2.7b", "deepseek-v2-236b",
+                 "deepseek-v3-671b"):
+        cfg = get(arch)
+        todo = [(4, kn, count) for kn, count in qmm_per_step(cfg)]
+        if cfg.family == "moe":
+            todo += [(4 * MOE_SERVE_SMAX, kn, count)
+                     for kn, count in qmm_latent_per_step(cfg)]
         cases = []
-        for (k, n), count in qmm_per_step(get(arch)):
+        for m, (k, n), count in todo:
             w_enc, w_bf, flips = _qmm_weight(torch, dev, k, n, gen, scale)
-            c = _qmm_case(torch, dev, 4, w_enc, w_bf, scale, flips, timer,
+            c = _qmm_case(torch, dev, m, w_enc, w_bf, scale, flips, timer,
                           gen)
             err = max(err, c["err"])
             cases.append((c, count))
@@ -817,6 +917,42 @@ def check_qmatmul_models(torch, dev, timer, gen):
         out[arch] = _qmm_sum(cases)
         log(f"ecc_qmatmul float, {arch} decode step (M = 4, "
             f"{out[arch]['launches']} launches): {out[arch]}")
+        if cfg.family == "moe" and \
+                out[arch]["launches"] != _moe_step_launches(cfg)[1]:
+            fail(f"{arch}: {out[arch]['launches']} ecc_qmatmul shapes a "
+                 f"step checked, the decode step launches "
+                 f"{_moe_step_launches(cfg)[1]}")
+    return out, err
+
+
+def check_qmatmul_moe_prefill(torch, dev, timer, gen):
+    """The prefill regime of ecc_qmatmul at every weight shape of the
+    deepseek-v2-236b and deepseek-v3-671b cache-less forward over
+    MOE_FORWARD tokens (M = 8,192 rows for each projection, the latent
+    re-expansions and the head), w_dkv's ragged last N tile (576 = 4 x 128
+    + 64) included: held as :func:`check_qmatmul_mixes` holds its prefill
+    mix (flags exact, within QMM_RTOL of the plain version on every
+    output), timed beside the plain version, ``torch.matmul`` and the
+    operations bound. -> ({arch: per-forward sums at full depth}, max abs
+    err)."""
+    from repro_torch.configs import get
+    scale = torch.tensor(0.02, dtype=torch.float32, device=dev)
+    m = MOE_FORWARD[0] * MOE_FORWARD[1]
+    out, err = {}, 0.0
+    for arch in ("deepseek-v2-236b", "deepseek-v3-671b"):
+        cfg = get(arch)
+        cases = []
+        for (k, n), count in qmm_per_step(cfg) + qmm_latent_per_step(cfg):
+            w_enc, w_bf, flips = _qmm_weight(torch, dev, k, n, gen, scale)
+            c = _qmm_case(torch, dev, m, w_enc, w_bf, scale, flips, timer,
+                          gen)
+            err = max(err, c["err"])
+            cases.append((c, count))
+            del w_enc, w_bf
+            torch.cuda.empty_cache()
+        out[arch] = _qmm_sum(cases)
+        log(f"ecc_qmatmul float, {arch} forward (M = {m}, "
+            f"{out[arch]['launches']} launches at full depth): {out[arch]}")
     return out, err
 
 
@@ -1530,10 +1666,115 @@ def check_flash(torch, dev, cfg, timer, gen):
         bound_by=one["bound_by"], launches=nl, tflops=one["tflops"],
         library_tflops=one["library_tflops"])
     entry["window"], e = check_flash_window(torch, dev, timer, gen)
+    err = max(err, e)
+    entry["mla_192_128"], e = check_flash_mla(torch, dev, timer, gen)
     entry["max_abs_err"] = max(err, e)
     log(f"flash_attention (per prefill, 30 launches of (4, 32, 2048, 128)): "
         f"{entry}")
     return entry
+
+
+def check_flash_mla(torch, dev, timer, gen, *, b=2, h=128, s=4096):
+    """Flash at MLA's head split (q and k of 192 = 128 nope + 64 rope dims,
+    v of 128; scale 1/sqrt(192)) at the deepseek-v2-236b and -v3-671b
+    forward of phases 15 and 16 (B 2, their 128 heads, S 4,096, bf16: one
+    launch per layer), and at a ragged S (1,000) in bf16 and f32: the
+    kernel against its plain version within FLASH_RTOL / FLASH_ATOL, timed
+    per launch beside the plain version and SDPA (causal) over the same
+    inputs, and held to SDPA within FLASH_SDPA_RTOL. The bound counts the
+    causal triangle's S (S + 1) / 2 pairs per head, 2 (192 + 128)
+    operations each (QK^T and PV), at the bf16 peak, against q, k and v
+    read once and the output written once. -> (entry, max abs err)."""
+    from repro_torch.kernels import flash_attention
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dqk, dv = 192, 128
+
+    def check(shape, dtype):
+        q, k = (torch.randn((*shape, dqk), generator=gen, device=dev).to(
+            dtype) for _ in range(2))
+        v = torch.randn((*shape, dv), generator=gen, device=dev).to(dtype)
+        ko = flash_attention.flash_attention(q, k, v)
+        po = flash_attention.flash_attention_plain(q, k, v)
+        if ko.shape != (*shape, dv):
+            fail(f"flash_attention (192, 128) output {tuple(ko.shape)}")
+        e = (ko.float() - po.float()).abs()
+        if bool((e > FLASH_RTOL * po.float().abs() + FLASH_ATOL).any()):
+            fail(f"flash_attention (192, 128) out of tolerance of its plain "
+                 f"version at {shape} {dtype}: max abs err {float(e.max())}")
+        log(f"flash_attention {shape} q/k 192, v 128 {dtype}: max abs err "
+            f"vs plain {float(e.max()):.3g}, mean {float(e.mean()):.3g}")
+        return (q, k, v), float(e.max())
+
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        err = max(err, check((1, 8, 1000), dtype)[1])
+    qkv, e = check((b, h, s), torch.bfloat16)
+    err = max(err, e)
+    km = timer.ms(lambda: flash_attention.flash_attention(*qkv))
+    pm = timer.ms(lambda: flash_attention.flash_attention_plain(*qkv))
+    lm_ = timer.ms(lambda: sdpa(*qkv, is_causal=True))
+    so = sdpa(*qkv, is_causal=True).float()
+    lib_err = float((so - flash_attention.flash_attention(*qkv).float())
+                    .abs().max())
+    lib_top = float(so.abs().max())
+    del so
+    if lib_err > FLASH_SDPA_RTOL * lib_top:
+        fail(f"flash_attention (192, 128) differs from SDPA (causal) by "
+             f"{lib_err} at {(b, h, s)} (max |SDPA| {lib_top})")
+    ops = 2 * (dqk + dv) * b * h * s * (s + 1) // 2
+    bb, by = bound_ms(2 * b * h * s * (2 * dqk + 2 * dv), ops)
+    log(f"flash_attention {(b, h, s)} q/k 192, v 128 bf16 per launch: "
+        f"kernel {km:.4f} ms ({ops / km / 1e9:.1f} TFLOP/s), plain {pm:.4f} "
+        f"ms, sdpa(causal) {lm_:.4f} ms ({ops / lm_ / 1e9:.1f} TFLOP/s; max "
+        f"abs diff from the kernel {lib_err:.3g}, max |SDPA| {lib_top:.3g}), "
+        f"bound {bb:.4f} ms ({by})")
+    del qkv
+    return dict(ms=km, plain_ms=pm, bound_ms=bb, bound_by=by, library_ms=lm_,
+                tflops=ops / km / 1e9, library_tflops=ops / lm_ / 1e9,
+                shape=[b, h, s, dqk, dv]), err
+
+
+def check_ecc_decode_expert_leaves(torch, dev, timer, gen):
+    """``ecc_decode`` at one routed-expert leaf of each moe config, as a
+    decode step decodes it whole (``ProtectedWeight.astype``):
+    deepseek-v2-236b's 160 x 5,120 x 1,536 (1.26 G values) and
+    deepseek-v3-671b's 256 x 7,168 x 2,048 (3.76 G values, 3.76 GB of
+    image: byte offsets past 2^31). The image is encoded by the
+    ``ecc_encode`` kernel from WOT-compliant random blocks, with 1,000
+    single and 1,000 double flips spread over it; the kernel must equal
+    its plain version byte for byte and flag every flipped block. Timed
+    beside the plain version; bound 8 bytes read and 9 written per block.
+    -> {config: entry}."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import ecc_decode, ecc_encode
+
+    out = {}
+    for name in ("deepseek-v2-236b", "deepseek-v3-671b"):
+        cfg = get(name)
+        n = cfg.n_experts * cfg.d_model * cfg.moe_d_ff
+        enc = ecc_encode.ecc_encode(wot_blocks(torch, dev, n // 8, gen))
+        ns, nd = flip_blocks(torch, enc, 1000, 1000, gen)
+        kd, kf = ecc_decode.ecc_decode(enc)
+        if int((kf & 1).sum()) != ns or int((kf >> 1).sum()) != nd:
+            fail(f"ecc_decode flag counts at the {name} expert leaf != "
+                 f"the injected single/double blocks")
+        pd, pf = ecc_decode.ecc_decode_plain(enc)
+        same = torch.equal(kd, pd) and torch.equal(kf, pf)
+        del kd, kf, pd, pf
+        if not same:
+            fail(f"ecc_decode disagrees with its plain version at the {name} "
+                 f"expert leaf ({n} values)")
+        torch.cuda.empty_cache()
+        bms, by = bound_ms(17 * (n // 8))
+        out[name] = dict(
+            values=n, ms=timer.ms(lambda: ecc_decode.ecc_decode(enc)),
+            plain_ms=timer.ms(lambda: ecc_decode.ecc_decode_plain(enc)),
+            bound_ms=bms, bound_by=by, library_ms=None, max_abs_err=0.0)
+        log(f"ecc_decode at one {name} expert leaf ({n} values, "
+            f"{n / 2 ** 30:.2f} GiB of image): {out[name]}")
+        del enc
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_flash_window(torch, dev, timer, gen, *, b=2, h=10, s=4096, hd=256,
@@ -3947,13 +4188,14 @@ def hybrid_ring(torch, dev, cfg, enc, *, tokens=16, batch=4):
 
 
 def _max_mean_diff(torch, a, b) -> tuple:
-    """(max, mean) |a - b| in f32, one batch row at a time (the logits of
-    a long forward take GBs in f32)."""
-    mx, tot = 0.0, 0.0
+    """(max, mean) |a - b| in f32, one batch row (or one tensor of a
+    sequence) at a time (the logits of a long forward take GBs in f32)."""
+    mx, tot, n = 0.0, 0.0, 0
     for x, y in zip(a, b):
         d = (x.float() - y.float()).abs()
-        mx, tot = max(mx, float(d.max())), tot + float(d.sum())
-    return mx, tot / a.numel()
+        mx, tot, n = max(mx, float(d.max())), tot + float(d.sum()), \
+            n + d.numel()
+    return mx, tot / n
 
 
 def route_distances(torch, lk, lp, lf, what, max_atol, mean_atol):
@@ -3966,8 +4208,9 @@ def route_distances(torch, lk, lp, lf, what, max_atol, mean_atol):
     dmax, dmean = _max_mean_diff(torch, lk, lp)
     to_f32 = {"cuda": _max_mean_diff(torch, lk, lf),
               "torch": _max_mean_diff(torch, lp, lf)}
+    top = max(float(x.abs().max()) for x in lf)
     log(f"{what}, cuda vs torch route: logits max abs diff {dmax:.4g}, mean "
-        f"{dmean:.4g} (|logits| max {float(lf.abs().max()):.3g}); against "
+        f"{dmean:.4g} (|logits| max {top:.3g}); against "
         f"the f32 plain route: cuda max {to_f32['cuda'][0]:.4g} mean "
         f"{to_f32['cuda'][1]:.4g}, torch max {to_f32['torch'][0]:.4g} mean "
         f"{to_f32['torch'][1]:.4g}")
@@ -4560,6 +4803,563 @@ def profile_ssm_decode(torch, dev, build, cfg, plan, enc, batch=4):
     del cache
     return {"steps": n, "wall_ms": wall_ms, "busy_ms": busy,
             "split_ms": split, "decode_events": len(dec),
+            "launches": sum(e.count for e in kernels)}
+
+
+# ---------------------------------------------------------------------------
+# phases 15 and 16: the moe family — deepseek-v2-236b and deepseek-v3-671b
+# ---------------------------------------------------------------------------
+
+# Depth cuts: the widths and expert counts stay as published (160 and 256
+# routed experts, top-6 and top-8, kv_lora_rank 512, 128 heads). At full
+# depth neither model fits one card (244.2 G and 703.8 G parameters: 4.05
+# G and 11.51 G a layer). deepseek-v2-236b serves at 4 layers (17.26 GB of
+# image; its deploy draws one stacked expert leaf of 20.1 GB in f32) and
+# compares routes at 2; deepseek-v3-671b at 1 layer (13.36 GB of image; a
+# 15.0 GB f32 draw for each expert leaf).
+MOE_V2_LAYERS, MOE_ROUTE_LAYERS, MOE_V3_LAYERS = 4, 2, 1
+# the decode triple's fault rate: at 13-17 GB of image a few dozen blocks
+# take two flips and (expected 0.003) none three
+MOE_FAULT_RATE = 3e-6
+# the cache-less forward: 2 x 4,096 tokens (capacity 192 slots per expert
+# at v2, 160 at v3)
+MOE_FORWARD = (2, 4096)
+# the latent cache of the decode triple: serve sizes it max(64, 2 x 16
+# tokens) slots, so w_uk and w_uv run at M = 4 x 64 rows a step
+MOE_SERVE_SMAX = 64
+# the lockstep decode of the three routes: 16 steps at batch 8
+MOE_ROUTE_STEPS, MOE_ROUTE_BATCH = 16, 8
+# the f32 forward against f32 decode steps over S = 8 tokens: capacity 8
+# >= S, so no pair can drop in either; the reference's gate
+# (tests/test_consistency.py::test_prefill_decode_agree)
+MOE_AGREE = (4, 8)
+MOE_AGREE_ATOL = 1e-3
+# Routing between routes: each route rounds the bf16 activations at its
+# own places, and a token whose k-th and (k+1)-th gates lie within that
+# rounding takes another expert on one of them, which moves its logits by
+# O(1) and, in the forward, the later pairs of both experts' queues, so
+# other pairs drop at capacity. So the routes are compared on one
+# dispatch: the f32 plain route routes by its own gates, and the two bf16
+# routes replay its expert ids (their gates gathered at them;
+# :func:`_recorded_routing`), so every (token, k) pair goes to the same
+# expert and drops alike on all three, and the logits of every row are
+# held. Each bf16 route's own top-k picks on that shared history are
+# recorded too: the kernel route's may differ from the f32 route's at
+# most MOE_FLIP_RATIO times as often as the bf16 plain route's do, plus
+# MOE_FLIP_SLACK pairs. Readings on the H100 (700 W, phase 15 at 2
+# layers, before the replay, each route on its own routing): the decode
+# 27 and 26 of 256 pairs (kernel and plain route against f32), the
+# forward's top-k sets 9.381% and 10.199% of 16,384; ratios 1.04 and 0.92.
+# With the replay: 16 and 17 of 256, 7.343% and 7.721% of 16,384.
+MOE_FLIP_RATIO, MOE_FLIP_SLACK = 1.25, 3
+# the logits of every row (both bf16 routes against each other; and each
+# against the f32 plain route as F32_ROUTE_RATIO says). Stated from the
+# readings before the replay, on the rows no routing difference reached
+# (the decode max 0.0625, mean 0.006431 over 64 rows, |logits| up to 5.2,
+# where a bf16 ulp is 0.03125; the forward max 0.05957, mean 0.008192
+# over 20 rows), at about twice each. With the replay, every row (same
+# card): the decode max 0.0625, mean 0.006727 over 128 rows; the forward
+# max 0.0957, mean 0.01101 over 8,192 rows.
+MOE_MAX_ATOL, MOE_MEAN_ATOL = 0.125, 0.015
+
+
+def phase_moe_v2(torch, dev, build):
+    """deepseek-v2-236b at full width, cut to MOE_V2_LAYERS layers, on its
+    latent cache: the decode triple through ``serve``
+    (:func:`dense_cache_decode_triple`, rate 3e-6: every expert leaf, the
+    router and every projection are read whole each step), whose clean
+    run must launch ``ecc_decode`` exactly 1 + 4 L times a step (the
+    embedding, each layer's router and three expert leaves) and
+    ``ecc_qmatmul`` 8 L + 1 (wq, w_dkv, w_uk, w_uv, wo, the three shared
+    expert projections; the head); a profile of its decode step
+    (:func:`profile_moe_decode`); then at MOE_ROUTE_LAYERS layers the three
+    routes in lockstep (:func:`moe_routes`), the cache-less forward over
+    MOE_FORWARD tokens on the three routes (:func:`moe_forward`) and the
+    f32 forward against f32 decode steps (:func:`moe_forward_vs_decode`).
+    -> the launch counts of the path."""
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
+
+    cfg = get("deepseek-v2-236b").with_(n_layers=MOE_V2_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counts()
+    report = {"layers": MOE_V2_LAYERS,
+              "launches_per_step": moe_decode_triple(torch, dev, build, cfg)}
+    plan = policy_mod.ProtectionPolicy(backend="cuda").plan(
+        lm.param_shapes(cfg))
+    enc = _moe_deploy(torch, dev, cfg, plan)
+    report["profile"] = profile_moe_decode(torch, dev, build, cfg, plan, enc)
+    del enc
+    torch.cuda.empty_cache()
+    cfg2 = cfg.with_(n_layers=MOE_ROUTE_LAYERS)
+    plan = policy_mod.ProtectionPolicy(backend="cuda").plan(
+        lm.param_shapes(cfg2))
+    enc = _moe_deploy(torch, dev, cfg2, plan)
+    report["routes"] = moe_routes(torch, dev, cfg2, enc)
+    report["forward"] = moe_forward(torch, dev, cfg2, enc, routes=True)
+    report["agree"] = moe_forward_vs_decode(torch, dev, cfg2, enc)
+    del enc
+    report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    counts = dict(build.COUNTS)
+    log(f"launch counts over the deepseek-v2-236b path: {counts}; peak "
+        f"device memory {report['peak_gb']:.2f} GB")
+    with open(OUT_DIR / "chip_smoke_moe_v2.json", "w") as fh:
+        json.dump({"config": cfg.name, **report}, fh, indent=1)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_moe_v3(torch, dev, build):
+    """deepseek-v3-671b at full width, cut to MOE_V3_LAYERS layer, on its
+    latent cache: the decode triple (its ``q_lora`` pair ``w_dq`` ->
+    ``w_uq`` and three 3.76 GB expert leaves through ``ecc_decode`` and the
+    injector each step; ``ecc_qmatmul`` 9 L + 1 launches a step), a
+    profile of its decode step, and one cache-less forward over
+    MOE_FORWARD tokens through flash at (192, 128) on the kernel route.
+    -> the launch counts of the path."""
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
+
+    cfg = get("deepseek-v3-671b").with_(n_layers=MOE_V3_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counts()
+    report = {"layers": MOE_V3_LAYERS,
+              "launches_per_step": moe_decode_triple(torch, dev, build, cfg)}
+    plan = policy_mod.ProtectionPolicy(backend="cuda").plan(
+        lm.param_shapes(cfg))
+    enc = _moe_deploy(torch, dev, cfg, plan)
+    report["profile"] = profile_moe_decode(torch, dev, build, cfg, plan, enc)
+    report["forward"] = moe_forward(torch, dev, cfg, enc, routes=False)
+    del enc
+    report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    counts = dict(build.COUNTS)
+    log(f"launch counts over the deepseek-v3-671b path: {counts}; peak "
+        f"device memory {report['peak_gb']:.2f} GB")
+    with open(OUT_DIR / "chip_smoke_moe_v3.json", "w") as fh:
+        json.dump({"config": cfg.name, **report}, fh, indent=1)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _moe_deploy(torch, dev, cfg, plan):
+    """Draw and encode ``cfg``'s weights leaf by leaf on the kernel route
+    (seed 0, as ``serve`` draws them)."""
+    from repro_torch.models import lm
+    t0 = time.time()
+    enc = lm.init_params(cfg, 0, device=dev, leaf_fn=plan.encode_leaf)
+    torch.cuda.synchronize()
+    leaves = _protected(enc)
+    log(f"{cfg.name} ({cfg.n_layers} layers): drew and encoded "
+        f"{len(leaves)} protected leaves "
+        f"({sum(t.enc.numel() for t in leaves) / 1e9:.3f} GB of image) in "
+        f"{time.time() - t0:.1f}s")
+    return enc
+
+
+def _moe_step_launches(cfg) -> tuple:
+    """(ecc_decode, ecc_qmatmul) launches of one decode step: the
+    embedding and each layer's router and three expert leaves decode
+    whole; the MLA projections (``wq``, or ``w_dq`` and ``w_uq``;
+    ``w_dkv``, ``w_uk``, ``w_uv``, ``wo``), the three shared-expert
+    projections and the head go through ``ecc_qmatmul``."""
+    nl = cfg.n_layers
+    return 1 + 4 * nl, (8 + bool(cfg.q_lora_rank)) * nl + 1
+
+
+def moe_decode_triple(torch, dev, build, cfg):
+    """The decode triple at batch 4, 16 steps from position 0 on the latent
+    cache, rate MOE_FAULT_RATE, with the per-step launches checked. ->
+    the clean run's launches per step."""
+    clean = dense_cache_decode_triple(torch, dev, build, cfg,
+                                      rate=MOE_FAULT_RATE)
+    per_step = clean["launches_per_step"]
+    del clean
+    torch.cuda.empty_cache()
+    dec, qmm = _moe_step_launches(cfg)
+    if per_step.get("ecc_decode") != dec or per_step.get("ecc_qmatmul") != qmm:
+        fail(f"{cfg.name} decode step: {per_step.get('ecc_decode')} "
+             f"ecc_decode and {per_step.get('ecc_qmatmul')} ecc_qmatmul "
+             f"launches a step, not {dec} and {qmm}")
+    return per_step
+
+
+@contextlib.contextmanager
+def _recorded_routing(replay=None):
+    """Record the top-k expert ids (B, S, k) the router picks in every moe
+    call, in order, by wrapping ``layers.top_k_lower_first`` while the
+    block runs. With ``replay`` (the ids another run recorded, one per
+    call in the same order) each call dispatches by the replayed ids
+    instead, its own gates gathered at them; the record still holds the
+    call's own picks."""
+    from repro_torch.models import layers as L
+    real, calls = L.top_k_lower_first, []
+    given = None if replay is None else iter(replay)
+
+    def spy(x, k):
+        w, i = real(x, k)
+        calls.append(i)
+        if given is not None:
+            i = next(given)
+            w = x.gather(-1, i)
+        return w, i
+    L.top_k_lower_first = spy
+    try:
+        yield calls
+    finally:
+        L.top_k_lower_first = real
+    if given is not None and next(given, None) is not None:
+        fail("a replayed routing has more moe calls than the run made")
+
+
+def _routing(torch, cfg, calls) -> tuple:
+    """Recorded top-k ids, one call per layer -> (the sets sorted (L, B,
+    S, k), the pairs kept at capacity (L, B, S, k), by the model's own
+    queues)."""
+    from repro_torch.models import layers as L
+    topi = torch.stack(calls)
+    n, b, s, k = topi.shape
+    pos = L.queue_positions(topi.reshape(n * b, s * k), cfg.n_experts)[3]
+    keep = (pos < L.moe_capacity(cfg, s)).reshape(n, b, s, k)
+    return topi.sort(dim=-1).values, keep
+
+
+def _hold_flips(what, shares, pairs):
+    """The kernel route's own top-k picks differ from the f32 plain
+    route's at most MOE_FLIP_RATIO times as often as the bf16 plain
+    route's, plus MOE_FLIP_SLACK pairs."""
+    k, p = shares["cuda_vs_f32"] * pairs, shares["torch_vs_f32"] * pairs
+    log(f"{what}: (token, layer) pairs whose own top-k set differs (each "
+        f"route's router on the shared dispatch), of {pairs}: " +
+        ", ".join(f"{n} {v * pairs:.0f} ({100 * v:.3f}%)"
+                  for n, v in shares.items()))
+    if k > MOE_FLIP_RATIO * p + MOE_FLIP_SLACK:
+        fail(f"{what}: the kernel route picks other experts than the f32 "
+             f"plain route in {k:.0f} pairs, the bf16 plain route in {p:.0f}")
+
+
+def _set_shares(sets) -> dict:
+    """Sorted top-k sets (L, B, S, k) per route -> the share of (token,
+    layer) pairs whose sets differ, for the three pairs of routes."""
+    pairs = {"cuda_vs_torch": ("cuda", "torch"), "cuda_vs_f32": ("cuda", "f32"),
+             "torch_vs_f32": ("torch", "f32")}
+    return {n: float((sets[a] != sets[b]).any(-1).float().mean())
+            for n, (a, b) in pairs.items()}
+
+
+def moe_routes(torch, dev, cfg, enc):
+    """MOE_ROUTE_STEPS serve steps from position 0 over the latent cache at
+    batch MOE_ROUTE_BATCH on the plain route in f32 and on the kernel route
+    and the plain route in bf16, in lockstep (the kernel route's greedy
+    tokens fed to all three), the bf16 routes dispatched by the f32
+    route's expert ids (:func:`_recorded_routing`): flags equal and zero
+    (rows top and layers); every row's logits held by
+    :func:`route_distances` within MOE_MAX_ATOL / MOE_MEAN_ATOL; the share
+    of (token, layer) pairs whose own top-6 set differs between each pair
+    of routes held by :func:`_hold_flips`. -> the readings."""
+    from repro_torch.serving import kvcache, protected
+
+    tokens, batch = MOE_ROUTE_STEPS, MOE_ROUTE_BATCH
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    routes = {"f32": ("torch", torch.float32),
+              "cuda": ("cuda", torch.bfloat16),
+              "torch": ("torch", torch.bfloat16)}
+    caches = {r: kvcache.init_cache(cfg, batch, tokens, dtype=dt, device=dev)
+              for r, (_, dt) in routes.items()}
+    steps = {r: protected.make_serve_step(cfg, backend=be, dtype=dt)
+             for r, (be, dt) in routes.items()}
+    tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=dev)
+    logits = {r: [] for r in routes}
+    sinks = {r: [] for r in routes}
+    t0 = time.time()
+    for t in range(tokens):
+        pos = torch.full((batch,), t, dtype=torch.int32, device=dev)
+        res = {}
+        with _recorded_routing() as ref:
+            res["f32"] = steps["f32"](enc, caches["f32"], tok, pos)
+        sinks["f32"] += ref
+        for r in ("cuda", "torch"):
+            with _recorded_routing(replay=ref) as calls:
+                res[r] = steps[r](enc, caches[r], tok, pos)
+            sinks[r] += calls
+        fk, fp, ff = ({k: v.tolist() for k, v in res[r][2].items()}
+                      for r in ("cuda", "torch", "f32"))
+        if fk != fp or fk != ff or sorted(fk) != ["layers", "top"] or \
+                any(x for row in fk.values() for x in
+                    torch.tensor(row).reshape(-1).tolist()):
+            fail(f"{cfg.name} step {t} flags: cuda {fk} vs torch {fp} vs "
+                 f"f32 {ff} (clean weights: all zero, rows top, layers)")
+        for r in routes:
+            logits[r].append(res[r][0][:, 0])
+        tok = res["cuda"][0].argmax(dim=-1)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    nl = cfg.n_layers
+    # per route: (L, B, T, k), the steps as the sequence axis
+    rt = {}
+    for r, sink in sinks.items():
+        topi, keep = _routing(torch, cfg, sink)      # (T*L, B, 1, k)
+        rt[r] = tuple(x.reshape(tokens, nl, batch, -1).permute(1, 2, 0, 3)
+                      for x in (topi, keep))
+    shares = _set_shares({r: v[0] for r, v in rt.items()})
+    what = (f"{cfg.name} ({nl} layers) {tokens} decode steps at batch "
+            f"{batch} in lockstep")
+    _hold_flips(what, shares, nl * batch * tokens)
+    dropped = int((~rt["f32"][1]).sum())
+    lk, lp, lf = (torch.stack(logits[r]).transpose(0, 1)
+                  for r in ("cuda", "torch", "f32"))  # (B, T, V)
+    rep = route_distances(
+        torch, lk, lp, lf, f"{what} (every row; the bf16 routes dispatched "
+        f"by the f32 route's experts)", MOE_MAX_ATOL, MOE_MEAN_ATOL)
+    log(f"{what}: {wall:.1f}s for the three routes; pairs dropped at "
+        f"capacity {dropped} (a decode step cannot drop: 8 slots per "
+        f"expert, one token a row)")
+    if dropped:
+        fail(f"{what}: a decode step dropped a pair at capacity")
+    return {**rep, "topk_set_shares": shares, "pairs": nl * batch * tokens,
+            "rows": batch * tokens}
+
+
+def moe_forward(torch, dev, cfg, enc, *, routes):
+    """The cache-less decode-at-use forward (``protected.make_prefill``
+    without a KV policy) over MOE_FORWARD seeded tokens on the kernel route
+    (MLA's attention through flash at (192, 128)): flags all zero (rows
+    top and layers), logits finite of the expected shape, its time (host
+    clock of the first call; CUDA events of a second) and the (token, k)
+    pairs dropped at capacity in each layer on its own routing. With
+    ``routes`` also on the plain route in f32 and then, dispatched by the
+    f32 route's expert ids (:func:`_recorded_routing`), again on the
+    kernel route and on the plain route in bf16: the logits of every row
+    held by :func:`route_distances` within MOE_MAX_ATOL / MOE_MEAN_ATOL,
+    and each bf16 route's own top-6 picks on that dispatch held by
+    :func:`_hold_flips`. -> the readings."""
+    from repro_torch.serving import protected
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    batch, s = MOE_FORWARD
+    prompt = torch.randint(0, cfg.vocab, (batch, s), generator=gen,
+                           device=dev)
+    todo = {"cuda": ("cuda", torch.bfloat16)}
+    if routes:
+        todo = {"f32": ("torch", torch.float32), **todo,
+                "torch": ("torch", torch.bfloat16)}
+    # timed first, with nothing else held: a first call on the host clock,
+    # a second in CUDA events on the allocator's cached blocks (emptying
+    # the cache between them would time cudaMalloc of several GB)
+    prefill = protected.make_prefill(cfg, backend="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with _recorded_routing() as own:
+        prefill(enc, prompt)
+    torch.cuda.synchronize()
+    first = 1e3 * (time.time() - t0)
+    again = event_ms(torch, lambda: prefill(enc, prompt))[0]
+    torch.cuda.empty_cache()
+    keep = {"cuda": _routing(torch, cfg, own)[1]}    # (L, B, S, k)
+    out, ms, sets, ref = {}, {"cuda": first}, {}, None
+    for r, (be, dt) in todo.items():
+        prefill = protected.make_prefill(cfg, backend=be, dtype=dt,
+                                         with_flags=True)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with _recorded_routing(replay=ref) as sink:
+            lg, fl = prefill(enc, prompt)
+        torch.cuda.synchronize()
+        if r != "cuda":
+            ms[r] = 1e3 * (time.time() - t0)
+        if sorted(fl) != ["layers", "top"] or \
+                any(int(v.abs().sum()) for v in fl.values()):
+            fail(f"{cfg.name} clean forward flags on the {r} route: "
+                 f"{ {k: v.tolist() for k, v in fl.items()} }")
+        if lg.shape != (batch, s, cfg.vocab_padded) or \
+                not all(bool(torch.isfinite(x.float()).all()) for x in lg):
+            fail(f"{cfg.name} forward logits on the {r} route: "
+                 f"{tuple(lg.shape)} or non-finite")
+        out[r] = lg
+        sets[r], kept = _routing(torch, cfg, sink)
+        if r == "f32":
+            ref, keep["f32"] = sink, kept
+        del lg
+    from repro_torch.models.layers import moe_capacity
+    cap = moe_capacity(cfg, s)
+    dropped = {r: [int((~k).sum()) for k in v] for r, v in keep.items()}
+    pairs = batch * s * cfg.top_k
+    log(f"{cfg.name} ({cfg.n_layers} layers) forward over {batch} x {s} "
+        f"tokens: {ms['cuda']:.1f} ms on the kernel route (host clock, "
+        f"first call), a second call {again:.1f} ms (CUDA events, "
+        f"{batch * s / again * 1e3:.0f} tok/s); " +
+        "".join(f"{r} route {v:.1f} ms; " for r, v in ms.items()
+                if r != "cuda") +
+        f"(token, k) pairs dropped at capacity ({cap} slots per expert) "
+        f"per layer on each route's own routing, of {pairs}: {dropped}")
+    rep = {"first_call_ms": ms, "second_call_ms": again, "capacity": cap,
+           "pairs_per_layer": pairs, "dropped_per_layer": dropped}
+    if routes:
+        shares = _set_shares(sets)
+        what = f"{cfg.name} ({cfg.n_layers} layers) forward over {batch} x {s}"
+        _hold_flips(what, shares, cfg.n_layers * batch * s)
+        rep.update(route_distances(
+            torch, out["cuda"], out["torch"], out["f32"],
+            f"{what} (every row; the bf16 routes dispatched by the f32 "
+            f"route's experts)", MOE_MAX_ATOL, MOE_MEAN_ATOL),
+            topk_set_shares=shares, rows=batch * s)
+    del out
+    torch.cuda.empty_cache()
+    return rep
+
+
+def moe_forward_vs_decode(torch, dev, cfg, enc):
+    """The f32 forward against f32 decode steps on the kernel route over
+    MOE_AGREE seeded tokens: the capacity is 8 slots per expert and S is
+    8, so no pair drops in either (checked), and the two compute the same
+    function; logits within MOE_AGREE_ATOL. -> the readings."""
+    from repro_torch.serving import kvcache, protected
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    batch, s = MOE_AGREE
+    toks = torch.randint(0, cfg.vocab, (batch, s), generator=gen, device=dev)
+    with _recorded_routing() as sink:
+        full = protected.make_prefill(cfg, backend="cuda",
+                                      dtype=torch.float32)(enc, toks)
+    if not bool(_routing(torch, cfg, sink)[1].all()):
+        fail(f"{cfg.name}: a pair dropped at capacity over {s} tokens")
+    step = protected.make_serve_step(cfg, backend="cuda",
+                                     dtype=torch.float32)
+    cache = kvcache.init_cache(cfg, batch, s, dtype=torch.float32,
+                               device=dev)
+    worst = 0.0
+    for t in range(s):
+        pos = torch.full((batch,), t, dtype=torch.int32, device=dev)
+        lg, cache, _ = step(enc, cache, toks[:, t:t + 1], pos)
+        worst = max(worst, float((lg[:, 0] - full[:, t]).abs().max()))
+    top = float(full.abs().max())
+    log(f"{cfg.name} f32 forward vs {s} f32 decode steps (kernel route, "
+        f"{batch} x {s} tokens, no drops possible): max abs diff "
+        f"{worst:.3g} (|logits| max {top:.3g}, limit {MOE_AGREE_ATOL})")
+    if not worst < MOE_AGREE_ATOL:
+        fail(f"{cfg.name}: the f32 forward and the decode steps disagree by "
+             f"{worst}")
+    del full, cache
+    return {"max_abs_diff": worst, "logits_abs_max": top}
+
+
+# a CUPTI marker the profiler records while the host waits on a full
+# launch queue (a device-bound step); it repeats the device time of the
+# kernels queued behind it
+CMD_BUFFER_FULL = "Command Buffer Full"
+
+
+def _range_device_ms(torch, prof, ranges) -> dict:
+    """Device ms under each ``record_function`` range of ``ranges``: the
+    range's device time less that of the CMD_BUFFER_FULL markers inside
+    it, which count its kernels a second time."""
+    def markers(e):
+        return sum(c.device_time_total if c.name == CMD_BUFFER_FULL
+                   else markers(c) for c in e.cpu_children)
+
+    out = dict.fromkeys(ranges, 0.0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in out:
+            out[e.name] += (e.device_time_total - markers(e)) / 1e3
+    return out
+
+
+def profile_moe_decode(torch, dev, build, cfg, plan, enc, batch=4):
+    """Profile 4 decode steps on the kernel route over the latent cache,
+    after one step unprofiled: launches per step, the device-busy share,
+    and the device time split into the projections (ecc_qmatmul), the
+    ``ecc_decode`` launches (in time order per step the embedding's, then
+    each layer's router and three expert leaves; told apart by
+    ``build.COUNTS``: 1 + 4 L a step), the embedding's dequantization
+    (``embed_decode`` range), MLA's PyTorch ops (``mla``: rope, the
+    latent cache writes, the scores, softmax and values over all cached
+    slots), the router (``moe_router``: its dequantization, logits, top-k
+    and queue positions), the routed experts (``moe_experts``: the three
+    leaves' dequantizations through f32, their batched products, the
+    dispatch and combine gathers) and the rest. -> the split."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import kvcache, protected
+
+    torch.cuda.empty_cache()
+    step = protected.make_serve_step(cfg, plan=plan, backend="cuda")
+    cache = kvcache.init_cache(cfg, batch, 8, device=dev)
+    tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+
+    def run(t0, t1):
+        nonlocal cache, tok
+        for t in range(t0, t1):
+            pos = torch.full((batch,), t, dtype=torch.int32, device=dev)
+            logits, cache, _ = step(enc, cache, tok, pos)
+            tok = logits.argmax(dim=-1)
+
+    n = 4
+    run(0, 1)
+    torch.cuda.synchronize()
+    before = build.COUNTS["ecc_decode"]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.time()
+        run(1, 1 + n)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+    launched = build.COUNTS["ecc_decode"] - before
+    per = _moe_step_launches(cfg)[0]
+    if launched != n * per:
+        fail(f"{cfg.name} profile: {launched} ecc_decode launches in {n} "
+             f"steps, not {n} x {per}")
+    ranges = ("embed_decode", "mla", "moe_router", "moe_experts")
+    kernels = _profile_table(torch, prof, wall_ms,
+                             f"{n} full-width {cfg.name} decode steps "
+                             f"({cfg.n_layers} layers)",
+                             f"chip_smoke_{cfg.name}_profile.txt",
+                             ranges=ranges, steps=n)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    split = _kernel_split(kernels, {
+        "projections (ecc_qmatmul)": QMM_KERNELS})
+    dec = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "::decode_kernel" in e.name),
+                 key=lambda e: e.time_range.start)
+    ms_ = [e.time_range.elapsed_us() / 1e3 for e in reversed(dec)]
+    # counted back from the last (the profiler can drop events at its
+    # window's start): per step each layer's we_down, we_up, we_gate and
+    # router, from the last layer, then the embedding's
+    emb = [m for i, m in enumerate(ms_) if i % per == per - 1]
+    router = [m for i, m in enumerate(ms_)
+              if i % per != per - 1 and i % per % 4 == 3]
+    split["embedding decode (ecc_decode)"] = sum(emb)
+    split["router decodes (ecc_decode)"] = sum(router)
+    split["expert-leaf decodes (ecc_decode)"] = sum(ms_) - sum(emb) - \
+        sum(router)
+    rng = _range_device_ms(torch, prof, ranges)
+    split["embedding dequantization (embed_decode)"] = rng["embed_decode"]
+    split["MLA glue (mla)"] = rng["mla"]
+    split["router (moe_router)"] = rng["moe_router"]
+    split["routed experts: dequantization, products, gathers "
+          "(moe_experts)"] = rng["moe_experts"]
+    split["the rest (norms, residual adds, shared-expert SiLU, argmax)"] = \
+        busy - sum(split.values())
+    spans = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.key in ranges}
+    log(f"{cfg.name} profile: {len(dec)} ecc_decode kernel events of the "
+        f"{launched} launched ({n} x {per}); the ranges' device-side spans "
+        f"(first to last kernel, ms over {n} steps): {spans}")
+    log(f"{cfg.name} decode profile split (device ms over {n} steps, "
+        f"{busy:.2f} busy of {wall_ms:.2f} wall, "
+        f"{100 * busy / wall_ms:.1f}%): " +
+        ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    del cache
+    return {"steps": n, "wall_ms": wall_ms, "busy_ms": busy,
+            "busy_share": busy / wall_ms, "split_ms": split,
+            "range_spans_ms": spans, "decode_events": len(dec),
             "launches": sum(e.count for e in kernels)}
 
 if __name__ == "__main__":

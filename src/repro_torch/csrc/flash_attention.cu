@@ -2,11 +2,14 @@
 // a sliding window.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
-// (its _kernel and the _norm_kernel second pass). q, k, v, out: (BH, S, D)
-// row-major, D in {16, 32, 64, 128, 256}. At prefill shapes it does
-// 2*BH*S^2*D flops over the causal triangle against 4*BH*S*D*sizeof(T)
-// bytes, so it is bound by its operations (H100: 989 TFLOP/s dense bf16 on
-// the tensor cores, 67 TFLOP/s f32 on the CUDA cores); keeping the score
+// (its _kernel and the _norm_kernel second pass). q, k: (BH, S, DQK), v,
+// out: (BH, S, DV), row-major; DQK = DV in {16, 32, 64, 128, 256}, or the
+// MLA head split (DQK, DV) = (192, 128) of DeepSeek-V2/V3 (queries and keys
+// carry 128 nope + 64 rope dims, values 128). At prefill shapes it does
+// BH*S^2*(DQK + DV) flops over the causal triangle against
+// 2*BH*S*(DQK + DV)*sizeof(T) bytes, so it is bound by its operations
+// (H100: 989 TFLOP/s dense bf16 on the tensor cores, 67 TFLOP/s f32 on
+// the CUDA cores); keeping the score
 // tile and the (m, l, o) state on chip keeps the S^2 scores out of device
 // memory, which is what the kernel is for.
 //
@@ -17,7 +20,7 @@
 // including the diagonal tile; tiles past it are never loaded, and only
 // the diagonal tile is masked. Per key tile the op order is the plain
 // version's: s = q.k with f32 accumulation (bf16 products are exact in
-// f32), s * (1/sqrt(D)) after the dot, -1e30 where the key is after the
+// f32), s * (1/sqrt(DQK)) after the dot, -1e30 where the key is after the
 // query; m_new = max(m, rowmax); p = exp(s - m_new) (expf, no exp2 fold);
 // alpha = exp(m - m_new); l = l*alpha + sum p; o = o*alpha + round(p, T) @ v
 // in f32. At the end out = o / max(l, 1e-30), rounded once to T: one
@@ -46,23 +49,25 @@
 //   bytes (an odd number of 16-byte units per row, so the 8 row addresses
 //   of each ldmatrix hit distinct banks); K and V in a 2-stage ring filled
 //   by cp.async, so tile t+1 loads while tile t computes. Q fragments stay
-//   in registers for D <= 128 and are re-read with ldmatrix per tile at
-//   D = 256 (register budget: o alone is D/2 f32 registers a thread).
+//   in registers for DQK <= 128 and are re-read with ldmatrix per tile at
+//   DQK = 192 and 256 (register budget: o alone is DV/2 f32 registers a
+//   thread).
 //   m, l and alpha are computed on the accumulator fragments; a row's 64
 //   scores live in the quad of lanes that shares it, so row reductions are
 //   two xor shuffles. P is rounded to bf16 in registers (the plain
 //   version's p.to(v.dtype)) and fed as the A operand of P V, with V read
 //   by ldmatrix.trans. Unlike the plain version, P V accumulates into the
 //   alpha-scaled o directly (no separate pv sum), so only the order of the
-//   f32 sums differs. Shared memory: Q + 2 stages of K and V, (64 + 4*64)
-//   rows of D + 8 bf16: 87,040 bytes at D = 128 (two CTAs per SM), 168,960
-//   at D = 256.
+//   f32 sums differs. Shared memory: Q and 2 stages of K in rows of DQK + 8
+//   bf16, 2 stages of V in rows of DV + 8: 87,040 bytes at D = 128 (two
+//   CTAs per SM), 168,960 at D = 256, 111,616 at (192, 128).
 // * f32 (CUDA cores; the tensor cores have no exact f32 path and the port
 //   keeps TF32 off): 256 threads, each a 4x4 micro-tile of the 64x64 score
-//   tile (rows ty+16i, keys tx+16j) and a 4x(D/16) micro-tile of the output
-//   in registers; Q, K, V staged in shared memory as f32 rows of D + 1
-//   floats; row reductions over the 16 lanes of a half-warp. 214,016
-//   bytes of shared memory at D = 256.
+//   tile (rows ty+16i, keys tx+16j) and a 4x(DV/16) micro-tile of the
+//   output in registers; Q, K, V staged in shared memory as f32 rows of
+//   DQK + 1 (DV + 1) floats; row reductions over the 16 lanes of a
+//   half-warp. 214,016 bytes of shared memory at D = 256, 148,480 at
+//   (192, 128).
 //
 // Known limits, kept for later: mma.sync, not wgmma with TMA; no warp
 // specialisation (loads are issued by the compute warps); at D = 256 one
@@ -90,31 +95,35 @@ constexpr float NEG = -1e30f;
 
 constexpr int TC_THREADS = 128;  // 4 warps x 16 query rows
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t tc_smem_bytes() {
-  return (size_t)(BQ + 4 * BK) * (D + 8) * sizeof(__nv_bfloat16);
+  return ((size_t)(BQ + 2 * BK) * (DQK + 8) + (size_t)2 * BK * (DV + 8)) *
+         sizeof(__nv_bfloat16);
 }
 
-template <int D, bool WIN>
+template <int DQK, int DV, bool WIN>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
                 __nv_bfloat16* __restrict__ out, int S, float sm_scale,
                 int window) {
-  constexpr int LD = D + 8;      // padded row, in bf16
-  constexpr int CH = D / 8;      // 16-byte chunks per row
-  constexpr int KS = D / 16;     // k-steps of Q K^T
-  constexpr int NO = D / 8;      // n8 tiles of the output
-  constexpr bool Q_REGS = D <= 128;
+  constexpr int LD = DQK + 8;    // padded Q and K row, in bf16
+  constexpr int LDV = DV + 8;    // padded V row
+  constexpr int CH = DQK / 8;    // 16-byte chunks per Q or K row
+  constexpr int CHV = DV / 8;    // per V row
+  constexpr int KS = DQK / 16;   // k-steps of Q K^T
+  constexpr int NO = DV / 8;     // n8 tiles of the output
+  constexpr bool Q_REGS = DQK <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + BQ * LD;      // 2 stages x BK x LD
-  __nv_bfloat16* Vs = Ks + 2 * BK * LD;  // 2 stages x BK x LD
+  __nv_bfloat16* Vs = Ks + 2 * BK * LD;  // 2 stages x BK x LDV
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heavy tiles first
   const int q0 = qt * BQ;
-  const int64_t base = (int64_t)blockIdx.y * S * D;
+  const int64_t base = (int64_t)blockIdx.y * S * DQK;   // q and k
+  const int64_t vbase = (int64_t)blockIdx.y * S * DV;   // v and out
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
 
@@ -122,18 +131,31 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = i / CH, c = i % CH;
     const bool in = q0 + r < S;
     cp_async16(Qs + r * LD + c * 8,
-               q + base + (int64_t)(in ? q0 + r : 0) * D + c * 8, in);
+               q + base + (int64_t)(in ? q0 + r : 0) * DQK + c * 8, in);
   }
+  // V rides in the K loop when DQK = DV and has its own loop only at the
+  // MLA split: the separate loop for every pair costs 1.5-7% on the card
+  // (H100 80GB HBM3, 700 W; chip_smoke.py check_flash, both versions in
+  // one call: hd 128 +2.4%, hd 64 +7%, windowed hd 256 +1.5%)
   auto load_kv = [&](int kt, int st) {
     const int k0 = kt * BK;
     __nv_bfloat16* kd = Ks + st * BK * LD;
-    __nv_bfloat16* vd = Vs + st * BK * LD;
+    __nv_bfloat16* vd = Vs + st * BK * LDV;
     for (int i = tid; i < BK * CH; i += TC_THREADS) {
       const int r = i / CH, c = i % CH;
       const bool in = k0 + r < S;
-      const int64_t off = base + (int64_t)(in ? k0 + r : 0) * D + c * 8;
-      cp_async16(kd + r * LD + c * 8, k + off, in);
-      cp_async16(vd + r * LD + c * 8, v + off, in);
+      const int64_t row = in ? k0 + r : 0;
+      cp_async16(kd + r * LD + c * 8, k + base + row * DQK + c * 8, in);
+      if constexpr (DQK == DV)
+        cp_async16(vd + r * LDV + c * 8, v + vbase + row * DV + c * 8, in);
+    }
+    if constexpr (DQK != DV) {
+      for (int i = tid; i < BK * CHV; i += TC_THREADS) {
+        const int r = i / CHV, c = i % CHV;
+        const bool in = k0 + r < S;
+        const int64_t row = in ? k0 + r : 0;
+        cp_async16(vd + r * LDV + c * 8, v + vbase + row * DV + c * 8, in);
+      }
     }
   };
   // the first key tile: 0, or with a window the tile of the oldest key
@@ -164,7 +186,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     const __nv_bfloat16* Kt = Ks + (kt & 1) * BK * LD;
-    const __nv_bfloat16* Vt = Vs + (kt & 1) * BK * LD;
+    const __nv_bfloat16* Vt = Vs + (kt & 1) * BK * LDV;
 
     // S = Q K^T: this warp's 16 rows x 64 keys, 8 n8 tiles
     float s[8][4];
@@ -254,7 +276,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       for (int j2 = 0; j2 < NO / 2; ++j2) {  // 16 head dims per ldmatrix
         uint32_t b[4];
         ldmatrix_x4_trans(
-            b, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+            b, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV +
                    j2 * 16 + (lane >> 4) * 8);
         mma_bf16(o[2 * j2], a, b[0], b[1]);
         mma_bf16(o[2 * j2 + 1], a, b[2], b[3]);
@@ -267,8 +289,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = row0 + 8 * r;
     if (row >= S) continue;
     const float denom = fmaxf(l_r[r], 1e-30f);
-    uint32_t* dst = reinterpret_cast<uint32_t*>(out + base +
-                                                (int64_t)row * D + 2 * t4);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + vbase +
+                                                (int64_t)row * DV + 2 * t4);
 #pragma unroll
     for (int j = 0; j < NO; ++j)
       dst[4 * j] = pack_bf16(o[j][2 * r] / denom, o[j][2 * r + 1] / denom);
@@ -295,31 +317,34 @@ __device__ __forceinline__ float half_sum(float v) {
   return v;
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t f32_smem_bytes() {
-  return ((size_t)(BQ + 2 * BK) * (D + 1) + (size_t)BQ * PLD) * sizeof(float);
+  return ((size_t)(BQ + BK) * (DQK + 1) + (size_t)BK * (DV + 1) +
+          (size_t)BQ * PLD) * sizeof(float);
 }
 
-template <int D, bool WIN>
+template <int DQK, int DV, bool WIN>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int S,
                  float sm_scale, int window) {
-  constexpr int LD = D + 1;
-  constexpr int DJ = D / 16;
+  constexpr int LD = DQK + 1;
+  constexpr int LDV = DV + 1;
+  constexpr int DJ = DV / 16;
   extern __shared__ float sm[];
   float* Qs = sm;              // BQ x LD
   float* Ks = Qs + BQ * LD;    // BK x LD
-  float* Vs = Ks + BK * LD;    // BK x LD
-  float* Ps = Vs + BK * LD;    // BQ x PLD
+  float* Vs = Ks + BK * LD;    // BK x LDV
+  float* Ps = Vs + BK * LDV;   // BQ x PLD
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heavy tiles first
-  const int64_t base = (int64_t)blockIdx.y * S * D;
+  const int64_t base = (int64_t)blockIdx.y * S * DQK;   // q and k
+  const int64_t vbase = (int64_t)blockIdx.y * S * DV;   // v and out
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
-  for (int i = tid; i < BQ * D; i += F32_THREADS) {
-    const int r = i / D, d = i % D;
-    Qs[r * LD + d] = q0 + r < S ? q[base + (int64_t)(q0 + r) * D + d] : 0.f;
+  for (int i = tid; i < BQ * DQK; i += F32_THREADS) {
+    const int r = i / DQK, d = i % DQK;
+    Qs[r * LD + d] = q0 + r < S ? q[base + (int64_t)(q0 + r) * DQK + d] : 0.f;
   }
   float o[4][DJ], m[4], l[4];
 #pragma unroll
@@ -334,12 +359,21 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k_first = WIN ? max(0, q0 - window + 1) / BK * BK : 0;
   for (int k0 = k_first; k0 <= last_row; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BK * D; i += F32_THREADS) {
-      const int r = i / D, d = i % D;
+    // V in the K loop when DQK = DV, as in flash_tc_kernel (its own loop
+    // for every pair costs hd 256 +7% on the card)
+    for (int i = tid; i < BK * DQK; i += F32_THREADS) {
+      const int r = i / DQK, d = i % DQK;
       const bool in = k0 + r < S;
-      const int64_t g = base + (int64_t)(k0 + r) * D + d;
+      const int64_t g = base + (int64_t)(k0 + r) * DQK + d;
       Ks[r * LD + d] = in ? k[g] : 0.f;
-      Vs[r * LD + d] = in ? v[g] : 0.f;
+      if constexpr (DQK == DV) Vs[r * LDV + d] = in ? v[g] : 0.f;
+    }
+    if constexpr (DQK != DV) {
+      for (int i = tid; i < BK * DV; i += F32_THREADS) {
+        const int r = i / DV, d = i % DV;
+        const bool in = k0 + r < S;
+        Vs[r * LDV + d] = in ? v[vbase + (int64_t)(k0 + r) * DV + d] : 0.f;
+      }
     }
     __syncthreads();
 
@@ -349,7 +383,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qa[4], kb[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty + 16 * i) * LD + d];
@@ -398,7 +432,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) pa[i] = Ps[(ty + 16 * i) * PLD + c];
 #pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) vb[jj] = Vs[c * LD + tx + 16 * jj];
+      for (int jj = 0; jj < DJ; ++jj) vb[jj] = Vs[c * LDV + tx + 16 * jj];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -419,62 +453,69 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj)
-      out[base + (int64_t)row * D + tx + 16 * jj] = o[i][jj] / denom;
+      out[vbase + (int64_t)row * DV + tx + 16 * jj] = o[i][jj] / denom;
   }
 }
 
-template <int D, bool WIN>
+template <int DQK, int DV, bool WIN>
 int launch(const void* q, const void* k, const void* v, void* out, int BH,
            int S, float sm_scale, int is_bf16, int window,
            cudaStream_t stream) {
   const dim3 grid((S + BQ - 1) / BQ, BH);
   cudaError_t err;
   if (is_bf16) {
-    constexpr size_t smem = tc_smem_bytes<D>();
-    err = cudaFuncSetAttribute(flash_tc_kernel<D, WIN>,
+    constexpr size_t smem = tc_smem_bytes<DQK, DV>();
+    err = cudaFuncSetAttribute(flash_tc_kernel<DQK, DV, WIN>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    flash_tc_kernel<D, WIN><<<grid, TC_THREADS, smem, stream>>>(
+    flash_tc_kernel<DQK, DV, WIN><<<grid, TC_THREADS, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
         (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, sm_scale, window);
   } else {
-    constexpr size_t smem = f32_smem_bytes<D>();
-    err = cudaFuncSetAttribute(flash_f32_kernel<D, WIN>,
+    constexpr size_t smem = f32_smem_bytes<DQK, DV>();
+    err = cudaFuncSetAttribute(flash_f32_kernel<DQK, DV, WIN>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    flash_f32_kernel<D, WIN><<<grid, F32_THREADS, smem, stream>>>(
+    flash_f32_kernel<DQK, DV, WIN><<<grid, F32_THREADS, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)out, S,
         sm_scale, window);
   }
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV = DQK>
 int launch_d(const void* q, const void* k, const void* v, void* out, int BH,
              int S, float sm_scale, int is_bf16, int window,
              cudaStream_t stream) {
   return window > 0
-             ? launch<D, true>(q, k, v, out, BH, S, sm_scale, is_bf16, window,
-                               stream)
-             : launch<D, false>(q, k, v, out, BH, S, sm_scale, is_bf16, 0,
-                                stream);
+             ? launch<DQK, DV, true>(q, k, v, out, BH, S, sm_scale, is_bf16,
+                                     window, stream)
+             : launch<DQK, DV, false>(q, k, v, out, BH, S, sm_scale, is_bf16,
+                                      0, stream);
 }
 
 }  // namespace
 
-// q/k/v/out: (BH, S, D) contiguous; is_bf16: 1 for bfloat16 (tensor
-// cores), 0 for float32 (CUDA cores). D in {16, 32, 64, 128, 256};
-// BH <= 65535. window: 0 for causal attention, else the sliding window
-// (key j visible to query q iff 0 <= q - j < window).
+// q/k: (BH, S, D), v/out: (BH, S, DV), contiguous; is_bf16: 1 for bfloat16
+// (tensor cores), 0 for float32 (CUDA cores). DV = D in {16, 32, 64, 128,
+// 256}, or (D, DV) = (192, 128); BH <= 65535. window: 0 for causal
+// attention, else the sliding window (key j visible to query q iff
+// 0 <= q - j < window).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int BH, int S,
-                                      int D, float sm_scale, int is_bf16,
-                                      int window, void* stream) {
+                                      int D, int DV, float sm_scale,
+                                      int is_bf16, int window, void* stream) {
   if (BH < 1 || BH > 65535 || S < 1 || window < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (DV != D) {
+    if (D == 192 && DV == 128)
+      return launch_d<192, 128>(q, k, v, out, BH, S, sm_scale, is_bf16,
+                                window, s);
+    return (int)cudaErrorInvalidValue;
+  }
   switch (D) {
     case 16:
       return launch_d<16>(q, k, v, out, BH, S, sm_scale, is_bf16, window, s);

@@ -46,7 +46,7 @@ SIGNATURES = {
                                       [_P] * 14 + [_I] * 10 +
                                       [_F, _LL, _I, _I, _P]),
     "flash_attention_launch": ("flash_attention",
-                               [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
+                               [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                                 _P]),
     "quantize_throttle_launch": ("quant_throttle",
                                  [_P, _P, _P, _P, _LL, _I, _P]),

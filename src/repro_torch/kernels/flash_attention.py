@@ -16,8 +16,11 @@ FlashAttention-2 layout: a warp per 16 query rows, K and V bf16 in a
 two-stage ``cp.async`` ring, P rounded to bf16 in registers as the plain
 version's ``p.to(v.dtype)``); f32 runs on CUDA-core FMAs (no exact f32
 tensor-core path; TF32 stays off). Both take head dims
-:data:`KERNEL_HEAD_DIMS` and the plain version's arithmetic per 64-key
-tile; only the order of the f32 sums differs.
+:data:`KERNEL_HEAD_DIMS` (queries, keys and values alike) and the
+(query-key, value) head splits :data:`KERNEL_HEAD_SPLITS` (MLA's 192/128:
+128 nope + 64 rope dims per query and key, 128 per value; the scale is
+``1/sqrt(192)``), and the plain version's arithmetic per 64-key tile; only
+the order of the f32 sums differs.
 
 Unlike the reference, which asserts that S divides into tiles, a ragged S
 is masked: keys past S are causally invisible to every real query, and
@@ -46,15 +49,26 @@ NEG_INF = -1e30
 # the kernel's tiles: query rows per CTA and keys per online-softmax step
 KERNEL_BQ = KERNEL_BK = 64
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+# (query-key head dim, value head dim) pairs with DQK != DV
+KERNEL_HEAD_SPLITS = ((192, 128),)
+
+
+def _check_shapes(q, k, v):
+    """q and k (B, H, S, D), v (B, H, S, Dv)."""
+    if k.shape != q.shape or v.shape[:-1] != q.shape[:-1]:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} must match (v may have its own "
+                         f"head dim)")
 
 
 def flash_attention_plain(q, k, v, *, bq: int = KERNEL_BQ,
                           bk: int = KERNEL_BK, window: int = 0):
     """Plain PyTorch version with the reference kernel's op order.
 
-    q,k,v: (B, H, S, D) -> (B, H, S, D) in q's dtype, causal, and with
-    ``window > 0`` blind to keys ``window`` or more positions back (see the
-    module docstring; ``window = 0`` means no window). Each query tile of
+    q,k: (B, H, S, D), v: (B, H, S, Dv) -> (B, H, S, Dv) in q's dtype,
+    causal, and with ``window > 0`` blind to keys ``window`` or more
+    positions back (see the module docstring; ``window = 0`` means no
+    window). Each query tile of
     ``bq`` rows (zero-padded past S) walks the key tiles of ``bk`` keys
     (``bk`` clamped to S; a ragged tail is zero-padded and masked) as the
     kernel walks them: from the tile holding its first row's oldest visible
@@ -74,9 +88,8 @@ def flash_attention_plain(q, k, v, *, bq: int = KERNEL_BQ,
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     b, h, s, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)} must match")
+    _check_shapes(q, k, v)
+    dv = v.shape[-1]
     window = window or s
     bk = min(bk, s)
     dev = q.device
@@ -84,7 +97,7 @@ def flash_attention_plain(q, k, v, *, bq: int = KERNEL_BQ,
     qt = torch.nn.functional.pad(q, (0, 0, 0, nq * bq - s)).to(
         torch.float32).reshape(b, h, nq, bq, d)
     kt, vt = (torch.nn.functional.pad(t, (0, 0, 0, nk * bk - s)).reshape(
-        b, h, nk, bk, d) for t in (k, v))
+        b, h, nk, bk, t.shape[-1]) for t in (k, v))
     q0 = torch.arange(nq, device=dev) * bq
     lo = torch.clamp(q0 - window + 1, min=0) // bk
     hi = torch.clamp(q0 + bq - 1, max=s - 1) // bk
@@ -93,7 +106,7 @@ def flash_attention_plain(q, k, v, *, bq: int = KERNEL_BQ,
     m = torch.full((b, h, nq, bq, 1), NEG_INF, dtype=torch.float32,
                    device=dev)
     l = torch.zeros_like(m)
-    o = torch.zeros((b, h, nq, bq, d), dtype=torch.float32, device=dev)
+    o = torch.zeros((b, h, nq, bq, dv), dtype=torch.float32, device=dev)
     for r in range(int((hi - lo).max()) + 1):
         j = lo + r
         live = j <= hi
@@ -112,15 +125,27 @@ def flash_attention_plain(q, k, v, *, bq: int = KERNEL_BQ,
             vj.to(torch.float32)
         m = m_new
     out = (o / torch.clamp(l, min=1e-30)).to(q.dtype)
-    return out.reshape(b, h, nq * bq, d)[:, :, :s].contiguous()
+    return out.reshape(b, h, nq * bq, dv)[:, :, :s].contiguous()
+
+
+def check_kernel_head_dims(d: int, dv: int) -> None:
+    """Raise ``ValueError`` unless the kernel was built for the (query-key,
+    value) head dims ``(d, dv)``: ``d == dv`` in :data:`KERNEL_HEAD_DIMS`,
+    or a pair of :data:`KERNEL_HEAD_SPLITS`."""
+    if not (d == dv and d in KERNEL_HEAD_DIMS) and \
+            (d, dv) not in KERNEL_HEAD_SPLITS:
+        raise ValueError(f"flash_attention kernel takes head dims "
+                         f"{KERNEL_HEAD_DIMS} (v's equal to q's) and the "
+                         f"(q/k, v) splits {KERNEL_HEAD_SPLITS}, got "
+                         f"{(d, dv)}")
 
 
 def flash_attention(q, k, v, *, bq: int = KERNEL_BQ, bk: int = KERNEL_BK,
                     window: int = 0):
     """Kernel wrapper of :func:`flash_attention_plain` (same contract). GQA
     callers broadcast KV heads beforehand. The kernel's tiles are fixed at
-    64 x 64 and its head dims at :data:`KERNEL_HEAD_DIMS`; it raises on
-    others."""
+    64 x 64 and its head dims at :data:`KERNEL_HEAD_DIMS` (v's the same as
+    q's) and :data:`KERNEL_HEAD_SPLITS`; it raises on others."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, bq=bq, bk=bk, window=window)
     if window < 0:
@@ -129,12 +154,9 @@ def flash_attention(q, k, v, *, bq: int = KERNEL_BQ, bk: int = KERNEL_BK,
         raise ValueError(f"flash_attention kernel tiles are "
                          f"{(KERNEL_BQ, KERNEL_BK)}, got {(bq, bk)}")
     b, h, s, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)} must match")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dims "
-                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    _check_shapes(q, k, v)
+    dv = v.shape[-1]
+    check_kernel_head_dims(d, dv)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention takes f32 or bf16, got {q.dtype}")
     for name, t in (("k", k), ("v", v)):
@@ -144,11 +166,11 @@ def flash_attention(q, k, v, *, bq: int = KERNEL_BQ, bk: int = KERNEL_BK,
         raise ValueError("flash_attention: the kernel takes at most 65535 "
                          "batch-heads")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    out = torch.empty_like(v)
     if q.numel():
         fn = build.entry("flash_attention_launch")
         build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), b * h, s, d,
+                       out.data_ptr(), b * h, s, d, dv,
                        float(np.float32(1.0 / np.sqrt(d))),
                        int(q.dtype == torch.bfloat16), int(window),
                        build.stream_ptr(q.device)), "flash_attention")

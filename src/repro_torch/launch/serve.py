@@ -36,9 +36,11 @@ CLI does; :func:`serve` and :func:`burst` take any config, e.g. the
 full-width ``configs.get("deepseek-7b")``. The encdec (whisper-base),
 hybrid (recurrentgemma-2b: RG-LRU states and a ring KV cache of its
 attention window) and ssm (mamba2-2.7b: each layer's recurrent state and
-conv history, no KV cache) families serve their dense caches only: a
-prompt, a paged ``--kv-policy`` or ``--burst`` raises ``ValueError`` for
-them, as the reference's paged cache does. The fault smoke-check campaigns and
+conv history, no KV cache) families and the moe family's MLA configs
+(deepseek-v2-236b, deepseek-v3-671b: the compressed latent cache) serve
+their dense caches only: a prompt, a paged ``--kv-policy`` or
+``--burst`` raises ``ValueError`` for them, as the reference's paged
+cache does. The fault smoke-check campaigns and
 scrubbing are not ported yet.
 """
 from __future__ import annotations
@@ -68,12 +70,13 @@ default_backend = device_mod.default_backend
 
 def _needs_paged(cfg, what: str) -> None:
     """Raise ``ValueError`` before any work when ``what`` needs the paged
-    KV cache and ``cfg``'s family has none (encdec, hybrid, ssm), in the
-    reference's ``init_paged_cache`` words."""
+    KV cache and ``cfg`` has none (the encdec, hybrid and ssm families,
+    and MLA), in the reference's ``init_paged_cache`` words."""
     if not kvcache.supports_paged(cfg):
         raise ValueError(f"{what} needs the paged KV cache: paged KV cache "
                          f"supports dense/vlm/moe-gqa decode caches, not "
-                         f"family {cfg.family!r}")
+                         f"family {cfg.family!r}"
+                         + (" with MLA" if cfg.use_mla else ""))
 
 
 def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
@@ -204,7 +207,8 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
             f"): stored {kb['stored']}B + checks {kb['checks']}B + scales "
             f"{kb['scales']}B (dense bf16 cache: {dense}B)")
     else:
-        log(f"[serve] dense {'state' if cfg.family == 'ssm' else 'KV'} "
+        kind = {"ssm": "state", "moe": "latent" if cfg.use_mla else "KV"}
+        log(f"[serve] dense {kind.get(cfg.family, 'KV')} "
             f"cache ({', '.join(sorted(cache))}): "
             f"{kvcache.dense_kv_bytes(cfg, batch, max_len, dtype)}B")
     tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)

@@ -1,24 +1,24 @@
-"""Model building blocks of the dense decoder, the encoder-decoder, the
-hybrid RG-LRU decoder and the Mamba2 (SSD) decoder (pure functions over
-dicts).
+"""Model building blocks of every family (pure functions over dicts).
 
-Counterpart of the dense, encoder-decoder, hybrid and ssm subset of
-``repro.models.layers``: RMS and layer norms, RoPE, single-token GQA
-attention (over a dense cache, or a ring of ``window`` slots), full-sequence
-GQA attention (training, the cache-less forward and the bidirectional
-encoder; causal, or over a sliding window), chunked causal attention,
-cross-attention, the SwiGLU and GELU MLPs, the RG-LRU recurrent block with
-its depthwise causal conv (full sequence and single step), the Mamba2
-mixer (the SSD chunked scan over a full sequence, the single-step
-recurrence over its state), embedding and logits. ``wt`` is the weight
-transform of QAT training (fake-quant): it applies to projection weights
-and the head only, never to the embedding lookup or to norms, and
-defaults to the identity so the serve paths are untouched. Where the
-reference routes fault flags, ABFT counts and calibration absmaxes
-through module-level sinks (``layers.record_flags``, ``record_abft``,
-``record_act``), the port hands each decode-at-use view
-the methods of a :class:`FlagRecorder` that the serve step creates per
-step and the model drains per layer, so they come back as values.
+Counterpart of ``repro.models.layers``: RMS and layer norms, RoPE,
+single-token GQA attention (over a dense cache, or a ring of ``window``
+slots), full-sequence GQA attention (training, the cache-less forward and
+the bidirectional encoder; causal, or over a sliding window), chunked
+causal attention, cross-attention, MLA (DeepSeek's multi-head latent
+attention: over a full sequence, and one token over the compressed latent
+cache), the SwiGLU and GELU MLPs, the capacity-based top-k MoE, the RG-LRU
+recurrent block with its depthwise causal conv (full sequence and single
+step), the Mamba2 mixer (the SSD chunked scan over a full sequence, the
+single-step recurrence over its state), embedding and logits. ``wt`` is
+the weight transform of QAT training (fake-quant): it applies to
+projection weights and the head only, never to the embedding lookup or
+to norms, and defaults to the identity so the serve paths are
+untouched. Where the reference routes fault flags, ABFT counts and
+calibration absmaxes through module-level sinks
+(``layers.record_flags``, ``record_abft``, ``record_act``), the port
+hands each decode-at-use view the methods of a :class:`FlagRecorder`
+that the serve step creates per step and the model drains per layer, so
+they come back as values.
 """
 from __future__ import annotations
 
@@ -345,6 +345,112 @@ def cross_attention(p, x, kv, cfg, wt=Identity):
 
 
 # --------------------------------------------------------------------------
+# MLA attention (deepseek v2/v3): a compressed KV cache
+# --------------------------------------------------------------------------
+
+
+def mla_params_shape(cfg):
+    d, h = cfg.d_model, cfg.n_heads
+    r, qn, qr, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    p = {"w_dkv": (d, r + qr),     # compress: the kv latent + a shared rope key
+         "w_uk": (r, h * qn),      # latent -> per-head nope keys
+         "w_uv": (r, h * vd),      # latent -> per-head values
+         "wo": (h * vd, d)}
+    if cfg.q_lora_rank:
+        p["w_dq"] = (d, cfg.q_lora_rank)
+        p["w_uq"] = (cfg.q_lora_rank, h * (qn + qr))
+    else:
+        p["wq"] = (d, h * (qn + qr))
+    return p
+
+
+def _mla_q(p, x, cfg, wt=Identity):
+    """The queries, split into their nope and rope parts (B, S, H, qn) and
+    (B, S, H, qr): one projection ``wq`` (v2), or the low-rank pair
+    ``w_dq`` -> ``w_uq`` (v3's ``q_lora_rank``)."""
+    b, s, _ = x.shape
+    h, qn, qr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        q = _proj(_proj(x, p["w_dq"], None, wt), p["w_uq"], None, wt)
+    else:
+        q = _proj(x, p["wq"], None, wt)
+    q = q.reshape(b, s, h, qn + qr)
+    return q[..., :qn], q[..., qn:]
+
+
+def _mla_kv_in(p, x, cfg, positions, wt=Identity):
+    """The compressed stream: the latent (B, S, r) and the shared rope key
+    (B, S, 1, qr), roped at ``positions``."""
+    r = cfg.kv_lora_rank
+    dkv = _proj(x, p["w_dkv"], None, wt)
+    k_rope = apply_rope(dkv[..., None, r:], positions, cfg.rope_theta)
+    return dkv[..., :r], k_rope
+
+
+def mla_attention(p, x, cfg, *, positions, wt=Identity, chunk=2048,
+                  attention="torch"):
+    """MLA over a full sequence (training, the cache-less forward). x: (B,
+    S, D); positions: (B, S). The keys are [W_uk(latent), the shared rope
+    key] (``qk_nope_dim + qk_rope_dim`` dims), the values W_uv(latent)
+    (``v_head_dim``), with the scale ``1/sqrt(qk_nope_dim + qk_rope_dim)``.
+    ``attention`` routes the causal attention: "torch"
+    (:func:`chunked_causal_attention`) or "cuda" (the flash kernel, built
+    for this head split). Profiler range: ``mla``."""
+    b, s, _ = x.shape
+    h, qn, qr, vd = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    with torch.profiler.record_function("mla"):
+        q_nope, q_rope = _mla_q(p, x, cfg, wt)
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        latent, k_rope = _mla_kv_in(p, x, cfg, positions, wt)
+        k_nope = _proj(latent, p["w_uk"], None, wt).reshape(b, s, h, qn)
+        v = _proj(latent, p["w_uv"], None, wt).reshape(b, s, h, vd)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(b, s, h, qr)], dim=-1)
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        if attention == "cuda":
+            from repro_torch.kernels import flash_attention
+            o = flash_attention.flash_attention(q, k, v)
+        else:
+            o = chunked_causal_attention(q, k, v, chunk=chunk)
+        o = o.transpose(1, 2).reshape(b, s, h * vd)
+    return _proj(o, p["wo"], None, wt)
+
+
+def mla_decode(p, x, cfg, cache, *, pos):
+    """MLA decode over the compressed cache: {"latent": (B, Smax, r),
+    "k_rope": (B, Smax, qr)} — this layer's slice, written IN PLACE at
+    ``pos``. As in the reference, every step re-expands all ``Smax``
+    cached latents through ``w_uk`` and ``w_uv`` (one projection of B·Smax
+    rows each) and masks the slots past ``pos``; the scores are the nope
+    and rope dot products summed in x's dtype, then scaled in f32.
+    Returns (out (B, 1, D), cache). Profiler range: ``mla``."""
+    b = x.shape[0]
+    h, qn, qr, vd = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    with torch.profiler.record_function("mla"):
+        q_nope, q_rope = _mla_q(p, x, cfg)
+        q_rope = apply_rope(q_rope, pos[:, None], cfg.rope_theta)
+        latent, k_rope = _mla_kv_in(p, x, cfg, pos[:, None])
+        rows = torch.arange(b, device=x.device)
+        lat_c, kr_c = cache["latent"], cache["k_rope"]
+        lat_c[rows, pos] = latent[:, 0].to(lat_c.dtype)
+        kr_c[rows, pos] = k_rope[:, 0, 0].to(kr_c.dtype)
+        smax = lat_c.shape[1]
+        k_nope = _proj(lat_c, p["w_uk"]).reshape(b, smax, h, qn)
+        v = _proj(lat_c, p["w_uv"]).reshape(b, smax, h, vd)
+        s1 = torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
+        s2 = torch.einsum("bqhd,bkd->bhqk", q_rope, kr_c.to(q_rope.dtype))
+        sc = (s1 + s2).to(torch.float32) / np.sqrt(qn + qr)
+        valid = torch.arange(smax, device=x.device)[None, :] <= pos[:, None]
+        sc = torch.where(valid[:, None, None, :], sc, -1e30)
+        pr = torch.softmax(sc, dim=-1).to(v.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", pr, v).reshape(b, 1, h * vd)
+    return _proj(o, p["wo"]), cache
+
+
+# --------------------------------------------------------------------------
 # RG-LRU (the hybrid family's recurrent block)
 # --------------------------------------------------------------------------
 
@@ -604,6 +710,124 @@ def swiglu_params_shape(cfg, d_ff=None):
 def swiglu(p, x, wt=Identity):
     g = F.silu(_proj(x, p["w_gate"], None, wt))
     return _proj(g * _proj(x, p["w_up"], None, wt), p["w_down"], None, wt)
+
+
+# --------------------------------------------------------------------------
+# MoE: capacity-based gather dispatch per batch row
+# --------------------------------------------------------------------------
+
+
+def moe_params_shape(cfg):
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    p = {"router": (d, e),
+         "we_gate": (e, d, f), "we_up": (e, d, f), "we_down": (e, f, d)}
+    if cfg.n_shared_experts:
+        fs = cfg.moe_d_ff * cfg.n_shared_experts
+        p.update({"ws_gate": (d, fs), "ws_up": (d, fs), "ws_down": (fs, d)})
+    return p
+
+
+def moe_capacity(cfg, n_tokens: int) -> int:
+    """Slots per expert in one routing group of ``n_tokens``: ``ceil(n k /
+    E * capacity_factor)`` rounded up to a multiple of 8, at least 8."""
+    c = int(np.ceil(n_tokens * cfg.top_k / cfg.n_experts *
+                    cfg.capacity_factor))
+    return max(8, (c + 7) // 8 * 8)
+
+
+def top_k_lower_first(x, k: int):
+    """The ``k`` largest entries along the last axis, largest first, the
+    lower index first among equal values (``jax.lax.top_k``'s rule;
+    ``torch.topk`` breaks ties in no stated order): a stable descending
+    sort, cut to ``k``. -> (values, indices)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def queue_positions(eid, n_experts: int) -> tuple:
+    """Each (token, k) pair's place in its expert's queue, per routing
+    group. eid: (g, nk) expert ids in (token, k) order. The queues are a
+    stable sort by expert id, so a queue keeps (token, k) order. ->
+    (order (g, nk): the sort; starts, counts (g, E): each queue's first
+    sorted index and length; pos (g, nk): each pair's place, 0-based). A
+    pair is kept iff its place is below the capacity."""
+    g, nk = eid.shape
+    dev = eid.device
+    order = torch.argsort(eid, dim=1, stable=True)
+    sorted_eid = eid.gather(1, order)
+    experts = torch.arange(n_experts, device=dev).expand(g, n_experts)
+    starts = torch.searchsorted(sorted_eid, experts.contiguous(),
+                                side="left")
+    counts = torch.diff(starts, dim=1,
+                        append=torch.full((g, 1), nk, device=dev))
+    pos_sorted = torch.arange(nk, device=dev)[None, :] - \
+        starts.gather(1, sorted_eid)
+    pos = torch.zeros_like(pos_sorted).scatter_(1, order, pos_sorted)
+    return order, starts, counts, pos
+
+
+def _expert_ffn(xe, p, wt):
+    """The routed experts' SwiGLU over their capacity slots. xe: (E, N,
+    D), expert-major: three batched matmuls against the whole (E, D, F)
+    and (E, F, D) leaves, each decoded whole (``_dense``), as the
+    reference's einsums take ``wt(leaf).astype(x.dtype)``."""
+    g = F.silu(torch.bmm(xe, _dense(wt(p["we_gate"]), xe.dtype)))
+    u = torch.bmm(xe, _dense(wt(p["we_up"]), xe.dtype))
+    return torch.bmm(g * u, _dense(wt(p["we_down"]), xe.dtype))
+
+
+def moe(p, x, cfg, wt=Identity):
+    """x: (B, S, D) -> (B, S, D). The reference's grouped dispatch: each
+    batch row is a routing group with ``moe_capacity(cfg, S)`` slots per
+    expert. The router's logits are taken in x's dtype, its softmax in
+    f32; the top ``k`` gates by :func:`top_k_lower_first`, renormalized and
+    cast to x's dtype. The (token, k) pairs queue at their expert in a
+    stable sort by expert id; a pair whose place in its queue is past
+    the capacity is dropped (its share of the output rides the residual).
+    Dispatch and combine are gathers; the experts' SwiGLU runs over every
+    (expert, slot), empty slots zero. Shared experts (a SwiGLU of
+    ``n_shared_experts * moe_d_ff``) add to every token. Profiler ranges:
+    ``moe_router`` (the router's decode, logits, top-k and queue
+    positions) and ``moe_experts`` (the dispatch, the three expert leaves'
+    decodes and products, the combine)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = moe_capacity(cfg, s)
+    nk = s * k
+    dev = x.device
+    with torch.profiler.record_function("moe_router"):
+        logits = (x @ _dense(wt(p["router"]), x.dtype)).to(torch.float32)
+        gates = torch.softmax(logits, dim=-1)                 # (g, s, e)
+        topw, topi = top_k_lower_first(gates, k)              # (g, s, k)
+        topw = (topw / topw.sum(dim=-1, keepdim=True)).to(x.dtype)
+        eid = topi.reshape(b, nk)
+        order, starts, counts, pos = queue_positions(eid, e)
+    with torch.profiler.record_function("moe_experts"):
+        # the capacity grid: slot (e, c) <- sorted index starts[e] + c
+        c_idx = torch.arange(cap, device=dev)
+        grid_j = (starts[:, :, None] + c_idx).clamp(0, nk - 1).reshape(
+            b, e * cap)
+        grid_valid = (c_idx < counts[:, :, None]).reshape(b, e * cap)
+        tok_sorted = (torch.arange(nk, device=dev) // k).expand(
+            b, nk).gather(1, order)                           # token of j
+        src_tok = tok_sorted.gather(1, grid_j)                # (g, e*cap)
+        xe = x.gather(1, src_tok[..., None].expand(b, e * cap, d))
+        xe = torch.where(grid_valid[..., None], xe, 0)
+        # expert-major for the batched products: (e, g*cap, d)
+        xe = xe.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+        ye = _expert_ffn(xe, p, wt)
+        yflat = ye.reshape(e, b, cap, d).transpose(0, 1).reshape(
+            b, e * cap, d)
+        # each (token, k) pair's slot, for the combine gather
+        keep = pos < cap
+        slot = torch.where(keep, eid * cap + pos, 0)
+        token_y = yflat.gather(1, slot[..., None].expand(b, nk, d))
+        token_y = torch.where(keep[..., None], token_y, 0)
+        y = (token_y.reshape(b, s, k, d) * topw[..., None]).sum(dim=2)
+    if cfg.n_shared_experts:
+        y = y + swiglu({"w_gate": p["ws_gate"], "w_up": p["ws_up"],
+                        "w_down": p["ws_down"]}, x, wt)
+    return y
 
 
 def gelu_mlp_params_shape(cfg):

@@ -1,9 +1,8 @@
-"""LM of the dense, vlm, encdec, hybrid and ssm families: parameter init,
+"""LM of every family (dense, vlm, encdec, hybrid, ssm, moe): parameter init,
 the cache-less full-sequence forward and its loss (training), KV cache,
 the decode step and the prefill into a paged KV cache.
 
-Counterpart of the dense, vlm, encdec, hybrid and ssm families of
-``repro.models.lm``.
+Counterpart of ``repro.models.lm``.
 The vlm family (PaliGemma's backbone) is the dense decoder with the Gemma
 input scale ``sqrt(d_model)``, tied embeddings (the head is ``embed.T``)
 and, in ``forward`` and ``loss_fn`` only, precomputed image-patch
@@ -22,9 +21,12 @@ decode cache holds each RG-LRU's state and conv history and a ring KV
 cache of ``attn_window`` slots. The ssm family (Mamba2) stacks one
 Mamba2 mixer per layer (an RMS norm before it, no MLP, no attention); its
 decode cache is each layer's recurrent state and conv history, and holds
-no K or V. Per-layer params are stacked along a leading L axis, as in the
-reference; a Python loop over layers takes the place of ``lax.scan``. The
-MoE (and MLA) family is not ported yet.
+no K or V. The moe family (DeepSeek-V2/V3) has attention (MLA over a
+compressed latent cache ``{"latent", "k_rope"}`` where the config sets
+``use_mla``, else GQA over the dense or paged KV cache), then a
+capacity-based top-k MoE with shared experts, each after its RMS norm.
+Per-layer params are stacked along a leading L axis, as in the
+reference; a Python loop over layers takes the place of ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from repro_torch import tree
 from . import layers as L
 from .config import ArchConfig
 
-FAMILIES = ("dense", "vlm", "encdec", "hybrid", "ssm")
+FAMILIES = ("dense", "vlm", "encdec", "hybrid", "ssm", "moe")
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -73,6 +75,11 @@ def _layer_shapes(cfg: ArchConfig) -> dict:
         return blk
     if cfg.family == "ssm":
         return {"mixer": L.mamba2_params_shape(cfg), "ln1": _norm_shape(cfg)}
+    if cfg.family == "moe":
+        return {"attn": L.mla_params_shape(cfg) if cfg.use_mla
+                else L.gqa_params_shape(cfg),
+                "moe": L.moe_params_shape(cfg),
+                "ln1": _norm_shape(cfg), "ln2": _norm_shape(cfg)}
     return {"attn": L.gqa_params_shape(cfg), "mlp": L.swiglu_params_shape(cfg),
             "ln1": _norm_shape(cfg), "ln2": _norm_shape(cfg)}
 
@@ -203,8 +210,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     (L, B, w) and conv histories ``rg{0,1}_conv`` (L, B, K-1, w), and the
     tail's ``tail_h`` and ``tail_conv``. The ssm family's cache is its
     state cache alone, whatever ``max_len`` is: ``{"state": (L, B, h, hd,
-    n), "conv": (L, B, K-1, di + 2n)}``, no K or V. Every state is in
-    ``dtype``, as in the reference."""
+    n), "conv": (L, B, K-1, di + 2n)}``, no K or V. The moe family with
+    MLA caches the compressed stream: ``{"latent": (L, B, max_len,
+    kv_lora_rank), "k_rope": (L, B, max_len, qk_rope_dim)}``. Every state
+    is in ``dtype``, as in the reference."""
     dev = device_mod.resolve(device)
     _check_family(cfg)
     nl = n_scan_layers(cfg)
@@ -215,6 +224,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                 "conv": torch.zeros((nl, batch, cfg.ssm_conv_width - 1,
                                      cfg.d_inner + 2 * cfg.ssm_state),
                                     dtype=dtype, device=dev)}
+    if cfg.family == "moe" and cfg.use_mla:
+        return {"latent": torch.zeros((nl, batch, max_len, cfg.kv_lora_rank),
+                                      dtype=dtype, device=dev),
+                "k_rope": torch.zeros((nl, batch, max_len, cfg.qk_rope_dim),
+                                      dtype=dtype, device=dev)}
     slots = cfg.attn_window if cfg.family == "hybrid" else max_len
     shape = (nl, batch, slots, cfg.n_kv_heads, cfg.head_dim)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -303,12 +317,16 @@ def _block_full(cfg: ArchConfig, lp, x, positions, wt, chunk,
     """One decoder block over a full sequence: dense, with cross-attention
     over ``enc_out`` and the GELU MLP (encdec), a hybrid super-block
     (two RG-LRU layers, then local attention over ``attn_window`` keys
-    with the chunk cut to the window, as the reference cuts it), or one
-    Mamba2 mixer (ssm)."""
+    with the chunk cut to the window, as the reference cuts it), one
+    Mamba2 mixer (ssm), or attention (MLA or GQA) and the MoE (moe)."""
     nk = cfg.norm
     if cfg.family == "ssm":
         return x + L.mamba2_block(lp["mixer"], L.apply_norm(x, lp["ln1"], nk),
                                   cfg, wt)
+    if cfg.family == "moe":
+        x = x + gqa_or_mla(cfg, lp["attn"], L.apply_norm(x, lp["ln1"], nk),
+                           positions, wt, chunk, attention)
+        return x + L.moe(lp["moe"], L.apply_norm(x, lp["ln2"], nk), cfg, wt)
     if cfg.family == "hybrid":
         for i in range(2):
             x = _rg_full(cfg, lp, x, f"rg{i}", wt)
@@ -327,6 +345,17 @@ def _block_full(cfg: ArchConfig, lp, x, positions, wt, chunk,
     x = x + L.cross_attention(lp["cross"], L.apply_norm(x, lp["ln2"], nk),
                               kv, cfg, wt)
     return x + L.gelu_mlp(lp["mlp"], L.apply_norm(x, lp["ln3"], nk), wt)
+
+
+def gqa_or_mla(cfg: ArchConfig, p, x, positions, wt, chunk,
+               attention="torch"):
+    """Full-sequence attention of a moe block: MLA where the config sets
+    ``use_mla``, else GQA."""
+    if cfg.use_mla:
+        return L.mla_attention(p, x, cfg, positions=positions, wt=wt,
+                               chunk=chunk, attention=attention)
+    return L.gqa_attention(p, x, cfg, positions=positions, wt=wt,
+                           chunk=chunk, attention=attention)
 
 
 def _enc_block(cfg: ArchConfig, lp, x, positions, wt):
@@ -507,7 +536,9 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
     family steps each super-block's two RG-LRU states and attends its ring
     of ``attn_window`` slots, then steps the tail's RG-LRU layers, whose
     counts come back in a ``"tail"`` (T, 2) row (and ``"tail_abft"``).
-    The ssm family steps each layer's Mamba2 state and conv history.
+    The ssm family steps each layer's Mamba2 state and conv history. The
+    moe family attends through MLA over its latent cache (or GQA over the
+    dense or paged KV cache without ``use_mla``), then runs the MoE.
     """
     _check_family(cfg)
     x = _embed_in(cfg, tokens, params["embed"], dtype)
@@ -532,14 +563,19 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, *,
             _drain_layer(recorder, layer_flags, abft_flags)
             continue
         h = L.apply_norm(x, lp["ln1"], cfg.norm)
-        if paged:
+        if cfg.family == "moe" and cfg.use_mla:
+            o, _ = L.mla_decode(lp["attn"], h, cfg, lc, pos=pos)
+        elif paged:
             o, _, kvf = kvcache.paged_gqa_decode(lp["attn"], h, cfg, lc,
                                                  pos=pos, policy=kvp)
             kv_flags.append(kvf)
         else:
             o, _ = L.gqa_decode(lp["attn"], h, cfg, lc, pos=pos)
         x = x + o
-        if cfg.family == "encdec":
+        if cfg.family == "moe":
+            x = x + L.moe(lp["moe"], L.apply_norm(x, lp["ln2"], cfg.norm),
+                          cfg)
+        elif cfg.family == "encdec":
             h = L.apply_norm(x, lp["ln2"], cfg.norm)
             x = x + L.cross_attention(lp["cross"], h,
                                       (lc["cross_k"], lc["cross_v"]), cfg)
@@ -665,7 +701,9 @@ def prefill_with_cache(cfg: ArchConfig, params, cache, tokens, *,
                                               positions=positions, policy=kvp,
                                               chunk=chunk)
         x = x + o
-        x = x + L.swiglu(lp["mlp"], L.apply_norm(x, lp["ln2"], cfg.norm))
+        h2 = L.apply_norm(x, lp["ln2"], cfg.norm)
+        x = x + (L.moe(lp["moe"], h2, cfg) if cfg.family == "moe"
+                 else L.swiglu(lp["mlp"], h2))
         kv_flags.append(kvf)
         _drain_layer(recorder, layer_flags, abft_flags)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)

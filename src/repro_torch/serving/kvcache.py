@@ -155,12 +155,13 @@ def get_kv_policy(policy) -> Optional[KVProtectionPolicy]:
 
 def supports_paged(cfg: ArchConfig) -> bool:
     """Families whose decode KV state is the dense (B, S, kv, hd) GQA
-    cache the paged pool replaces: dense and vlm (the reference also takes
-    MoE without MLA, which the port does not have yet). The encdec,
-    hybrid and ssm families serve their dense caches only, as in the
-    reference (the hybrid's RG-LRU states and ring, and the ssm family's
-    recurrent states, are no paged pool)."""
-    return cfg.family in ("dense", "vlm")
+    cache the paged pool replaces: dense, vlm and moe without MLA. The
+    encdec, hybrid and ssm families and MLA serve their dense caches only,
+    as in the reference (the hybrid's RG-LRU states and ring, the ssm
+    family's recurrent states and MLA's compressed latents are no paged
+    pool)."""
+    return cfg.family in ("dense", "vlm") or \
+        (cfg.family == "moe" and not cfg.use_mla)
 
 
 def pages_per_seq(max_len: int, page_size: int) -> int:
@@ -238,9 +239,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, kv_policy=None,
     """Paged + protected cache when a KV policy is given, else the dense
     ``lm.init_cache`` (the hybrid family's: a ring KV cache of
     ``attn_window`` slots beside its RG-LRU states; the ssm family's: its
-    state cache, no K or V). A KV policy for a family without a paged
-    cache (encdec, hybrid, ssm) raises ``ValueError``, as the reference's
-    ``init_paged_cache`` does."""
+    state cache, no K or V; MLA's: the latent cache). A KV policy for a
+    family without a paged cache (encdec, hybrid, ssm, moe with MLA)
+    raises ``ValueError``, as the reference's ``init_paged_cache`` does."""
     if kv_policy is None:
         from repro_torch.models import lm
         return lm.init_cache(cfg, batch, max_len, dtype, device=device)
@@ -581,7 +582,8 @@ def dense_kv_bytes(cfg: ArchConfig, batch: int, max_len: int,
     """Bytes of the dense cache (per model): every tensor of
     ``lm.init_cache`` (K and V of every layer, the encdec family's cross K
     and V, the hybrid family's ring K and V and RG-LRU states, the ssm
-    family's recurrent states and conv histories), counted from shapes on
+    family's recurrent states and conv histories, MLA's latents and rope
+    keys), counted from shapes on
     the ``meta`` device, where nothing is allocated."""
     from repro_torch.models import lm
     cache = lm.init_cache(cfg, batch, max_len, dtype, device="meta")

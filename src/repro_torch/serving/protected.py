@@ -205,7 +205,8 @@ def make_serve_step(cfg: ArchConfig, *, plan=None, dtype=torch.bfloat16,
     cache's encode and decode: it replaces the KV policy's own. flags:
     ``"top"`` (2,) for the embedding and the head, ``"layers"`` (L, 2)
     per-layer (corrected, DUE) counts (the hybrid family's tail layers in
-    ``"tail"`` (T, 2); the ssm family has these two rows only), and with
+    ``"tail"`` (T, 2); the ssm family and the moe family over its latent
+    cache have these two rows only), and with
     a paged protected KV cache (``kv_policy``) ``"layers_kv"`` (L, 2).
     When the plan guards leaves (``plan.with_abft`` or clamps) the flags
     also carry (checksum mismatches, clamp hits) rows: ``"top_abft"``

@@ -149,3 +149,42 @@ def test_chunked_causal_attention_matches_the_reference_f32(s, chunk,
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         chunk=chunk, window=window)
     np.testing.assert_allclose(out.numpy(), ref, rtol=F32_TOL, atol=F32_TOL)
+
+
+# MLA's head split: the smoke configs' (16 + 8, 16) and the full configs'
+# (128 + 64, 128); ragged S included
+@pytest.mark.parametrize("d,dv,s", [(24, 16, 40), (24, 16, 37),
+                                    (192, 128, 128), (192, 128, 70)])
+def test_flash_plain_takes_its_own_v_head_dim(d, dv, s):
+    """The plain version with v's own head dim against the reference's
+    ``chunked_causal_attention`` (the MLA forward's attention, scale
+    1/sqrt(d)) in f32, and against an fp64 causal attention."""
+    rng = np.random.default_rng(d + dv + s)
+    q, k = (rng.standard_normal((2, 3, s, d)).astype(np.float32)
+            for _ in range(2))
+    v = rng.standard_normal((2, 3, s, dv)).astype(np.float32)
+    ref = np.asarray(jlayers.chunked_causal_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), chunk=16))
+    out = flash_attention.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    assert tuple(out.shape) == (2, 3, s, dv)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(out.numpy(), _causal_f64(q, k, v),
+                               rtol=F64_TOL, atol=F64_TOL)
+
+
+def test_flash_kernel_raises_on_every_head_pair_it_was_not_built_for():
+    """The kernel route takes exactly the pairs it was built for: (d, d)
+    for d in KERNEL_HEAD_DIMS and the splits of KERNEL_HEAD_SPLITS, which
+    are (192, 128) alone; every other (DQK, DV) raises before a launch."""
+    assert flash_attention.KERNEL_HEAD_SPLITS == ((192, 128),)
+    dims = sorted({8 * i for i in range(1, 33)} | {24, 192})
+    built = {(d, d) for d in flash_attention.KERNEL_HEAD_DIMS} | \
+        set(flash_attention.KERNEL_HEAD_SPLITS)
+    for d in dims:
+        for dv in dims:
+            if (d, dv) in built:
+                flash_attention.check_kernel_head_dims(d, dv)
+                continue
+            with pytest.raises(ValueError, match="head dims"):
+                flash_attention.check_kernel_head_dims(d, dv)

@@ -49,9 +49,18 @@ def _batch(arch, b, s, step=0):
     return out
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("dtype,qat", [("float32", False), ("float32", True),
-                                       ("bfloat16", True)])
+# the moe family's bf16 case is tests/test_torch_moe.py's
+# test_bf16_forward_matches_reference_where_routed_alike: a token whose
+# k-th and (k+1)-th gates lie within a bf16 rounding routes to another
+# expert in one package, and its logits move by O(1) there
+FORWARD_CASES = [(a, dtype, qat) for dtype, qat in [
+    ("float32", False), ("float32", True), ("bfloat16", True)]
+    for a in ARCHS
+    if dtype == "float32" or configs.get_smoke(a).family != "moe"]
+
+
+@pytest.mark.parametrize("arch,dtype,qat", FORWARD_CASES, ids=[
+    f"{d}-{q}-{a}" for a, d, q in FORWARD_CASES])
 def test_forward_and_loss_match_reference(arch, dtype, qat):
     """minitron-4b smoke is GQA, qwen1.5-4b smoke has qkv biases; all three
     configs remat. Fake-quant scales each layer's slice (two layers)."""

@@ -548,6 +548,31 @@ def test_gpu_flash_attention_window_matches_plain(cuda, dtype, s, window,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# MLA's head split (192, 128): whole tiles, ragged S, one row
+@pytest.mark.parametrize("s", [256, 200, 1])
+def test_gpu_flash_attention_mla_split_matches_plain(cuda, dtype, s):
+    """q and k of 192 dims, v of 128: the kernel against its plain version
+    at the tolerances of the causal test; the output takes v's head dim.
+    Every other unequal pair raises before a launch."""
+    gen = torch.Generator(device=cuda).manual_seed(s + 192)
+    q, k = (torch.randn((2, 3, s, 192), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    v = torch.randn((2, 3, s, 128), generator=gen, device=cuda).to(dtype)
+    before = build.COUNTS["flash_attention"]
+    ko = flash_attention.flash_attention(q, k, v)
+    assert build.COUNTS["flash_attention"] == before + 1
+    assert tuple(ko.shape) == (2, 3, s, 128)
+    po = flash_attention.flash_attention_plain(q, k, v)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(ko.float(), po.float(), rtol=tol, atol=tol)
+    for dv in (64, 192, 256):
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention.flash_attention(q, k, v[..., :1].expand(
+                2, 3, s, dv).contiguous())
+    assert build.COUNTS["flash_attention"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_flash_attention_whisper_decoder_shape(cuda, dtype):
     """whisper-base's decoder self-attention over 448 text positions at
     batch 8 (8 heads of 64): within the tolerance above of the plain

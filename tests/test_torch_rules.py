@@ -71,12 +71,13 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["phi3-medium-14b", "paligemma-3b",
-                                  "whisper-base", "mamba2-2.7b"])
+                                  "whisper-base", "mamba2-2.7b",
+                                  "deepseek-v2-236b", "deepseek-v3-671b"])
 def test_entry_points_of_every_family_default_to_cuda(arch, monkeypatch):
     """The entry points with ``--arch`` (and their functions on the arch's
     config) default to the card for the GQA 40/10 dense model, the vlm,
-    the encdec and the ssm families too: without a GPU each raises, none
-    carries on on the CPU."""
+    the encdec, the ssm and the moe families too: without a GPU each
+    raises, none carries on on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = configs.get_smoke(arch)
     for call in (lambda: lm.init_params(cfg),
@@ -93,6 +94,14 @@ def test_entry_points_of_every_family_default_to_cuda(arch, monkeypatch):
                  lambda: launch_train.main(["--arch", arch, "--steps", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_port_has_every_arch_and_family_of_the_reference():
+    """The port serves every arch of ``repro.configs.ARCH_IDS``, and its
+    model knows every family they use."""
+    assert sorted(configs.ARCH_IDS) == sorted(jconfigs.ARCH_IDS)
+    assert {jconfigs.get(a).family for a in jconfigs.ARCH_IDS} <= \
+        set(lm.FAMILIES)
 
 
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
