@@ -1,5 +1,6 @@
 """Architecture registry of the port: copies of ``repro.configs``' entries,
-one module per architecture.
+one module per architecture, and the paper's CNNs (``CNN_IDS``, built by
+``models.cnn.CNNS``).
 
 ``get(name)`` returns the full-size ArchConfig; ``get_smoke(name)`` the
 reduced same-family config used by the CPU tests and the CLI.
@@ -13,6 +14,8 @@ from repro_torch.models.config import ArchConfig  # noqa: F401
 ARCH_IDS = ["deepseek-7b", "minitron-4b", "qwen1.5-4b", "phi3-medium-14b",
             "paligemma-3b", "whisper-base", "recurrentgemma-2b",
             "mamba2-2.7b", "deepseek-v2-236b", "deepseek-v3-671b"]
+
+CNN_IDS = ["vgg16", "resnet18", "squeezenet"]
 
 
 def _module(name: str):

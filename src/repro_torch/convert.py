@@ -4,8 +4,9 @@ The JAX reference and the port cannot share random streams, so a test that
 holds one against the other draws its inputs once and hands both packages
 the same arrays. This module turns such arrays into the port's objects:
 
-* :func:`params_from_numpy` — a nested dict of NumPy arrays (e.g. the
-  reference's ``lm.init_params`` through ``np.asarray``) into tensors;
+* :func:`params_from_numpy` — a nested dict/list of NumPy arrays (e.g. the
+  reference's ``lm.init_params`` or ``cnn.init_*`` through ``np.asarray``)
+  into tensors, lists kept in their order;
 * :func:`protected_from_numpy` — an encoded tree whose protected leaves are
   exported as dicts ``{"enc", "checks", "scale", "scheme_id",
   "orig_shape"}`` into the port's ``ProtectedTensor`` leaves;
@@ -29,10 +30,13 @@ def _tensor(a, dev):
 
 
 def params_from_numpy(tree, *, device=None):
-    """Nested dict of arrays -> nested dict of tensors on ``device``."""
+    """Nested dict/list of arrays -> the same dicts/lists of tensors on
+    ``device``."""
     dev = device_mod.resolve(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device=dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_from_numpy(v, device=dev) for v in tree]
     return _tensor(tree, dev)
 
 

@@ -7,9 +7,10 @@ cancels — what two upsets of the same DRAM cell do.
 
 The host path (``sample_positions`` with an int seed, ``flip_bits_np``) is
 NumPy and draws exactly the reference's positions. The device path
-(:func:`inject_torch`) draws from a ``torch.Generator`` and returns the
-positions that ended up flipped, so a caller can count the blocks that
-took one or two flips.
+(:func:`inject_torch`, and :func:`inject_torch_rate` for the campaigns'
+rate sweeps) draws from a ``torch.Generator`` and returns the positions
+that ended up flipped, so a caller can count the blocks that took one or
+two flips.
 """
 from __future__ import annotations
 
@@ -96,4 +97,38 @@ def inject_torch(stored: torch.Tensor, rate: float,
                         device=stored.device, dtype=torch.int64)
     live = flip_positions_(flat, pos, one_per_block=one_per_block,
                            hit_blocks=hit_blocks)
+    return flat.reshape(stored.shape), live
+
+
+def rate_positions(n_bits: int, rate: float, generator: torch.Generator,
+                   max_rate: float, device=None) -> torch.Tensor:
+    """The draw of :func:`inject_torch_rate`: ``n_faults(n_bits, max_rate)``
+    uniform positions from ``generator``, of which the first
+    ``round(n_bits * rate)`` are returned (``rate <= max_rate``). A lower
+    rate's positions are a prefix of a higher rate's from the same
+    generator state; repeats are kept (the XOR cancels them)."""
+    if rate > max_rate:
+        raise ValueError(f"rate {rate} exceeds the sample budget's max_rate "
+                         f"{max_rate}")
+    n_max = n_faults(n_bits, max_rate)
+    pos = torch.randint(0, max(n_bits, 1), (n_max,), generator=generator,
+                        device=device, dtype=torch.int64)
+    return pos[: n_faults(n_bits, rate)]
+
+
+def inject_torch_rate(stored: torch.Tensor, rate: float,
+                      generator: torch.Generator, max_rate: float):
+    """Device injection for a campaign's rate sweep (the reference's
+    ``inject_jax_rate``): the sample budget is fixed by ``max_rate``, so
+    every rate of a sweep draws the same number of positions from the
+    generator, and the first ``round(n_bits * rate)`` of them are XORed in
+    through :func:`flip_positions_` (repeats cancel). No per-bit parity
+    vector is built: the positions are applied directly.
+
+    -> ``(flipped copy of stored, positions)``, the positions that end up
+    flipped (sorted)."""
+    flat = stored.reshape(-1).clone()
+    pos = rate_positions(flat.numel() * 8, rate, generator, max_rate,
+                         device=stored.device)
+    live = flip_positions_(flat, pos)
     return flat.reshape(stored.shape), live

@@ -8,7 +8,8 @@ corrected at the point of use.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
       --tokens 16 --batch 4 [--scheme in-place] [--backend torch|cuda] \\
       [--kv-policy in-place-fused|in-place-chunked] [--prompt-len 512] \\
-      [--fault-rate 1e-4] [--abft] [--act-clamp] [--device cuda|cpu] \\
+      [--fault-rate 1e-4 [--trials 2] [--campaign-key K] \\
+      [--campaign-out FILE]] [--abft] [--act-clamp] [--device cuda|cpu] \\
       [--burst [--burst-out DIR]]
 
 The backend defaults to the kernels (``cuda``) on the card and to the
@@ -23,6 +24,14 @@ and clamps each matmul's output to them; mismatches and clamp hits are
 counted over the run. :func:`serve` also serves the int8 path
 (``act_quant="static"`` from the same calibration, or ``"dynamic"``),
 which the CLI does not offer, as the reference's does not.
+
+With ``--fault-rate`` the CLI first runs the fault smoke-check
+(:func:`fault_smoke_check`, as the reference CLI does before every faulted
+serve): a decode-fidelity and a DUE campaign over the encoded weights at
+{rate/10, rate, 10*rate} x ``--trials``, one cell at a time; then it
+injects the faults and serves. ``--campaign-key`` seeds the campaigns'
+streams and ``--campaign-out`` writes their JSON record (the reference's
+keys).
 
 ``--burst`` replays a seeded two-wave workload through the request
 front-end (:mod:`repro_torch.serving.frontend`: continuous batching over
@@ -40,12 +49,12 @@ conv history, no KV cache) families and the moe family's MLA configs
 (deepseek-v2-236b, deepseek-v3-671b: the compressed latent cache) serve
 their dense caches only: a prompt, a paged ``--kv-policy`` or
 ``--burst`` raises ``ValueError`` for them, as the reference's paged
-cache does. The fault smoke-check campaigns and
-scrubbing are not ported yet.
+cache does. Scrubbing and repair are not ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import statistics
 import time
@@ -79,12 +88,57 @@ def _needs_paged(cfg, what: str) -> None:
                          + (" with MLA" if cfg.use_mla else ""))
 
 
+def fault_smoke_check(enc, policy, rate: float, seed: int, *,
+                      trials: int = 2, campaign_key=None, out_path=None,
+                      device=None, log=print):
+    """Campaign smoke-check before serving with injected faults: sweep
+    {rate/10, rate, min(10*rate, 0.01)} x ``trials`` and report the decode
+    fidelity (the fraction of protected weights that still decode to their
+    clean values) and the DUE (detected-uncorrectable) count at each rate.
+    ``batch="scan"`` keeps the peak at one cell's buffers; both campaigns
+    go leaf by leaf, so a full-width tree costs its largest leaf a few
+    times over, not a second copy of itself.
+
+    ``campaign_key`` seeds the fidelity campaign's cells (default ``seed +
+    1``; the DUE campaign takes the next key); ``out_path`` writes the JSON
+    record (trials, key, per-rate fidelity and DUE means), the reference's
+    keys. -> ``(fidelity CampaignResult, DUE CampaignResult)``."""
+    from repro_torch.protection import campaign
+
+    rates = tuple(sorted({rate / 10, rate, min(rate * 10, 0.01)}))
+    ckey = seed + 1 if campaign_key is None else campaign_key
+    res = campaign.fidelity_campaign(enc, policy, rates=rates, trials=trials,
+                                     key=ckey, batch="scan", device=device)
+    cells = "  ".join(f"{r:.0e}:{m * 100:6.2f}%"
+                      for r, m in zip(res.rates, res.mean()))
+    log(f"[serve] fault smoke-check ({res.scheme}, {res.batch} campaign, "
+        f"{trials} trials, warm-up {res.compile_s:.1f}s, sweep "
+        f"{res.wall_clock_s:.2f}s): decode fidelity {cells}")
+    due = campaign.due_campaign(enc, policy, rates=rates, trials=trials,
+                                key=ckey + 1, batch="scan", device=device)
+    cells = "  ".join(f"{r:.0e}:{m:7.1f}"
+                      for r, m in zip(due.rates, due.mean()))
+    log(f"[serve] DUE (double-error) counts per rate: {cells}")
+    if out_path:
+        rec = {"trials": trials, "campaign_key": ckey,
+               "rates": list(res.rates), "scheme": res.scheme,
+               "batch": res.batch,
+               "fidelity_mean": [float(m) for m in res.mean()],
+               "due_mean": [float(m) for m in due.mean()]}
+        with open(out_path, "w") as fh:
+            json.dump(rec, fh, indent=2)
+            fh.write("\n")
+        log(f"[serve] wrote campaign record to {out_path}")
+    return res, due
+
+
 def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
           fault_rate: float = 0.0, correctable_only: bool = False,
           seed: int = 0, scheme: str = "in-place", backend=None,
           kv_policy=None, device=None, dtype=torch.bfloat16, weights=None,
           abft: bool = False, act_clamp: bool = False, act_quant=None,
-          scales=None, log=print) -> dict:
+          scales=None, smoke_trials: int = 0, campaign_key=None,
+          campaign_out=None, log=print) -> dict:
     """Serve ``tokens`` greedy decode steps of a batch.
 
     The weights are drawn at random from ``seed`` and encoded leaf by leaf,
@@ -110,6 +164,11 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
     :func:`~repro_torch.serving.protected.calibrate_act_scales` returns
     them) skips the calibration. ``act_quant`` ("static" from the same
     scales, or "dynamic") serves the projections over the int8 path.
+
+    With ``fault_rate`` and ``smoke_trials`` the weights first go through
+    :func:`fault_smoke_check` (``campaign_key``, ``campaign_out``), before
+    any fault is injected; its two results are returned under
+    ``smoke_check``.
 
     Returns a dict with ``tokens`` (T, B) and ``logits`` (T, B, V) of every
     step, the run's fault accounting ``flags`` (weight corrected/DUE from
@@ -184,6 +243,12 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
             f"{s['n_clamped']} activation-clamped; activation quant "
             f"{s['act_quant'] or 'none'}")
     weight_positions: dict = {}
+    smoke = None
+    if fault_rate and smoke_trials:
+        smoke = fault_smoke_check(enc, policy, fault_rate, seed,
+                                  trials=smoke_trials,
+                                  campaign_key=campaign_key,
+                                  out_path=campaign_out, device=dev, log=log)
     if fault_rate:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -289,8 +354,9 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
     return {"tokens": toks, "logits": torch.stack(out_logits),
             "flags": acc, "abft": guard, "scales": scales,
             "weight_positions": weight_positions,
-            "kv_positions": kv_positions, "seconds": dt,
-            "tok_per_s": tokens * batch / dt, "step_ms": ms, **extra}
+            "kv_positions": kv_positions, "smoke_check": smoke,
+            "seconds": dt, "tok_per_s": tokens * batch / dt, "step_ms": ms,
+            **extra}
 
 
 def burst(cfg, *, batch: int = 4, tokens: int = 16, seed: int = 0,
@@ -299,7 +365,8 @@ def burst(cfg, *, batch: int = 4, tokens: int = 16, seed: int = 0,
           device=None, weights=None, fault_rate: float = 0.0,
           correctable_only: bool = False,
           prefix_sharing: bool = False, out_dir=None, before_step=None,
-          after_step=None, log=print) -> dict:
+          after_step=None, smoke_trials: int = 0, campaign_key=None,
+          campaign_out=None, log=print) -> dict:
     """Serve a seeded burst through the request front-end and roll it up.
 
     The workload defaults to the reference CLI's: ``make_waves(seed,
@@ -313,7 +380,9 @@ def burst(cfg, *, batch: int = 4, tokens: int = 16, seed: int = 0,
     every 4 steps, as the reference CLI injects both. ``out_dir`` gets
     ``telemetry.jsonl``, ``requests.csv`` and ``summary.json``;
     ``before_step(fe)`` / ``after_step(fe)`` reach the front-end around
-    each step (:func:`~repro_torch.serving.frontend.run_burst`).
+    each step (:func:`~repro_torch.serving.frontend.run_burst`). With
+    ``fault_rate`` and ``smoke_trials`` the weights first go through
+    :func:`fault_smoke_check`, as in :func:`serve`.
 
     Returns ``{"events", "summary", "results", "seconds", "weights",
     "weight_positions"}``: the telemetry events, the roll-up, ``{rid:
@@ -350,6 +419,10 @@ def burst(cfg, *, batch: int = 4, tokens: int = 16, seed: int = 0,
         log(f"[serve] drew and encoded the weights in "
             f"{time.time() - t0:.1f}s")
     weight_positions: dict = {}
+    if fault_rate and smoke_trials:
+        fault_smoke_check(enc, plan.policy, fault_rate, seed,
+                          trials=smoke_trials, campaign_key=campaign_key,
+                          out_path=campaign_out, device=dev, log=log)
     if fault_rate:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -437,22 +510,33 @@ def main(argv=None):
     ap.add_argument("--burst-out", default=None, metavar="DIR",
                     help="with --burst: write telemetry JSONL + requests "
                          "CSV + summary JSON here")
+    ap.add_argument("--trials", type=int, default=2,
+                    help="trials per rate of the fault smoke-check "
+                         "campaigns (fidelity + DUE)")
+    ap.add_argument("--campaign-key", type=int, default=None,
+                    help="base seed of the smoke-check campaigns' cells "
+                         "(default: seed + 1)")
+    ap.add_argument("--campaign-out", default=None, metavar="FILE",
+                    help="write the smoke-check campaign record (trials, "
+                         "key, per-rate means) as JSON")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain route")
     args = ap.parse_args(argv)
+    smoke = dict(smoke_trials=args.trials, campaign_key=args.campaign_key,
+                 campaign_out=args.campaign_out)
     if args.burst:
         return burst(configs.get_smoke(args.arch), batch=args.batch,
                      tokens=args.tokens, seed=args.seed,
                      kv_policy=args.kv_policy or "in-place",
                      scheme=args.scheme, backend=args.backend,
                      device=args.device, fault_rate=args.fault_rate,
-                     out_dir=args.burst_out)
+                     out_dir=args.burst_out, **smoke)
     return serve(configs.get_smoke(args.arch), batch=args.batch,
                  tokens=args.tokens, prompt_len=args.prompt_len,
                  fault_rate=args.fault_rate, seed=args.seed,
                  scheme=args.scheme, backend=args.backend,
                  kv_policy=args.kv_policy, device=args.device,
-                 abft=args.abft, act_clamp=args.act_clamp)
+                 abft=args.abft, act_clamp=args.act_clamp, **smoke)
 
 
 if __name__ == "__main__":

@@ -1,17 +1,19 @@
 """``ProtectionPolicy`` — which leaves of a parameter tree get protected.
 
-Counterpart of ``repro.protection.policy`` for a single-scheme policy with
-the reference's defaults: ``wot.is_protected_weight`` picks the protectable
-leaves (matmul/embedding weights, not norms or biases), every one of them
-is quantized, WOT-throttled and encoded under the default scheme, and
+Counterpart of ``repro.protection.policy`` for a single-scheme policy:
+``predicate`` (default ``wot.is_protected_weight``: matmul/conv/embedding
+weights, not norms or biases) picks the protectable leaves, every one of
+them is quantized, WOT-throttled and encoded under the default scheme, and
 tensors whose last dim is not a block multiple are padded into the flat
-layout. Per-leaf regex rules, backend rules, the autotune table and the
-``predicate``/``pad``/``throttle`` options are not ported yet.
+layout. Beside it, the policy-free tree ops the campaigns use: decode
+(with and without fault flags), host and device fault injection, and the
+space overhead. Per-leaf regex rules, backend rules, the autotune table
+and the ``pad``/``throttle`` options are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -23,7 +25,9 @@ from .schemes import get_scheme
 from .tensor import ProtectedTensor, is_protected_tensor
 
 __all__ = ["ProtectionPolicy", "CoverageReport", "CoverageEntry",
-           "decode_leaf_with_flags", "inject_tree_device", "path_str"]
+           "decode_leaf", "decode_leaf_with_flags", "decode_tree",
+           "decode_tree_with_flags", "inject_tree", "inject_tree_device",
+           "space_overhead", "path_str"]
 
 BLOCK = 8
 path_str = tree.path_str
@@ -92,17 +96,22 @@ class ProtectionPolicy:
     """Single-scheme protection strategy.
 
     default_scheme: scheme id applied to every protectable leaf.
+    predicate:      ``(path, leaf) -> bool`` choosing the protectable leaves
+                    (default ``wot.is_protected_weight``; the paper's CNN
+                    evaluation protects every leaf of >= 2 dims).
     backend:        "torch" | "cuda" | a Backend — the block-codec route.
     """
 
-    def __init__(self, default_scheme: str = "in-place", *, backend="torch"):
+    def __init__(self, default_scheme: str = "in-place",
+                 predicate: Optional[Callable] = None, *, backend="torch"):
         get_scheme(default_scheme)  # validate eagerly
         self.default_scheme = default_scheme
+        self.predicate = predicate or wot.is_protected_weight
         self.backend = get_backend(backend)
 
     def _plan(self, path, leaf) -> tuple:
         """-> (scheme_id | None, reason)."""
-        if not wot.is_protected_weight(path, leaf):
+        if not self.predicate(path, leaf):
             return None, "predicate"
         return self.default_scheme, ""
 
@@ -135,6 +144,20 @@ class ProtectionPolicy:
         return self.plan(params).coverage()
 
 
+def _dequant(pt: ProtectedTensor, q, dtype):
+    if pt.is_flat:
+        q = q.reshape(-1)[: pt.n_weights].reshape(pt.orig_shape)
+    return (q.to(torch.float32) * pt.scale).to(dtype)
+
+
+def decode_leaf(pt: ProtectedTensor, dtype=torch.bfloat16, *,
+                backend="torch"):
+    """ProtectedTensor -> dequantized weight tensor (faults corrected)."""
+    q = get_scheme(pt.scheme_id).decode(pt.enc, pt.checks,
+                                        get_backend(backend))
+    return _dequant(pt, q, dtype)
+
+
 def decode_leaf_with_flags(pt: ProtectedTensor, dtype=torch.bfloat16, *,
                            backend="torch"):
     """ProtectedTensor -> ``(dequantized weight, corrected, due)`` with int32
@@ -142,13 +165,78 @@ def decode_leaf_with_flags(pt: ProtectedTensor, dtype=torch.bfloat16, *,
     scheme = get_scheme(pt.scheme_id)
     q, corrected, due = scheme.decode_with_flags(pt.enc, pt.checks,
                                                  get_backend(backend))
-    if pt.is_flat:
-        q = q.reshape(-1)[: pt.n_weights].reshape(pt.orig_shape)
-    return (q.to(torch.float32) * pt.scale).to(dtype), corrected, due
+    return _dequant(pt, q, dtype), corrected, due
+
+
+def decode_tree(enc_tree, dtype=torch.bfloat16, *, backend="torch"):
+    """Decode every ProtectedTensor leaf; other leaves pass through."""
+    be = get_backend(backend)
+    return tree.map_with_path(
+        lambda _, x: decode_leaf(x, dtype, backend=be)
+        if is_protected_tensor(x) else x, enc_tree)
+
+
+def decode_tree_with_flags(enc_tree, dtype=torch.bfloat16, *,
+                           backend="torch"):
+    """Decode every ProtectedTensor leaf and collect its fault flags ->
+    ``(decoded_tree, {path: (corrected, due)})``, paths in tree order."""
+    be = get_backend(backend)
+    flags: dict = {}
+
+    def dec(path, leaf):
+        if not is_protected_tensor(leaf):
+            return leaf
+        w, corrected, due = decode_leaf_with_flags(leaf, dtype, backend=be)
+        flags[path_str(path)] = (corrected, due)
+        return w
+
+    return tree.map_with_path(dec, enc_tree), flags
+
+
+def _image(pt: ProtectedTensor) -> torch.Tensor:
+    """A leaf's whole stored image, ``enc ‖ checks`` flattened (the check
+    bytes sit in the same fault-prone memory)."""
+    enc = pt.enc.reshape(-1)
+    return enc if pt.checks is None else torch.cat(
+        [enc, pt.checks.reshape(-1)])
+
+
+def _with_image(pt: ProtectedTensor, image) -> ProtectedTensor:
+    """``pt`` over a (flipped) image from :func:`_image`; ``image`` may
+    carry leading dims (a stack of cells' images)."""
+    lead = tuple(image.shape[:-1])
+    if pt.checks is None:
+        return dataclasses.replace(
+            pt, enc=image.reshape(lead + tuple(pt.enc.shape)))
+    n = pt.enc.numel()
+    return dataclasses.replace(
+        pt, enc=image[..., :n].reshape(lead + tuple(pt.enc.shape)),
+        checks=image[..., n:].reshape(lead + tuple(pt.checks.shape)))
+
+
+def inject_tree(enc_tree, rate: float, seed: int):
+    """Host-side memory-fault injection (the reference's ``inject_tree``,
+    byte for byte): the i-th protected leaf in tree order (from 1) gets
+    NumPy's ``faults.inject`` with seed ``seed + i`` over its whole stored
+    image, weight and check bytes. The flipped images go back to each
+    leaf's device."""
+    i = 0
+
+    def inj(_, pt):
+        nonlocal i
+        if not is_protected_tensor(pt):
+            return pt
+        i += 1
+        image = _image(pt)
+        flipped = faults.inject(image.cpu().numpy(), rate, seed + i)
+        return _with_image(pt, torch.from_numpy(flipped).to(image.device))
+
+    return tree.map_with_path(inj, enc_tree)
 
 
 def inject_tree_device(enc_tree, rate: float, generator: torch.Generator,
-                       *, one_per_block: bool = False, hit_blocks=None):
+                       *, one_per_block: bool = False, hit_blocks=None,
+                       max_rate: Optional[float] = None):
     """On-device memory-fault injection into every ProtectedTensor's stored
     image (``faults.inject_torch`` per leaf, in tree order; with
     ``one_per_block`` at most one flip lands in each 64-bit block). A leaf
@@ -159,17 +247,28 @@ def inject_tree_device(enc_tree, rate: float, generator: torch.Generator,
     ``faults.flip_positions_``): with ``one_per_block`` repeated injections
     then never put a second flip into a block.
 
+    ``max_rate`` switches to ``faults.inject_torch_rate``, the campaigns'
+    injector: each leaf draws the sample budget of ``max_rate`` and keeps
+    the first ``round(bits * rate)`` positions, so the rates of one sweep
+    consume the generator alike (``one_per_block``/``hit_blocks`` do not
+    apply).
+
     -> ``(new_tree, {path: flipped global bit positions of that image})``.
     """
+    if max_rate is not None and (one_per_block or hit_blocks is not None):
+        raise ValueError("max_rate draws the campaigns' sample budget; "
+                         "one_per_block and hit_blocks do not apply to it")
     positions: dict = {}
 
     def inj(path, pt):
         if not is_protected_tensor(pt):
             return pt
         key = path_str(path)
-        enc = pt.enc.reshape(-1)
-        image = enc if pt.checks is None else torch.cat(
-            [enc, pt.checks.reshape(-1)])
+        image = _image(pt)
+        if max_rate is not None:
+            image, positions[key] = faults.inject_torch_rate(
+                image, rate, generator, max_rate)
+            return _with_image(pt, image)
         hits = None
         if hit_blocks is not None:
             if key not in hit_blocks:
@@ -180,11 +279,16 @@ def inject_tree_device(enc_tree, rate: float, generator: torch.Generator,
         image, positions[key] = faults.inject_torch(
             image, rate, generator, one_per_block=one_per_block,
             hit_blocks=hits)
-        if pt.checks is None:
-            return dataclasses.replace(pt, enc=image.reshape(pt.enc.shape))
-        n = enc.numel()
-        return dataclasses.replace(
-            pt, enc=image[:n].reshape(pt.enc.shape),
-            checks=image[n:].reshape(pt.checks.shape))
+        return _with_image(pt, image)
 
     return tree.map_with_path(inj, enc_tree), positions
+
+
+def space_overhead(enc_tree) -> float:
+    """(stored - weight) / weight bytes over all protected leaves."""
+    stored = weights = 0
+    for _, leaf in tree.leaves_with_path(enc_tree):
+        if is_protected_tensor(leaf):
+            stored += leaf.stored_bytes
+            weights += leaf.n_weights
+    return (stored - weights) / max(weights, 1)

@@ -39,10 +39,23 @@ def _blocks(b: torch.Tensor) -> torch.Tensor:
     return b.reshape(*b.shape[:-1], b.shape[-1] // BLOCK, BLOCK)
 
 
+def _count(flags: torch.Tensor, batch_dims: int) -> torch.Tensor:
+    """int32 count of set flags over all but the first ``batch_dims`` dims
+    (a scalar for 0)."""
+    return flags.reshape(*flags.shape[:batch_dims], -1).sum(
+        -1, dtype=torch.int32)
+
+
 class Scheme:
-    """Base interface. Subclasses are stateless; use ``get_scheme``."""
+    """Base interface. Subclasses are stateless; use ``get_scheme``.
+
+    ``decode_with_flags(..., batch_dims=k)`` counts the flags per index of
+    the first ``k`` dims of a stacked image (the campaigns decode many
+    cells' images of one leaf in one call); ``k = 0`` gives scalars."""
 
     scheme_id: str = "faulty"
+    paper_name: str = "faulty"      # row label in the paper's Table 2
+    needs_ecc_hw: bool = False      # needs the Fig.-2 swizzle + ECC logic
     check_ratio: float = 0.0
     requires_wot: bool = False
 
@@ -50,8 +63,13 @@ class Scheme:
         """int8 (..., n), n % 8 == 0 -> (enc uint8 (..., n), checks | None)."""
         raise NotImplementedError
 
-    def decode_with_flags(self, enc, checks, backend: Backend | str = "torch"):
-        """-> ``(decoded int8, corrected, due)``, the counts int32 scalars."""
+    def decode(self, enc, checks, backend: Backend | str = "torch"):
+        """Stored image -> int8 (..., n), corrected/zeroed per the scheme."""
+        return self.decode_with_flags(enc, checks, backend)[0]
+
+    def decode_with_flags(self, enc, checks, backend: Backend | str = "torch",
+                          *, batch_dims: int = 0):
+        """-> ``(decoded int8, corrected, due)``, the counts int32."""
         raise NotImplementedError
 
 
@@ -61,8 +79,10 @@ class Faulty(Scheme):
     def encode(self, q, backend="torch"):
         return _as_bytes(q), None
 
-    def decode_with_flags(self, enc, checks, backend="torch"):
-        zero = torch.zeros((), dtype=torch.int32, device=enc.device)
+    def decode_with_flags(self, enc, checks, backend="torch", *,
+                          batch_dims=0):
+        zero = torch.zeros(enc.shape[:batch_dims], dtype=torch.int32,
+                           device=enc.device)
         return _as_int8(enc), zero, zero
 
 
@@ -71,17 +91,20 @@ class ParityZero(Scheme):
     byte whose parity fails decodes to 0 and counts as corrected."""
 
     scheme_id = "parity-zero"
+    paper_name = "zero"
     check_ratio = 1.0 / BLOCK
 
     def encode(self, q, backend="torch"):
         data = _as_bytes(q)
         return data, ecc.encode_parity8(data)
 
-    def decode_with_flags(self, enc, checks, backend="torch"):
+    def decode_with_flags(self, enc, checks, backend="torch", *,
+                          batch_dims=0):
         data, bad = ecc.decode_parity8(enc, checks)
         # zeroing a detected-faulty byte IS this scheme's repair action
-        return (_as_int8(data), bad.sum(dtype=torch.int32),
-                torch.zeros((), dtype=torch.int32, device=enc.device))
+        return (_as_int8(data), _count(bad, batch_dims),
+                torch.zeros(enc.shape[:batch_dims], dtype=torch.int32,
+                            device=enc.device))
 
 
 class Secded72(Scheme):
@@ -89,16 +112,19 @@ class Secded72(Scheme):
     block."""
 
     scheme_id = "secded72"
+    paper_name = "ecc"
+    needs_ecc_hw = True
     check_ratio = 1.0 / BLOCK
 
     def encode(self, q, backend="torch"):
         data = _as_bytes(q)
         return data, ecc.encode72(_blocks(data))
 
-    def decode_with_flags(self, enc, checks, backend="torch"):
+    def decode_with_flags(self, enc, checks, backend="torch", *,
+                          batch_dims=0):
         dec, single, double = ecc.decode72(_blocks(enc), checks)
-        return (_as_int8(dec.reshape(enc.shape)),
-                single.sum(dtype=torch.int32), double.sum(dtype=torch.int32))
+        return (_as_int8(dec.reshape(enc.shape)), _count(single, batch_dims),
+                _count(double, batch_dims))
 
 
 class InPlace(Scheme):
@@ -106,6 +132,8 @@ class InPlace(Scheme):
     8-byte block. Requires WOT-compliant weights."""
 
     scheme_id = "in-place"
+    paper_name = "in-place"
+    needs_ecc_hw = True
     requires_wot = True
 
     def encode(self, q, backend="torch"):
@@ -113,10 +141,11 @@ class InPlace(Scheme):
         return get_backend(backend).encode64(_blocks(data)).reshape(
             data.shape), None
 
-    def decode_with_flags(self, enc, checks, backend="torch"):
+    def decode_with_flags(self, enc, checks, backend="torch", *,
+                          batch_dims=0):
         dec, single, double = get_backend(backend).decode64(_blocks(enc))
-        return (_as_int8(dec.reshape(enc.shape)),
-                single.sum(dtype=torch.int32), double.sum(dtype=torch.int32))
+        return (_as_int8(dec.reshape(enc.shape)), _count(single, batch_dims),
+                _count(double, batch_dims))
 
 
 SCHEMES: dict = {s.scheme_id: s for s in

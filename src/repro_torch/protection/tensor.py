@@ -33,6 +33,14 @@ class ProtectedTensor:
         return int(math.prod(self.orig_shape))
 
     @property
+    def stored_bytes(self) -> int:
+        """Total bytes resident in fault-prone memory (enc + check bytes)."""
+        total = int(math.prod(self.enc.shape))
+        if self.checks is not None:
+            total += int(math.prod(self.checks.shape))
+        return total
+
+    @property
     def is_flat(self) -> bool:
         """True for the flat-padded layout (enc 1-D, weight possibly not)."""
         return tuple(self.enc.shape) != tuple(self.orig_shape)

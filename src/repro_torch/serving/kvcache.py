@@ -50,6 +50,7 @@ __all__ = ["KVProtectionPolicy", "KV_POLICY_PRESETS", "get_kv_policy",
            "supports_paged", "pages_per_seq", "pages_needed",
            "init_paged_cache", "init_cache", "paged_gqa_decode",
            "paged_gqa_prefill", "as_protected_tree", "from_protected_tree",
+           "tree_layer_flags",
            "kv_bytes", "dense_kv_bytes", "PageAllocator", "set_slot_pages",
            "zero_pages", "copy_page"]
 
@@ -575,6 +576,22 @@ def from_protected_tree(cache: dict, tree: dict) -> dict:
         if tree[name].checks is not None:
             new[f"{name}_checks"] = tree[name].checks
     return new
+
+
+def tree_layer_flags(tree: dict, backend="torch") -> torch.Tensor:
+    """Per-layer (corrected, due) over a KV ``ProtectedTensor`` pair (from
+    :func:`as_protected_tree`) -> (n_layers, 2) int32, the campaign-side
+    view of the per-layer rows the serve step reports. Counts the whole
+    pool, validity-blind: a fault in a stale slot counts too."""
+    out = None
+    for name in ("k", "v"):
+        pt = tree[name]
+        _, cor, due = _decode_kv(pt.enc, pt.checks, pt.scheme_id, backend)
+        pair = torch.stack(
+            [x.reshape(x.shape[0], -1).sum(-1, dtype=torch.int32)
+             for x in (cor, due)], dim=-1)
+        out = pair if out is None else out + pair
+    return out
 
 
 def dense_kv_bytes(cfg: ArchConfig, batch: int, max_len: int,

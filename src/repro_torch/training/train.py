@@ -2,11 +2,11 @@
 fake-quantized weights with f32 masters, gradient accumulation folded into
 SGD momentum, then WOT throttling of the masters.
 
-Counterpart of ``qat_wt``, ``qat_wt_bf16``, ``_split_micro`` and
-``make_train_step`` of ``repro.training.train``. The throttle runs on the
-route ``backend`` picks (``"cuda"``: the ``quantize_throttle`` kernel on
-every protected leaf after every update). ``make_cnn_train_step`` waits
-for the CNN models.
+Counterpart of ``qat_wt``, ``qat_wt_bf16``, ``_split_micro``,
+``make_train_step`` and ``make_cnn_train_step`` of
+``repro.training.train``. The throttle runs on the route ``backend`` picks
+(``"cuda"``: the ``quantize_throttle`` kernel on every protected leaf
+after every update).
 """
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
 from repro_torch.protection.backends import get_backend
+
+from . import optim
 
 
 def qat_wt(w):
@@ -115,3 +117,47 @@ def make_train_step(cfg: ArchConfig, *, qat: bool = True,
         return params, opt_state, loss_sum * inv
 
     return train_step
+
+
+def make_cnn_train_step(cfg_forward: Callable, *, qat: bool = True,
+                        wot_throttle: bool = True, lr: float = 1e-4,
+                        mu: float = 0.9, wd: float = 1e-4, backend="torch"):
+    """QATT for the paper's CNNs: ``cfg_forward(params, images, wt) ->
+    logits``. Returns ``(train_step, eval_step)``:
+    ``train_step(params, opt_state, batch) -> (params, opt_state, loss)``
+    (new tensors, the reference's ``sgd_update`` then, with
+    ``wot_throttle``, ``wot.throttle_tree`` on ``backend``) and
+    ``eval_step(params, batch) -> accuracy``. ``batch`` holds tensors:
+    ``images`` and int ``labels``. Every leaf takes a gradient (batch-norm
+    statistics too, as in the reference, whose ``batchnorm`` reads them)."""
+    wt = qat_wt if qat else L.Identity
+    be = get_backend(backend)
+
+    def loss_fn(params, batch):
+        logits = cfg_forward(params, batch["images"], wt).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, batch["labels"].long()[:, None])[:, 0]
+        return (lse - tgt).mean()
+
+    def train_step(params, opt_state, batch):
+        ws = [w.detach().requires_grad_()
+              for _, w in tree.leaves_with_path(params)]
+        loss = loss_fn(tree.unflatten_like(params, ws), batch)
+        grads = torch.autograd.grad(loss, ws, allow_unused=True)
+        with torch.no_grad():
+            grads = tree.unflatten_like(params, [
+                torch.zeros_like(w) if g is None else g
+                for w, g in zip(ws, grads)])
+            params, opt_state = optim.sgd_update(params, grads, opt_state,
+                                                 lr=lr, mu=mu, wd=wd)
+            if wot_throttle:
+                params = wot.throttle_tree(params, backend=be)
+        return params, opt_state, loss.detach()
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        logits = cfg_forward(params, batch["images"], wt)
+        return (logits.argmax(-1) == batch["labels"]).to(
+            torch.float32).mean()
+
+    return train_step, eval_step

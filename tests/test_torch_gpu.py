@@ -995,3 +995,90 @@ def test_gpu_kv_write_out_of_range_page_fails(cuda, bad):
                            env=env, capture_output=True, text=True,
                            timeout=300)
         assert r.returncode == want, (page, r.stdout, r.stderr[-2000:])
+
+
+@pytest.mark.parametrize("scheme", ["faulty", "parity-zero", "secded72",
+                                    "in-place"])
+def test_gpu_campaign_routes_give_equal_grids(cuda, scheme):
+    """A Table-2 column of a seeded ResNet18 (width 1/8, 32 x 32 input) on
+    the kernel route and on the plain route, both on the card and fed the
+    same per-cell seeds: equal grids cell for cell, equal clean values,
+    and the kernel route launches the codec kernels."""
+    from repro_torch.data import synthetic
+    from repro_torch.models import cnn
+    from repro_torch.training import cnn_experiments as ce
+    params = cnn.init_resnet18(0, n_classes=4, scale=0.125, img_size=32,
+                               device=cuda)
+    _, tmpl = synthetic.image_batch(4, 1, 32, seed=0, step=0)
+    before = build.COUNTS["ecc_encode"] + build.COUNTS["ecc_decode"]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        res = {route: ce.run_scheme_campaign(
+            params, cnn.resnet18, tmpl, scheme, rates=(1e-3, 1e-2),
+            trials=2, key=3, batch="scan", backend=route, device=cuda)
+            for route in ("cuda", "torch")}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert res["cuda"].grid == res["torch"].grid
+    assert res["cuda"].clean == res["torch"].clean
+    assert (res["cuda"].platform, res["cuda"].backend) == ("cuda", "cuda")
+    if scheme == "in-place":
+        assert build.COUNTS["ecc_encode"] + build.COUNTS["ecc_decode"] > \
+            before
+
+
+def test_gpu_campaign_vmap_equals_scan_and_counts_flips(cuda):
+    """On the card: the batched layout's DUE and corrected grids equal the
+    one-cell ones, and each cell's counts equal the blocks its recomputed
+    positions hit twice and an odd number of times."""
+    from repro_torch.core import faults
+    from repro_torch.protection import campaign
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = {"a": [torch.randn(512, 256, generator=gen, device=cuda),
+               torch.randn(96, 3, generator=gen, device=cuda)]}
+    enc = ProtectionPolicy(backend="cuda").encode_tree(w)
+    rates = (1e-4, 1e-3)
+    got = {}
+    for batch in ("vmap", "scan"):
+        for what in ("due", "corrected"):
+            got[batch, what] = campaign.due_campaign(
+                enc, rates=rates, trials=2, key=5, batch=batch, what=what,
+                device=cuda).grid
+    assert got["vmap", "due"] == got["scan", "due"]
+    assert got["vmap", "corrected"] == got["scan", "corrected"]
+    for r, rate in enumerate(rates):
+        for t in range(2):
+            g = campaign.cell_generator(5, r, t, cuda)
+            odd = two = 0
+            for pt in (enc["a"][0], enc["a"][1]):
+                _, live = faults.inject_torch_rate(pt.enc, rate, g,
+                                                   max(rates))
+                _, hits = torch.unique(live // 64, return_counts=True)
+                assert hits.numel() == 0 or int(hits.max()) <= 3
+                odd += int((hits % 2 == 1).sum())
+                two += int((hits == 2).sum())
+            assert got["scan", "corrected"][r][t] == odd
+            assert got["scan", "due"][r][t] == two
+
+
+def test_gpu_cnn_forward_matches_cpu(cuda):
+    """The three CNNs' forwards on the card (f32, TF32 off) against the
+    CPU's on the same weights."""
+    from repro_torch import tree
+    from repro_torch.models import cnn
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, (init, fwd) in cnn.CNNS.items():
+            p = init(1, n_classes=4, scale=0.25, img_size=64, device="cpu")
+            x = torch.randn(2, 64, 64, 3, generator=torch.Generator()
+                            .manual_seed(2))
+            want = fwd(p, x)
+            pc = tree.map_with_path(lambda _, t: t.to(cuda), p)
+            got = fwd(pc, x.to(cuda)).cpu()
+            assert torch.allclose(got, want, rtol=1e-4, atol=1e-4), name
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32

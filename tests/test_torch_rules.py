@@ -211,3 +211,31 @@ def test_wrappers_take_the_plain_route_for_cpu_tensors(monkeypatch):
     qb = blocks.view(torch.int8)
     assert torch.equal(throttle.throttle(qb), throttle.throttle_plain(qb))
     assert build.COUNTS == before
+
+
+def test_campaign_entry_points_default_to_cuda(monkeypatch):
+    """The fault campaigns, the serve CLI's smoke-check and the Table-2
+    column default to the card: without a GPU each raises, even over a
+    tree that sits on the CPU, unless it is given ``device="cpu"``."""
+    from repro_torch.protection import campaign
+    from repro_torch.training import cnn_experiments as ce
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = {"fc": {"w": torch.randn(16, 8)}}
+    fwd = lambda p, x: x.reshape(x.shape[0], -1)[:, :16] @ p["fc"]["w"]  # noqa: E731
+    kw = dict(rates=(1e-3,), trials=1)
+    for call in (
+            lambda: campaign.run_campaign(params, fwd, None, "in-place",
+                                          img=8, **kw),
+            lambda: campaign.run_campaign_host(params, fwd, None, "in-place",
+                                               img=8, **kw),
+            lambda: campaign.fidelity_campaign(params, **kw),
+            lambda: campaign.due_campaign(params, **kw),
+            lambda: campaign.compute_campaign(params, **kw),
+            lambda: serve.fault_smoke_check(params, None, 1e-4, 0,
+                                            log=lambda *_: None),
+            lambda: ce.run_scheme_campaign(params, lambda p, x, wt=None:
+                                           fwd(p, x), None, "in-place",
+                                           img=8, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert campaign.fidelity_campaign(params, device="cpu", **kw).grid
