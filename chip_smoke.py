@@ -149,7 +149,23 @@ d_model 4096, vocab 102400) at batch 4:
 * phase 18: the serve CLI's fault smoke-check (decode fidelity and DUE
   campaigns at 1e-5, 1e-4, 1e-3 x 2 trials) over full-width deepseek-7b's
   encoded tree, every cell held to its recomputed flips, then a faulted
-  serve over the same tree.
+  serve over the same tree;
+* phase 19: the rest of training. QATT of full-width, full-depth
+  recurrentgemma-2b (4 steps of 8 x 2,048 tokens, the last throttle and
+  the deploy bit-equal across routes, 8 served steps clean and
+  correctable-only on its dense cache) and mamba2-2.7b (3 steps, then one
+  f32 step on both routes from the same state: bit-equal under
+  deterministic algorithms), each with a profile of a step; the f32
+  gradient of a 2-layer full-width mamba2 with remat'ed blocks bit-equal
+  to one without remat (where a write into a saved tensor raises); on
+  that 2-layer model, a crash after step 3 of 6 with async checkpoints
+  every 2 steps and a resume bit-equal to the uninterrupted run, and the
+  train entry point's protected checkpoint (restored as scale x the
+  throttled int8, exactly; 1,024 single flips per stored image
+  corrected; save and restore seconds and bytes against an unprotected
+  one); ADMM against QATT on full-width ResNet18 at 32 x 32 (QATT and
+  ADMM's final clamp meet the WOT constraint, ADMM's residual large
+  values reported, the projection bit-equal across routes).
 
 Phase 2 also holds the parity-zero decode and the per-slot flags of both
 paged-attention kernels to their plain versions at the burst's shapes;
@@ -399,11 +415,16 @@ def main():
                                      get_config("deepseek-7b"))
     log(f"phase 18 (the serve CLI's fault smoke-check on deepseek-7b) took "
         f"{time.time() - t0:.0f}s")
+    t0 = time.time()
+    rest_counts = phase_train_rest(torch, dev, build)
+    log(f"phase 19 (the rest of training: QATT of recurrentgemma-2b and "
+        f"mamba2-2.7b, crash and resume, the protected checkpoint, ADMM vs "
+        f"QATT) took {time.time() - t0:.0f}s")
     counts = {k: decode_counts[k] + long_counts[k] + train_counts[k]
               + guarded_counts[k] + burst_counts[k] + phi3_counts[k]
               + vlm_counts[k] + encdec_counts[k] + hybrid_counts[k]
               + ssm_counts[k] + moe_v2_counts[k] + moe_v3_counts[k]
-              + cnn_counts[k] + smoke_counts[k]
+              + cnn_counts[k] + smoke_counts[k] + rest_counts[k]
               for k in build.COUNTS}
     if sorted(entries) != sorted(counts):
         fail(f"kernels checked {sorted(entries)} != kernels counted "
@@ -449,7 +470,10 @@ def main():
             ("CNN Table 2", cnn_counts,
              ("ecc_encode", "ecc_decode", "quantize_throttle")),
             ("fault smoke-check", smoke_counts,
-             ("ecc_encode", "ecc_decode"))):
+             ("ecc_encode", "ecc_decode")),
+            ("the rest of training", rest_counts,
+             ("quantize_throttle", "ecc_encode", "ecc_decode",
+              "ecc_qmatmul"))):
         missing = [k for k in needed if cnt[k] <= 0]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
@@ -2821,7 +2845,8 @@ def deploy_both_routes(torch, params):
 
 
 def phase_train(torch, dev, build, cfg, *, batch=8, seq=2048, steps=4,
-                serve_tokens=8, rate=1e-6):
+                serve_tokens=8, rate=1e-6, kv_policy="in-place-fused",
+                fname="chip_smoke_train.json"):
     """QAT training with WOT throttling of ``cfg`` through the port's
     ``launch.train.train`` on the kernel route, then deploy and serve.
 
@@ -2830,10 +2855,11 @@ def phase_train(torch, dev, build, cfg, *, batch=8, seq=2048, steps=4,
     both routes: masters, int8 q and scales must be bit-equal, and every
     leaf's q must meet the WOT constraint. The trained masters are deployed
     (quantize-throttle + in-place encode) on both routes, byte-equal, and
-    ``serve_tokens`` greedy steps at batch 4 under ``in-place-fused`` are
-    served from the deployed weights clean and with correctable weight
-    faults only: bit-equal logits and tokens, each flipped block counted
-    once per step. -> (launch counts over the path, the trained params)."""
+    ``serve_tokens`` greedy steps at batch 4 under ``kv_policy`` (None: the
+    family's dense cache) are served from the deployed weights clean and
+    with correctable weight faults only: bit-equal logits and tokens, each
+    flipped block counted once per step. Writes ``fname``. -> (launch
+    counts over the path, the trained params)."""
     from repro_torch.data import synthetic
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import train
@@ -2877,7 +2903,7 @@ def phase_train(torch, dev, build, cfg, *, batch=8, seq=2048, steps=4,
     torch.cuda.empty_cache()
 
     enc = deploy_both_routes(torch, params)
-    kw = dict(backend="cuda", kv_policy="in-place-fused", batch=4,
+    kw = dict(backend="cuda", kv_policy=kv_policy, batch=4,
               tokens=serve_tokens, device=dev, weights=enc, log=log)
     clean = serve(cfg, **kw)
     fixed = serve(cfg, fault_rate=rate, correctable_only=True, **kw)
@@ -2909,7 +2935,7 @@ def phase_train(torch, dev, build, cfg, *, batch=8, seq=2048, steps=4,
         f"and correctable-only ({n_single} flipped blocks, {ff}) bit-equal; "
         f"{statistics.median(clean['step_ms']):.2f} ms/step clean")
     log(f"launch counts over the training path: {counts}")
-    with open(OUT_DIR / "chip_smoke_train.json", "w") as fh:
+    with open(OUT_DIR / fname, "w") as fh:
         json.dump({"config": f"{cfg.name} n_layers={cfg.n_layers}",
                    "batch": batch, "seq": seq, "losses": losses,
                    "step_ms": step_ms, "median_ms": med,
@@ -2977,6 +3003,7 @@ def phase_train_profile(torch, dev, cfg, params, *, batch=8, seq=2048,
     log("train-step profile split (device ms of "
         f"{busy:.2f} busy): " + ", ".join(f"{k} {v:.2f}"
                                           for k, v in split.items()))
+    return {"wall_ms": wall_ms, "busy_ms": busy, **split}
 
 
 # ---------------------------------------------------------------------------
@@ -5939,6 +5966,463 @@ def phase_smoke_check(torch, dev, build, cfg, *, tokens=4):
         torch.cuda.empty_cache()
     return counts
 
+# ---------------------------------------------------------------------------
+# phase 19: the rest of training — QATT of the hybrid and ssm families at
+# full width, crash and resume, the protected checkpoint, ADMM against QATT
+# ---------------------------------------------------------------------------
+
+
+# mamba2-2.7b's QATT keeps all 64 layers: 2.83 G parameters x 12 B (f32
+# masters, momentum, one gradient set) = 34.0 GB, 40.46 GB at its peak on
+# the card; recurrentgemma-2b keeps its 26 too (2.89 G parameters, 34.7
+# GB; peak 40.04). Time, not memory, cuts the f32 step on both routes to
+# the trained masters' first F32_LAYERS layers (f32 without tensor cores
+# is several times a bf16 step), and the step profiles to one 1 x 2,048
+# microbatch (a whole step launches hundreds of thousands of kernels,
+# and the profiler's processing of them takes minutes).
+F32_LAYERS = 8
+CKPT_LAYERS = 2          # the checkpoint cells: 0.34 G parameters
+CKPT_STEPS, CKPT_EVERY, CKPT_CRASH = 6, 2, 3
+CKPT_FLIPS = 1024        # blocks flipped in each protected image on disk
+ADMM_STEPS, ADMM_PRE_STEPS = 25, 80   # the reference benchmark's
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """``torch.use_deterministic_algorithms(True)`` inside the block
+    (``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts, in ``main``):
+    an op without a deterministic CUDA form raises, naming itself."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _batch(torch, dev, cfg, step, *, batch=8, seq=2048):
+    from repro_torch.data import synthetic
+    b = synthetic.token_batch(cfg.vocab_padded, batch, seq, seed=0,
+                              step=step)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def _bits_equal(torch, a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        torch.equal(_bits(torch, a), _bits(torch, b)))
+
+
+def _trees_bit_equal(torch, a, b) -> tuple:
+    """-> (every leaf bit-equal, the largest |a - b| over the leaves)."""
+    from repro_torch import tree
+    la = [t for _, t in tree.leaves_with_path(a)]
+    lb = [t for _, t in tree.leaves_with_path(b)]
+    if len(la) != len(lb):
+        fail(f"trees of {len(la)} and {len(lb)} leaves")
+    same, worst = True, 0.0
+    for x, y in zip(la, lb):
+        if not _bits_equal(torch, x, y):
+            same = False
+            worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return same, worst
+
+
+def phase_train_rest(torch, dev, build):
+    """Phase 19: the trainer side that phases 7, 11 and 12 leave out.
+
+    * QATT of recurrentgemma-2b at full width and depth (:func:
+      `phase_train`: 4 steps of 8 x 2,048 tokens in 8 microbatches, the
+      last one's throttle on both routes, deploy on both routes, 8 served
+      steps at batch 4 on its dense cache clean and correctable-only) and
+      a profile of a one-microbatch step;
+    * QATT of mamba2-2.7b at full width and depth (:func:`ssm_train`: 3
+      steps, a profile), then one f32 step on both routes from the same
+      masters (the first ``F32_LAYERS``), momentum and batch under
+      deterministic algorithms; and the f32 gradient of a full-width
+      2-layer mamba2 over 1 x 2,048 tokens with its blocks remat'ed
+      against the same without remat, where autograd's version check
+      would catch a write into a saved tensor (the SSD fault);
+    * crash and resume (:func:`ckpt_crash_resume`) and the protected
+      checkpoint of ``launch.train.train`` (:func:`ckpt_protected`) on
+      full-width mamba2-2.7b cut to 2 layers;
+    * ADMM against QATT on ResNet18 at full width and 32 x 32
+      (:func:`admm_vs_qatt`).
+
+    Writes ``chip_smoke_train19.json``. -> the launch counts of the
+    path."""
+    from repro_torch.configs import get
+
+    report = {}
+    build.reset_counts()
+    t0 = time.time()
+    rg = get("recurrentgemma-2b")
+    _, params = phase_train(torch, dev, build, rg, steps=4, kv_policy=None,
+                            fname="chip_smoke_train_hybrid.json")
+    report["recurrentgemma-2b"] = json.loads(
+        (OUT_DIR / "chip_smoke_train_hybrid.json").read_text())
+    report["recurrentgemma-2b"]["profile"] = phase_train_profile(
+        torch, dev, rg.with_(microbatch=1), params, batch=1,
+        fname="chip_smoke_train_hybrid_profile.txt")
+    del params
+    torch.cuda.empty_cache()
+    report["recurrentgemma-2b"]["seconds"] = time.time() - t0
+    t0 = time.time()
+    report["mamba2-2.7b"] = ssm_train(torch, dev, get("mamba2-2.7b"))
+    report["mamba2-2.7b"]["seconds"] = time.time() - t0
+    small = get("mamba2-2.7b").with_(n_layers=CKPT_LAYERS)
+    t0 = time.time()
+    report["remat_guard"] = ssm_remat_guard(torch, dev, small)
+    report["crash_resume"] = ckpt_crash_resume(torch, dev, small)
+    report["protected_checkpoint"] = ckpt_protected(torch, dev, small)
+    report["checkpoint_seconds"] = time.time() - t0
+    t0 = time.time()
+    report["admm_vs_qatt"] = admm_vs_qatt(torch, dev)
+    report["admm_vs_qatt"]["seconds"] = time.time() - t0
+    counts = dict(build.COUNTS)
+    log(f"launch counts over the rest-of-training path: {counts}")
+    with open(OUT_DIR / "chip_smoke_train19.json", "w") as fh:
+        json.dump(report, fh, indent=1, default=str)
+    return counts
+
+
+def ssm_train(torch, dev, cfg, *, steps=3, batch=8, seq=2048,
+              lr=1e-4) -> dict:
+    """QATT of ``cfg`` through ``launch.train.train`` on the kernel route
+    (ms/step, peak memory), a profile of one more step over one 1 x
+    ``seq`` microbatch, then one f32 step (f32 weights and activations) of
+    the trained masters' first ``F32_LAYERS`` layers on both routes from
+    the same masters, momentum and batch under deterministic algorithms:
+    masters and momentum must be bit-equal (the throttle is the only
+    route-dependent part, and deterministic algorithms leave no
+    atomic-order noise)."""
+    from repro_torch import tree
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    from repro_torch.training import train as train_mod
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = train(cfg, steps=steps, batch=batch, seq=seq, lr=lr, seed=0,
+                chunk=2048, backend="cuda", device=dev, log=log)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses, step_ms = out["losses"], out["step_ms"]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{cfg.name} QATT losses not finite: {losses}")
+    med = statistics.median(step_ms[1:])
+    log(f"QATT {cfg.name} x {cfg.n_layers} layers, batch {batch} x {seq}: "
+        f"losses {losses}; ms/step {[round(x, 2) for x in step_ms]}; median "
+        f"of steps 2..{steps} {med:.2f} ms/step, "
+        f"{batch * seq / med * 1e3:.1f} tokens/s; peak device memory "
+        f"{peak_gb:.2f} GB")
+    params, opt = out["params"], out["opt_state"]
+    del out
+    profile = phase_train_profile(torch, dev, cfg.with_(microbatch=1), params,
+                                  batch=1,
+                                  fname="chip_smoke_train_ssm_profile.txt")
+    cut = cfg.with_(n_layers=min(F32_LAYERS, cfg.n_layers))
+
+    def first_layers(path, t):   # the stacked leaves of params and opt
+        return (t[:cut.n_layers] if "layers" in path else t).clone()
+    state = [(tree.map_with_path(first_layers, params),
+              tree.map_with_path(first_layers, opt)) for _ in range(2)]
+    del params, opt
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = _batch(torch, dev, cfg, steps)
+    res, f32_ms = {}, {}
+    for route, (p, o) in zip(("cuda", "torch"), state):
+        step = train_mod.make_train_step(
+            cut, lr=lr, chunk=2048, bf16_weights=False, backend=route,
+            loss_fn=lambda p, b: lm.loss_fn(cut, p, b, wt=train_mod.qat_wt,
+                                            dtype=torch.float32, chunk=2048))
+        torch.cuda.synchronize()
+        with deterministic(torch):
+            f32_ms[route], res[route] = event_ms(torch,
+                                                 lambda: step(p, o, b))
+    f32_peak = torch.cuda.max_memory_allocated() / 1e9
+    (kp, ko, kl), (pp, po, pl) = res["cuda"], res["torch"]
+    same_w, dw = _trees_bit_equal(torch, kp, pp)
+    same_m, dm = _trees_bit_equal(torch, ko.momentum, po.momentum)
+    if not (same_w and same_m and float(kl) == float(pl)):
+        fail(f"{cfg.name} f32 step: the kernel and plain routes differ: "
+             f"masters by {dw}, momentum by {dm}, loss {float(kl)!r} vs "
+             f"{float(pl)!r}")
+    if not math.isfinite(float(kl)):
+        fail(f"{cfg.name} f32 step: loss {float(kl)}")
+    log(f"{cfg.name} x {cut.n_layers} (the trained masters' first layers) f32 "
+        f"step from the same masters on both routes (deterministic "
+        f"algorithms): masters and momentum bit-equal, loss {float(kl):.6f}; "
+        f"kernel route {f32_ms['cuda']:.1f} ms, plain route "
+        f"{f32_ms['torch']:.1f} ms; peak {f32_peak:.2f} GB")
+    del state, res, kp, ko, pp, po
+    torch.cuda.empty_cache()
+    return {"config": f"{cfg.name} n_layers={cfg.n_layers}", "batch": batch,
+            "seq": seq, "losses": losses, "step_ms": step_ms,
+            "median_ms": med, "tokens_per_s": batch * seq / med * 1e3,
+            "peak_gb": peak_gb, "profile": profile, "f32_layers": cut.n_layers,
+            "f32_step_ms": f32_ms, "f32_loss": float(kl),
+            "f32_peak_gb": f32_peak}
+
+
+def ssm_remat_guard(torch, dev, cfg, *, seq=2048) -> dict:
+    """The f32 QAT loss's gradient over one 1 x ``seq`` microbatch of
+    ``cfg`` with every block remat'ed (``torch.utils.checkpoint``: the
+    training path) and without (autograd keeps every saved tensor and its
+    version check raises on a write into one): bit-equal leaf for leaf
+    under deterministic algorithms."""
+    from repro_torch import tree
+    from repro_torch.models import lm
+    from repro_torch.training import train as train_mod
+
+    params = lm.init_params(cfg, 1, device=dev)
+    b = {k: v[:1] for k, v in _batch(torch, dev, cfg, 0, seq=seq).items()}
+    grads = {}
+    for remat in (True, False):
+        c = cfg.with_(remat=remat)
+        ws = tree.map_with_path(lambda _, t: t.detach().requires_grad_(),
+                                params)
+        with deterministic(torch):
+            lm.loss_fn(c, ws, b, wt=train_mod.qat_wt, dtype=torch.float32,
+                       chunk=2048).backward()
+        grads[remat] = tree.map_with_path(lambda _, t: t.grad, ws)
+    same, worst = _trees_bit_equal(torch, grads[True], grads[False])
+    if not same:
+        fail(f"{cfg.name} x {cfg.n_layers}: the f32 gradient with remat "
+             f"differs from the one without by {worst}")
+    a_log = grads[True]["layers"]["mixer"]["A_log"]
+    log(f"{cfg.name} x {cfg.n_layers} f32 gradient: remat'ed blocks "
+        f"bit-equal to blocks without remat, every leaf (A_log's gradient "
+        f"max {float(a_log.abs().max()):.4e})")
+    return {"layers": cfg.n_layers, "seq": seq, "bit_equal": True,
+            "a_log_grad_max": float(a_log.abs().max())}
+
+
+def _ckpt_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def ckpt_crash_resume(torch, dev, cfg, *, lr=1e-4) -> dict:
+    """Train ``CKPT_STEPS`` steps with an unprotected ``AsyncCheckpointer``
+    every ``CKPT_EVERY``, "crash" after ``CKPT_CRASH`` steps (the saves
+    started by then finish, the process state is dropped), resume from
+    ``checkpoint.latest_step`` into fresh params and run to the end: the
+    final masters and momentum must equal an uninterrupted run's bit for
+    bit (both under deterministic algorithms)."""
+    import shutil
+
+    from repro_torch.models import lm
+    from repro_torch.training import checkpoint, optim
+    from repro_torch.training import train as train_mod
+
+    ck_dir = ROOT / "build" / "ckpt_resume"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    step = train_mod.make_train_step(cfg, lr=lr, chunk=2048, backend="cuda")
+
+    def fresh():
+        params = lm.init_params(cfg, 0, device=dev)
+        return params, optim.sgd_init(params)
+
+    def run(params, opt, start, end, ck=None, stop=None):
+        for s in range(start, end):
+            params, opt, _ = step(params, opt, _batch(torch, dev, cfg, s))
+            if ck is not None and (s + 1) % CKPT_EVERY == 0:
+                ck.save((params, opt), s + 1)
+            if stop is not None and s + 1 == stop:
+                break
+        return params, opt
+
+    with deterministic(torch):
+        t0 = time.time()
+        full = run(*fresh(), 0, CKPT_STEPS)
+        torch.cuda.synchronize()
+        full_s = time.time() - t0
+        ck = checkpoint.AsyncCheckpointer(str(ck_dir), device=dev)
+        t0 = time.time()
+        crashed = run(*fresh(), 0, CKPT_STEPS, ck=ck, stop=CKPT_CRASH)
+        ck.wait()
+        del crashed                                   # the crash
+        s0 = checkpoint.latest_step(str(ck_dir))
+        if s0 != CKPT_CRASH // CKPT_EVERY * CKPT_EVERY:
+            fail(f"crash after step {CKPT_CRASH}: latest checkpoint {s0}")
+        t1 = time.time()
+        (params, opt), got = checkpoint.restore(str(ck_dir), fresh(),
+                                                device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.time() - t1
+        resumed = run(params, opt, s0, CKPT_STEPS, ck=ck)
+        ck.wait()
+        torch.cuda.synchronize()
+        resumed_s = time.time() - t0
+    same_w, dw = _trees_bit_equal(torch, resumed[0], full[0])
+    same_m, dm = _trees_bit_equal(torch, resumed[1].momentum,
+                                  full[1].momentum)
+    if not (same_w and same_m):
+        fail(f"resume from step {s0}: masters differ from the uninterrupted "
+             f"run by {dw}, momentum by {dm}")
+    nbytes = _ckpt_bytes(ck_dir / f"step_{CKPT_STEPS:08d}")
+    log(f"crash after step {CKPT_CRASH}, resumed from step {s0} "
+        f"({CKPT_STEPS} steps of {cfg.name} x {cfg.n_layers} layers, "
+        f"unprotected async checkpoints every {CKPT_EVERY}): final masters "
+        f"and momentum bit-equal to the uninterrupted run; restore "
+        f"{restore_s:.2f}s; uninterrupted {full_s:.2f}s, crashed + resumed "
+        f"{resumed_s:.2f}s; {nbytes / 1e9:.3f} GB a checkpoint")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    return {"resumed_from": s0, "bit_equal": True, "restore_s": restore_s,
+            "uninterrupted_s": full_s, "crashed_resumed_s": resumed_s,
+            "bytes": nbytes}
+
+
+def ckpt_protected(torch, dev, cfg, *, steps=3, lr=1e-4) -> dict:
+    """``launch.train.train(cfg, ckpt=..., ckpt_every=CKPT_EVERY)`` as the
+    CLI runs it (protected, in-place ECC): the restore of the last
+    checkpoint must equal, for every protected leaf (every weight and its
+    momentum), f32(scale) x the throttled int8 of the final state, and
+    every other leaf exactly; flips of one bit in each of ``CKPT_FLIPS``
+    blocks of every stored image must restore to the same values. Then
+    the seconds to save (synchronously) and restore, and the bytes on
+    disk, protected against unprotected."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.core import quant, wot
+    from repro_torch.launch.train import train
+    from repro_torch.training import checkpoint
+
+    ck_dir = ROOT / "build" / "ckpt_protected"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    out = train(cfg, steps=steps, batch=8, seq=2048, lr=lr, seed=0,
+                chunk=2048, backend="cuda", device=dev, ckpt=str(ck_dir),
+                ckpt_every=CKPT_EVERY, log=log)
+    state = (out["params"], out["opt_state"])
+    del out
+    if checkpoint.latest_step(str(ck_dir)) != steps:
+        fail(f"protected checkpoint: latest step "
+             f"{checkpoint.latest_step(str(ck_dir))}, not {steps}")
+    clean, _ = checkpoint.restore(str(ck_dir), state, device=dev)
+    n_prot = 0
+    for (path, w), (_, r) in zip(tree.leaves_with_path(state),
+                                 tree.leaves_with_path(clean)):
+        if not wot.is_protected_weight(path, w):
+            if not _bits_equal(torch, r, w):
+                fail(f"unprotected leaf {tree.path_str(path)} restored "
+                     f"other values")
+            continue
+        n_prot += 1
+        scale = torch.tensor(np.float32(float(w.abs().max()) / quant.QMAX),
+                             device=dev)
+        q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+        q = wot.throttle_q(q.reshape(-1)).reshape(w.shape)
+        if not _bits_equal(torch, r, q.to(torch.float32) * scale):
+            fail(f"protected leaf {tree.path_str(path)}: restore != scale x "
+                 f"the throttled int8 of the saved state")
+    d = ck_dir / f"step_{steps:08d}"
+    with np.load(d / "arrays.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads((d / "meta.json").read_text())
+    rng = np.random.default_rng(19)
+    for i in range(meta["n_leaves"]):
+        if meta[f"leaf_{i}"]["protected"]:
+            img = arrays[f"leaf_{i}"].reshape(-1, 8)
+            n = min(CKPT_FLIPS, img.shape[0])
+            blk = rng.choice(img.shape[0], n, replace=False)
+            img[blk, rng.integers(0, 8, n)] ^= (
+                np.uint8(1) << rng.integers(0, 8, n).astype(np.uint8))
+    np.savez(d / "arrays.npz", **arrays)
+    del arrays
+    flipped, _ = checkpoint.restore(str(ck_dir), state, device=dev)
+    same, worst = _trees_bit_equal(torch, flipped, clean)
+    if not same:
+        fail(f"protected checkpoint with {CKPT_FLIPS} single flips per "
+             f"image restored other values (max diff {worst})")
+    del flipped, clean
+    timing = {}
+    for prot in (False, True):
+        p = ck_dir / ("prot" if prot else "plain")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        checkpoint.save(str(p), state, step=1, protected=prot, device=dev)
+        t1 = time.time()
+        checkpoint.restore(str(p), state, device=dev)
+        torch.cuda.synchronize()
+        timing["protected" if prot else "unprotected"] = {
+            "save_s": t1 - t0, "restore_s": time.time() - t1,
+            "bytes": _ckpt_bytes(p)}
+    pr, un = timing["protected"], timing["unprotected"]
+    log(f"protected checkpoint of {cfg.name} x {cfg.n_layers} layers through "
+        f"launch.train.train (every {CKPT_EVERY} steps): {n_prot} protected "
+        f"leaves (weights and their momenta) restore as scale x the "
+        f"throttled int8, exactly; {CKPT_FLIPS} single flips in each stored "
+        f"image corrected on restore; save {pr['save_s']:.2f}s vs "
+        f"{un['save_s']:.2f}s unprotected, restore {pr['restore_s']:.2f}s vs "
+        f"{un['restore_s']:.2f}s, {pr['bytes'] / 1e9:.3f} GB vs "
+        f"{un['bytes'] / 1e9:.3f} GB on disk")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    del state
+    torch.cuda.empty_cache()
+    return {"protected_leaves": n_prot, "flips_per_image": CKPT_FLIPS,
+            **timing}
+
+
+def admm_vs_qatt(torch, dev) -> dict:
+    """``benchmarks.wot_admm_compare.run`` on ResNet18 at full width and
+    32 x 32 (phase 17's resnet18-32 cell), the kernel route: QATT must
+    leave no large value in a protected position, nor must ADMM's final
+    clamp (``finalize``); ADMM's residual large values before the clamp,
+    and those of its Z (the 4-pass projection of W + U), are reported.
+    Then the projection's 4 and 8 passes (the Z-step and ``finalize``)
+    over ResNet18's leaves on both routes: bit-equal."""
+    from repro_torch import tree
+    from repro_torch.benchmarks import wot_admm_compare
+    from repro_torch.models import cnn
+    from repro_torch.training import admm
+
+    rec = {}
+    acc0, qatt_acc, admm_acc, admm_large = wot_admm_compare.run(
+        "resnet18", steps=ADMM_STEPS, device=dev, scale=1.0, img=CNN_LEARN_IMG,
+        pre_steps=ADMM_PRE_STEPS, backend="cuda", record=rec)
+    print(f"admm_vs_qatt,{(rec['qatt_s'] + rec['admm_s']) * 1e6:.0f},"
+          f"qatt={qatt_acc:.3f}_admm={admm_acc:.3f}"
+          f"_admm_residual_large={admm_large}", flush=True)
+    if rec["qatt_large"] != 0 or rec["admm_final_large"] != 0:
+        fail(f"WOT constraint: QATT leaves {rec['qatt_large']} large values, "
+             f"ADMM's finalize {rec['admm_final_large']}")
+    log(f"ADMM vs QATT, resnet18 full width at {CNN_LEARN_IMG} x "
+        f"{CNN_LEARN_IMG}: pretrained int8 accuracy {acc0:.3f} "
+        f"({rec['pretrain_large']} large values); QATT {qatt_acc:.3f} (0 "
+        f"large, {rec['qatt_s']:.2f}s); ADMM {admm_acc:.3f} after its clamp, "
+        f"{admm_large} large values before it, Z's per step "
+        f"{rec['admm_z_large']} ({rec['admm_s']:.2f}s)")
+    init, _ = cnn.CNNS["resnet18"]
+    w = init(3, n_classes=4, scale=1.0, img_size=CNN_LEARN_IMG, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    wu = tree.map_with_path(lambda _, t: t + t.abs().max() * torch.randn(
+        t.shape, generator=gen, device=dev) * 0.3, w)
+    proj = {}
+    for iters in (4, 8):
+        out = {}
+        for route in ("cuda", "torch"):
+            torch.cuda.synchronize()
+            ms, out[route] = event_ms(torch, lambda: admm._project(
+                wu, iters, backend=route))
+            proj[f"{iters}_{route}_ms"] = ms
+        same, worst = _trees_bit_equal(torch, out["cuda"], out["torch"])
+        if not same:
+            fail(f"the {iters}-pass projection differs between the routes "
+                 f"by {worst}")
+    log(f"ADMM projection over resnet18's leaves bit-equal on both routes: "
+        f"4 passes {proj['4_cuda_ms']:.2f} ms (plain {proj['4_torch_ms']:.2f}),"
+        f" 8 passes {proj['8_cuda_ms']:.2f} ms (plain "
+        f"{proj['8_torch_ms']:.2f})")
+    return {"pretrain_acc": acc0, "qatt_acc": qatt_acc, "admm_acc": admm_acc,
+            "admm_residual_large": admm_large, **rec, "projection": proj}
+
+
+
 if __name__ == "__main__":
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    # before CUDA starts: cuBLAS's deterministic workspace, for phase 19's
+    # runs under torch.use_deterministic_algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     main()

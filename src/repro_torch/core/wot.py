@@ -79,7 +79,8 @@ def is_protected_weight(path, leaf) -> bool:
     if not (getattr(leaf, "ndim", 0) >= 2 and
             getattr(dtype, "is_floating_point", False)):
         return False
-    names = [str(p) for p in path]
+    # a NamedTuple field reads as "", as the reference's GetAttrKey does
+    names = ["" if isinstance(p, tree.Field) else str(p) for p in path]
     if not names:
         return True
     last = names[-1]

@@ -610,7 +610,10 @@ def _ssd_chunked(x, dt, A, B, C, chunk):
     decay = torch.exp(seg.masked_fill_(~causal, -torch.inf)).to(dtype)
     del seg
     cb = (Cc @ Bc.transpose(-1, -2)).to(dtype)             # (b,c,q,s)
-    m = decay.mul_(cb[..., None])                          # (b,c,q,s,h)
+    # out of place: in f32 ``decay`` is exp's own output, which exp's
+    # backward reads
+    m = decay * cb[..., None]                              # (b,c,q,s,h)
+    del decay
     xdt = xc * dtx[..., None]                              # (b,c,s,h,p)
     y = m.permute(0, 1, 4, 2, 3) @ xdt.permute(0, 1, 3, 2, 4)  # (b,c,h,q,p)
     del m

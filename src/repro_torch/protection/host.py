@@ -37,8 +37,10 @@ class Stored:
 
 
 class HostScheme:
-    """NumPy facade over a ``Scheme`` (one per registry id); the codec runs
-    on the plain route, on the CPU."""
+    """NumPy facade over a ``Scheme`` (one per registry id). The codec runs
+    on the plain route on the CPU; ``encode`` and ``decode`` take
+    ``device=`` a CUDA device to run it there on the kernel route
+    (byte-equal), the bytes coming back to the host."""
 
     def __init__(self, scheme):
         self._scheme: Scheme = get_scheme(scheme)
@@ -55,19 +57,24 @@ class HostScheme:
     def needs_ecc_hw(self) -> bool:
         return self._scheme.needs_ecc_hw
 
-    def encode(self, q_flat: np.ndarray) -> Stored:
+    def encode(self, q_flat: np.ndarray, *, device=None) -> Stored:
         q = np.asarray(q_flat, dtype=np.int8).reshape(-1)
         pad = (-q.size) % BLOCK
         padded = np.concatenate([q, np.zeros(pad, np.int8)]) if pad else q
-        enc, checks = self._scheme.encode(torch.from_numpy(padded.copy()))
-        return Stored(data=enc.numpy().copy(),
-                      checks=None if checks is None else checks.numpy(),
+        dev, be = _route(device)
+        enc, checks = self._scheme.encode(
+            torch.from_numpy(padded.copy()).to(dev), be)
+        return Stored(data=enc.cpu().numpy().copy(),
+                      checks=None if checks is None else checks.cpu().numpy(),
                       n_weights=q.size)
 
-    def decode(self, s: Stored) -> np.ndarray:
-        checks = None if s.checks is None else torch.from_numpy(s.checks)
-        dec = self._scheme.decode(torch.from_numpy(s.data), checks)
-        return dec.numpy().astype(np.int8)[: s.n_weights].copy()
+    def decode(self, s: Stored, *, device=None) -> np.ndarray:
+        dev, be = _route(device)
+        checks = None if s.checks is None else \
+            torch.from_numpy(s.checks).to(dev)
+        dec = self._scheme.decode(torch.from_numpy(s.data).to(dev), checks,
+                                  be)
+        return dec.cpu().numpy().astype(np.int8)[: s.n_weights].copy()
 
     def inject(self, s: Stored, rate: float, seed: int) -> Stored:
         """Flip bits across the whole stored image (data + check bytes)."""
@@ -81,6 +88,13 @@ class HostScheme:
 
     def space_overhead(self, s: Stored) -> float:
         return (s.total_bytes - s.n_weights) / s.n_weights
+
+
+def _route(device) -> tuple:
+    """(device, backend) of a codec call: the CPU's plain route by
+    default, the kernels on a CUDA device."""
+    dev = torch.device("cpu" if device is None else device)
+    return dev, ("cuda" if dev.type == "cuda" else "torch")
 
 
 def get_host_scheme(name) -> HostScheme:

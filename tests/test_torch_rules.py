@@ -239,3 +239,27 @@ def test_campaign_entry_points_default_to_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert campaign.fidelity_campaign(params, device="cpu", **kw).grid
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The checkpoint save, restore and async checkpointer, the
+    checkpointed train CLI and the ADMM-vs-QATT benchmark default to the
+    card: without a GPU each raises unless it is given ``device="cpu"``."""
+    from repro_torch.benchmarks import wot_admm_compare
+    from repro_torch.training import checkpoint
+    t = {"w": torch.ones(4, 8)}
+    checkpoint.save(str(tmp_path), t, step=1, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: checkpoint.save(str(tmp_path), t, step=2),
+                 lambda: checkpoint.save(str(tmp_path), t, step=2,
+                                         protected=True),
+                 lambda: checkpoint.AsyncCheckpointer(str(tmp_path)),
+                 lambda: checkpoint.restore(str(tmp_path), t),
+                 lambda: launch_train.main(["--steps", "1", "--ckpt",
+                                            str(tmp_path)]),
+                 lambda: wot_admm_compare.run(steps=1, pre_steps=1),
+                 lambda: wot_admm_compare.main(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    got, step = checkpoint.restore(str(tmp_path), t, device="cpu")
+    assert step == 1 and torch.equal(got["w"], t["w"])

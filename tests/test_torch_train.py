@@ -203,12 +203,15 @@ def test_token_batch_equals_reference(step, shard):
         np.testing.assert_array_equal(a[k], b[k])
 
 
-def test_train_cli_runs_on_cpu(capsys):
+def test_train_cli_runs_on_cpu(capsys, tmp_path):
     out = launch_train.main(["--device", "cpu", "--steps", "3"])
     assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
     assert "step    2" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
-        launch_train.main(["--device", "cpu", "--ckpt", "x"])
+    # --ckpt checkpoints at the end (its resume: test_torch_checkpoint.py)
+    from repro_torch.training import checkpoint
+    launch_train.main(["--device", "cpu", "--steps", "1", "--ckpt",
+                       str(tmp_path)])
+    assert checkpoint.latest_step(str(tmp_path)) == 1
 
 
 def test_train_deploy_serve_slice():
