@@ -46,7 +46,8 @@ d_model 4096, vocab 102400) at batch 4:
   model;
 * burst serving through the request front-end
   (``repro_torch.launch.serve.burst``: continuous batching over the paged
-  pool on 8 slots, two waves of twelve requests): clean twice (equal
+  pool on 8 slots, two waves of twelve requests; full-width deepseek-7b
+  cut to 15 layers): clean twice (equal
   deterministic telemetry), ``parity-zero-fused`` and
   ``parity-zero-chunked`` with live KV flips (per-slot flags attributed
   exactly, no DUE), ``in-place-chunked`` with prefix sharing and
@@ -100,14 +101,14 @@ d_model 4096, vocab 102400) at batch 4:
   state of 128, an untied 50,304-word head) on its state cache (each
   layer's recurrent state and conv history, no KV cache): the decode
   triple of the first bullet at batch 4 (exactly 65 ``ecc_decode`` and
-  129 ``ecc_qmatmul`` launches a clean step); 16 steps from a seeded
+  129 ``ecc_qmatmul`` launches a clean step); 8 steps from a seeded
   state cache, kernel route against plain route in lockstep and both
   against an f32 plain decode; the cache-less decode-at-use forward over
   2 x 4,096 tokens (the SSD chunked scan over 32 chunks of 128) on both
   routes against an f32 forward, and with correctable flips (bit-equal,
   every flipped block counted once in its row); the chunked scan against
-  the recurrence in f32 on the kernel route (the forward over 2 x 256
-  tokens against 256 decode steps); and a profile of 4 decode steps split
+  the recurrence in f32 on the kernel route at 16 layers (the forward
+  over 2 x 256 tokens against 256 decode steps); and a profile of 4 decode steps split
   into the projections, the embedding's and the ``conv_w`` decodes, the
   embedding's dequantization and the Mamba2 glue;
 * phase 15: deepseek-v2-236b (the moe family: MLA over a compressed
@@ -151,11 +152,11 @@ d_model 4096, vocab 102400) at batch 4:
   encoded tree, every cell held to its recomputed flips, then a faulted
   serve over the same tree;
 * phase 19: the rest of training. QATT of full-width, full-depth
-  recurrentgemma-2b (4 steps of 8 x 2,048 tokens, the last throttle and
+  recurrentgemma-2b (2 steps of 8 x 2,048 tokens, the last throttle and
   the deploy bit-equal across routes, 8 served steps clean and
-  correctable-only on its dense cache) and mamba2-2.7b (3 steps, then one
-  f32 step on both routes from the same state: bit-equal under
-  deterministic algorithms), each with a profile of a step; the f32
+  correctable-only on its dense cache) and mamba2-2.7b cut to 16 layers
+  (2 steps, then one f32 step on both routes from the same state:
+  bit-equal under deterministic algorithms), each with a profile of a step; the f32
   gradient of a 2-layer full-width mamba2 with remat'ed blocks bit-equal
   to one without remat (where a write into a saved tensor raises); on
   that 2-layer model, a crash after step 3 of 6 with async checkpoints
@@ -165,7 +166,30 @@ d_model 4096, vocab 102400) at batch 4:
   corrected; save and restore seconds and bytes against an unprotected
   one); ADMM against QATT on full-width ResNet18 at 32 x 32 (QATT and
   ADMM's final clamp meet the WOT constraint, ADMM's residual large
-  values reported, the projection bit-equal across routes).
+  values reported, the projection bit-equal across routes);
+* phase 20: mixed schemes and self-healing on full-width, full-depth
+  deepseek-7b: the ``attn-inplace-mlp-secded`` plan served on both routes
+  in lockstep (flags equal) beside all-in-place on the kernel route, a
+  profile of each; then, from all-in-place, a burst through the front-end
+  with a scrub pass every step and a MILR repair kit (its build time and
+  host peak logged), single flips injected into the in-place weight
+  leaves and into live pages no slot writes, one DUE block into
+  ``layers/attn/wo``, a DUE pattern into a free page, and a live
+  migration to ``attn-inplace-mlp-secded`` from step 30 (the middle): the
+  DUE leaf repaired, no page leaked, no residual DUE, the free page zero
+  again, and the healed
+  tree decoding to the int8 of a clean encode under the final plan,
+  whose logits it serves bit for bit; scrub ms per leaf and per page and
+  a profile of each scrub pass, repair seconds, steps to migrate.
+
+Phase 4 also runs the whole-tree decode ablations over its resident
+tree (decode at use, ``decode_at_use=False``, ``decode_per_step=False``;
+ms/step and peak memory each, the whole-tree modes bit-equal, decode at
+use within ABLATION_*_ATOL of them), and phases 13-15 serve their
+full-width models guarded (static int8 with clamps and ABFT, flips
+injected) on both routes in lockstep: flags, ABFT and clamp rows equal
+(``guarded_routes``). Both are counted apart from their phase's path,
+each with its own row in the per-path launch check.
 
 Phase 2 also holds the parity-zero decode and the per-slot flags of both
 paged-attention kernels to their plain versions at the burst's shapes;
@@ -300,6 +324,9 @@ ROUTE_F32_ATOL = 0.05
 TRAIN_LAYERS = 8
 # The burst phase (9): eight slots of 16-token pages, 128 tokens each.
 BURST_SLOTS, BURST_MAX_LEN = 8, 128
+# phase 9's bursts: full width, cut to half depth for the card run's time
+# limit (each burst step is host-bound, its time ~ proportional to depth)
+BURST_LAYERS = 15
 # Kernels that no main path launches, each with its reason; phase 2 still
 # holds each against its plain version.
 MAIN_PATH_EXEMPT = {
@@ -352,7 +379,8 @@ def main():
     phase_routes(torch, dev)
     log(f"phase 3 (routes) took {time.time() - t0:.0f}s")
     t0 = time.time()
-    decode_counts = phase_full(torch, dev, build, get_config("deepseek-7b"))
+    decode_counts, ablation_counts = phase_full(
+        torch, dev, build, get_config("deepseek-7b"), ablation=True)
     log(f"phase 4 (decode path) took {time.time() - t0:.0f}s")
     t0 = time.time()
     long_counts = phase_long(torch, dev, build, get_config("deepseek-7b"))
@@ -388,16 +416,16 @@ def main():
     log(f"phase 12 (whisper-base: decode, cross caches, forward, QATT) took "
         f"{time.time() - t0:.0f}s")
     t0 = time.time()
-    hybrid_counts, windowed = phase_hybrid(torch, dev, build)
+    hybrid_counts, hybrid_guarded, windowed = phase_hybrid(torch, dev, build)
     entries["flash_attention"]["window"]["launches_per_forward"] = windowed
     log(f"phase 13 (recurrentgemma-2b: decode, ring wrap, forward) took "
         f"{time.time() - t0:.0f}s")
     t0 = time.time()
-    ssm_counts = phase_ssm(torch, dev, build)
+    ssm_counts, ssm_guarded = phase_ssm(torch, dev, build)
     log(f"phase 14 (mamba2-2.7b: decode, state routes, forward, scan vs "
         f"recurrence) took {time.time() - t0:.0f}s")
     t0 = time.time()
-    moe_v2_counts = phase_moe_v2(torch, dev, build)
+    moe_v2_counts, moe_v2_guarded = phase_moe_v2(torch, dev, build)
     log(f"phase 15 (deepseek-v2-236b at {MOE_V2_LAYERS} layers: decode, "
         f"profile; at {MOE_ROUTE_LAYERS}: routes, forward) took "
         f"{time.time() - t0:.0f}s")
@@ -420,12 +448,17 @@ def main():
     log(f"phase 19 (the rest of training: QATT of recurrentgemma-2b and "
         f"mamba2-2.7b, crash and resume, the protected checkpoint, ADMM vs "
         f"QATT) took {time.time() - t0:.0f}s")
-    counts = {k: decode_counts[k] + long_counts[k] + train_counts[k]
-              + guarded_counts[k] + burst_counts[k] + phi3_counts[k]
-              + vlm_counts[k] + encdec_counts[k] + hybrid_counts[k]
-              + ssm_counts[k] + moe_v2_counts[k] + moe_v3_counts[k]
-              + cnn_counts[k] + smoke_counts[k] + rest_counts[k]
-              for k in build.COUNTS}
+    t0 = time.time()
+    heal_counts = phase_heal(torch, dev, build)
+    log(f"phase 20 (mixed schemes and self-healing on full-width, "
+        f"full-depth deepseek-7b: scrub, MILR repair, live migration) took "
+        f"{time.time() - t0:.0f}s")
+    paths = (decode_counts, ablation_counts, long_counts, train_counts,
+             guarded_counts, burst_counts, phi3_counts, vlm_counts,
+             encdec_counts, hybrid_counts, hybrid_guarded, ssm_counts,
+             ssm_guarded, moe_v2_counts, moe_v2_guarded, moe_v3_counts,
+             cnn_counts, smoke_counts, rest_counts, heal_counts)
+    counts = {k: sum(c[k] for c in paths) for k in build.COUNTS}
     if sorted(entries) != sorted(counts):
         fail(f"kernels checked {sorted(entries)} != kernels counted "
              f"{sorted(counts)}")
@@ -433,6 +466,9 @@ def main():
             ("decode", decode_counts, ("ecc_decode", "ecc_encode",
                                        "ecc_qmatmul", "fused_page_attention",
                                        "kv_write")),
+            ("whole-tree decode ablations", ablation_counts,
+             ("ecc_decode", "ecc_qmatmul", "fused_page_attention",
+              "kv_write")),
             ("long-context", long_counts,
              ("ecc_decode", "ecc_encode", "ecc_qmatmul", "flash_attention",
               "chunked_page_attention", "kv_write")),
@@ -459,11 +495,17 @@ def main():
             ("recurrentgemma-2b", hybrid_counts,
              ("ecc_decode", "ecc_encode", "ecc_qmatmul",
               "flash_attention")),
+            ("guarded recurrentgemma-2b", hybrid_guarded,
+             ("ecc_decode", "ecc_qmatmul", "flash_attention")),
             ("ssm (mamba2-2.7b)", ssm_counts,
              ("ecc_decode", "ecc_encode", "ecc_qmatmul")),
+            ("guarded mamba2-2.7b", ssm_guarded,
+             ("ecc_decode", "ecc_qmatmul")),
             ("moe (deepseek-v2-236b)", moe_v2_counts,
              ("ecc_decode", "ecc_encode", "ecc_qmatmul", "flash_attention",
               "quantize_throttle")),
+            ("guarded deepseek-v2-236b", moe_v2_guarded,
+             ("ecc_decode", "ecc_qmatmul", "flash_attention")),
             ("moe (deepseek-v3-671b)", moe_v3_counts,
              ("ecc_decode", "ecc_encode", "ecc_qmatmul", "flash_attention",
               "quantize_throttle")),
@@ -473,7 +515,10 @@ def main():
              ("ecc_encode", "ecc_decode")),
             ("the rest of training", rest_counts,
              ("quantize_throttle", "ecc_encode", "ecc_decode",
-              "ecc_qmatmul"))):
+              "ecc_qmatmul")),
+            ("mixed schemes and self-healing", heal_counts,
+             ("ecc_decode", "ecc_encode", "ecc_qmatmul", "kv_write",
+              "fused_page_attention"))):
         missing = [k for k in needed if cnt[k] <= 0]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
@@ -2439,29 +2484,48 @@ def block_hist(torch, positions, keep=None) -> dict:
     return hist
 
 
-def phase_full(torch, dev, build, cfg, fname="chip_smoke_serve.json"):
+def phase_full(torch, dev, build, cfg, fname="chip_smoke_serve.json", *,
+               ablation=False):
     """Three 16-step runs of ``cfg`` at full width and depth: clean;
     faulted at ``rate`` (corrected and DUE counts against the injected
     single- and double-flip blocks); and faulted at ``rate`` with at most
     one flip per code block, which must give the clean run's logits and
     tokens bit for bit. Logs ms/step, tok/s and the clean run's launches
-    per decode step (its deploy's encode launches left out)."""
+    per decode step (its deploy's encode launches left out). -> the launch
+    counts of the three runs; with ``ablation`` also those of the
+    whole-tree decode ablations over the clean run's resident tree
+    (:func:`decode_ablation`), counted apart."""
     from repro_torch.launch.serve import serve
+
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
 
     tokens, batch, rate = 16, 4, 1e-6
     kw = dict(backend="cuda", kv_policy="in-place-fused", batch=batch,
               tokens=tokens, device="cuda", log=log)
     torch.cuda.empty_cache()
     build.reset_counts()
-    clean = serve(cfg, **kw)
+    plan = policy_mod.ProtectionPolicy(backend="cuda").plan(
+        lm.param_shapes(cfg))
+    enc = lm.init_params(cfg, 0, device=dev, leaf_fn=plan.encode_leaf)
+    clean = serve(cfg, weights=enc, **kw)
     per_step = {k: v / tokens for k, v in build.COUNTS.items()
                 if v and k not in DEPLOY_KERNELS}
+    if not ablation:
+        del enc
     torch.cuda.empty_cache()
     faulted = serve(cfg, fault_rate=rate, **kw)
     torch.cuda.empty_cache()
     fixed = serve(cfg, fault_rate=rate, correctable_only=True, **kw)
     counts = dict(build.COUNTS)
     log(f"launch counts over the three runs: {counts}")
+    ablated = ablation_counts = None
+    if ablation:
+        build.reset_counts()
+        ablated = decode_ablation(torch, dev, cfg, enc)
+        ablation_counts = dict(build.COUNTS)
+        del enc
+        log(f"launch counts over the decode ablations: {ablation_counts}")
 
     lg = clean["logits"]
     if lg.shape != (tokens, batch, cfg.vocab_padded) or \
@@ -2512,8 +2576,9 @@ def phase_full(torch, dev, build, cfg, fname="chip_smoke_serve.json"):
         json.dump({"config": cfg.name, "launches_per_step": per_step,
                    **{n: {"tok_per_s": r["tok_per_s"],
                           "step_ms": r["step_ms"], "flags": r["flags"]}
-                      for n, r in runs}}, fh, indent=1)
-    return counts
+                      for n, r in runs},
+                   "decode_ablation": ablated}, fh, indent=1)
+    return (counts, ablation_counts) if ablation else counts
 
 
 # ---------------------------------------------------------------------------
@@ -3251,7 +3316,7 @@ class _step_profiler:
 
 
 def phase_burst(torch, dev, build):
-    """Full-width deepseek-7b (30 layers, bf16) through
+    """Full-width deepseek-7b cut to BURST_LAYERS layers (bf16) through
     ``repro_torch.launch.serve.burst``: two waves of twelve requests on
     BURST_SLOTS slots of BURST_MAX_LEN tokens.
 
@@ -3272,7 +3337,7 @@ def phase_burst(torch, dev, build):
     from repro_torch.protection import policy as policy_mod
     from repro_torch.serving import frontend, telemetry
 
-    cfg = get("deepseek-7b")
+    cfg = get("deepseek-7b").with_(n_layers=BURST_LAYERS)
     waves = frontend.make_waves(seed=0, n_waves=2, wave_size=12,
                                 prompt_len=(8, 48), max_new=(4, 16),
                                 gap_steps=16, vocab=cfg.vocab)
@@ -4133,8 +4198,9 @@ def phase_hybrid(torch, dev, build):
     RG-LRU layers); 16 steps across the ring wrap on both routes in
     lockstep (:func:`hybrid_ring`), the cache-less forward past and at the
     window on both routes (:func:`hybrid_forward`), then a profile of its
-    decode step. -> (the launch counts of the path, flash's launches in
-    one kernel-route forward past the window)."""
+    decode step; guarded steps (:func:`guarded_routes`, counted apart).
+    -> (the launch counts of the path, those of the guarded steps, flash's
+    launches in one kernel-route forward past the window)."""
     from repro_torch.configs import get
     from repro_torch.models import lm
     from repro_torch.protection import policy as policy_mod
@@ -4163,13 +4229,19 @@ def phase_hybrid(torch, dev, build):
         f"{time.time() - t0:.1f}s")
     hybrid_ring(torch, dev, cfg, enc)
     report = hybrid_forward(torch, dev, build, cfg, enc)
+    guarded, guarded_counts = counted_apart(build, guarded_routes, torch,
+                                            dev, cfg, enc)
+    if "tail_abft" not in guarded["rows"]:
+        fail(f"(b) {cfg.name}: the guarded decode has no tail_abft row")
+    with open(OUT_DIR / "chip_smoke_hybrid_guarded.json", "w") as fh:
+        json.dump(guarded, fh, indent=1)
     counts = dict(build.COUNTS)
     log(f"launch counts over the recurrentgemma-2b path: {counts}")
     profile_hybrid_decode(torch, dev, cfg, plan, enc)
     del enc
     torch.cuda.empty_cache()
     windowed = [r for r in report.values() if r["window"]]
-    return counts, windowed[0]["flash_launches"]
+    return counts, guarded_counts, windowed[0]["flash_launches"]
 
 
 def _protected(enc) -> list:
@@ -4507,6 +4579,10 @@ def profile_hybrid_decode(torch, dev, cfg, plan, enc, batch=4):
 SSM_FORWARD = (2, 4096)
 # the chunked scan against the recurrence: 2 x 256 tokens, two chunks
 SSM_AGREE = (2, 256)
+# the card run's time limit: the scan-vs-recurrence check (256 host-bound
+# f32 decode steps) runs on the first SSM_AGREE_LAYERS layers' depth, the
+# route lockstep over SSM_ROUTE_STEPS steps
+SSM_AGREE_LAYERS, SSM_ROUTE_STEPS = 16, 8
 # the seeded state cache of the lockstep routes: state N(0, 0.5^2), conv
 # history N(0, 1)
 SSM_STATE_STD, SSM_CONV_STD = 0.5, 1.0
@@ -4529,19 +4605,21 @@ SSM_AGREE_ATOL = 1e-3
 def phase_ssm(torch, dev, build):
     """mamba2-2.7b (64 layers of one Mamba2 mixer, d_model 2,560, d_inner
     5,120 in 80 heads of 64, a state of 128, an untied 50,304-word head)
-    at full width and depth, no cut, on its state cache (each layer's
-    recurrent state and conv history; no KV cache): the decode triple
-    through ``serve`` (:func:`dense_cache_decode_triple`: every leaf is
-    read by a decode step), whose clean run must launch ``ecc_decode``
-    exactly 1 + 64 times a step (the embedding and each layer's
-    ``conv_w``) and ``ecc_qmatmul`` exactly 2 x 64 + 1 (``w_in``,
-    ``w_out``, the head); 16 steps from a seeded state cache on both
-    routes in lockstep against an f32 plain decode (:func:`ssm_routes`);
-    the cache-less forward over 2 x 4,096 tokens on both routes against an
+    at full width and depth on its state cache (each layer's recurrent
+    state and conv history; no KV cache): the decode triple through
+    ``serve`` (:func:`dense_cache_decode_triple`: every leaf is read by a
+    decode step), whose clean run must launch ``ecc_decode`` exactly 1 +
+    64 times a step (the embedding and each layer's ``conv_w``) and
+    ``ecc_qmatmul`` exactly 2 x 64 + 1 (``w_in``, ``w_out``, the head);
+    SSM_ROUTE_STEPS steps from a seeded state cache on both routes in
+    lockstep against an f32 plain decode (:func:`ssm_routes`); the
+    cache-less forward over 2 x 4,096 tokens on both routes against an
     f32 forward, and with correctable flips (:func:`ssm_forward`); the
-    chunked scan against the recurrence in f32 on the kernel route
-    (:func:`ssm_scan_vs_recurrence`); then a profile of its decode step.
-    -> the launch counts of the path."""
+    chunked scan against the recurrence in f32 on the kernel route, cut
+    to SSM_AGREE_LAYERS layers (:func:`ssm_scan_vs_recurrence`); guarded
+    steps (:func:`guarded_routes`, counted apart); then a profile of its
+    decode step. -> (the launch counts of the path, those of the guarded
+    steps)."""
     from repro_torch.configs import get
     from repro_torch.models import lm
     from repro_torch.protection import policy as policy_mod
@@ -4570,7 +4648,9 @@ def phase_ssm(torch, dev, build):
     report = {"launches_per_step": per_step,
               "routes": ssm_routes(torch, dev, cfg, enc),
               "forward": ssm_forward(torch, dev, cfg, enc),
-              "agree": ssm_scan_vs_recurrence(torch, dev, cfg, enc)}
+              "agree": ssm_scan_vs_recurrence(torch, dev, cfg)}
+    report["guarded"], guarded_counts = counted_apart(
+        build, guarded_routes, torch, dev, cfg, enc)
     counts = dict(build.COUNTS)
     log(f"launch counts over the mamba2-2.7b path: {counts}")
     report["profile"] = profile_ssm_decode(torch, dev, build, cfg, plan, enc)
@@ -4578,11 +4658,11 @@ def phase_ssm(torch, dev, build):
         json.dump({"config": cfg.name, **report}, fh, indent=1)
     del enc
     torch.cuda.empty_cache()
-    return counts
+    return counts, guarded_counts
 
 
-def ssm_routes(torch, dev, cfg, enc, *, tokens=16, batch=4):
-    """16 serve steps from position 0 over a state cache seeded with
+def ssm_routes(torch, dev, cfg, enc, *, tokens=SSM_ROUTE_STEPS, batch=4):
+    """``tokens`` serve steps from position 0 over a state cache seeded with
     random states (std SSM_STATE_STD) and conv histories (std
     SSM_CONV_STD), on the kernel and the plain route in bf16 and on the
     plain route in f32 over the same cache upcast, in lockstep (the kernel
@@ -4744,14 +4824,22 @@ def profile_ssm_forward(torch, prefill, enc, prompt):
     return split
 
 
-def ssm_scan_vs_recurrence(torch, dev, cfg, enc):
-    """The chunked scan against the recurrence at full width, in f32 on
-    the kernel route: the cache-less forward's logits over SSM_AGREE
-    seeded tokens (two chunks, so the scan across chunks runs) against as
-    many decode steps from a zero state over the same tokens, within
+def ssm_scan_vs_recurrence(torch, dev, cfg):
+    """The chunked scan against the recurrence at full width, cut to
+    SSM_AGREE_LAYERS layers (a seeded encode of its own), in f32 on the
+    kernel route: the cache-less forward's logits over SSM_AGREE seeded
+    tokens (two chunks, so the scan across chunks runs) against as many
+    decode steps from a zero state over the same tokens, within
     SSM_AGREE_ATOL (the reference's test_prefill_decode_agree at full
-    size and on the card). -> the readings."""
+    width and on the card). -> the readings."""
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
     from repro_torch.serving import kvcache, protected
+
+    cfg = cfg.with_(n_layers=SSM_AGREE_LAYERS)
+    enc = lm.init_params(cfg, 0, device=dev, leaf_fn=policy_mod.
+                         ProtectionPolicy(backend="cuda").plan(
+                             lm.param_shapes(cfg)).encode_leaf)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(16)
@@ -4771,15 +4859,17 @@ def ssm_scan_vs_recurrence(torch, dev, cfg, enc):
         worst = max(worst, float((lg[:, 0] - full[:, t]).abs().max()))
     torch.cuda.synchronize()
     top = float(full.abs().max())
-    log(f"{cfg.name} chunked scan vs recurrence (f32, kernel route, "
+    log(f"{cfg.name} x {cfg.n_layers} chunked scan vs recurrence (f32, "
+        f"kernel route, "
         f"{batch} x {s} tokens, {s // cfg.ssm_chunk} chunks): forward vs "
         f"{s} decode steps max abs diff {worst:.3g} (|logits| max {top:.3g}, "
         f"limit {SSM_AGREE_ATOL}) in {time.time() - t0:.1f}s")
     if not worst < SSM_AGREE_ATOL:
         fail(f"{cfg.name}: the chunked forward and the decode recurrence "
              f"disagree by {worst}")
-    del full, cache
-    return {"max_abs_diff": worst, "logits_abs_max": top}
+    del full, cache, enc
+    return {"layers": cfg.n_layers, "max_abs_diff": worst,
+            "logits_abs_max": top}
 
 
 def profile_ssm_decode(torch, dev, build, cfg, plan, enc, batch=4):
@@ -4932,8 +5022,10 @@ def phase_moe_v2(torch, dev, build):
     (:func:`profile_moe_decode`); then at MOE_ROUTE_LAYERS layers the three
     routes in lockstep (:func:`moe_routes`), the cache-less forward over
     MOE_FORWARD tokens on the three routes (:func:`moe_forward`) and the
-    f32 forward against f32 decode steps (:func:`moe_forward_vs_decode`).
-    -> the launch counts of the path."""
+    f32 forward against f32 decode steps (:func:`moe_forward_vs_decode`);
+    at MOE_V2_LAYERS, guarded steps (:func:`guarded_routes`, counted
+    apart). -> (the launch counts of the path, those of the guarded
+    steps)."""
     from repro_torch.configs import get
     from repro_torch.models import lm
     from repro_torch.protection import policy as policy_mod
@@ -4948,6 +5040,8 @@ def phase_moe_v2(torch, dev, build):
         lm.param_shapes(cfg))
     enc = _moe_deploy(torch, dev, cfg, plan)
     report["profile"] = profile_moe_decode(torch, dev, build, cfg, plan, enc)
+    report["guarded"], guarded_counts = counted_apart(
+        build, guarded_routes, torch, dev, cfg, enc)
     del enc
     torch.cuda.empty_cache()
     cfg2 = cfg.with_(n_layers=MOE_ROUTE_LAYERS)
@@ -4965,7 +5059,7 @@ def phase_moe_v2(torch, dev, build):
     with open(OUT_DIR / "chip_smoke_moe_v2.json", "w") as fh:
         json.dump({"config": cfg.name, **report}, fh, indent=1)
     torch.cuda.empty_cache()
-    return counts
+    return counts, guarded_counts
 
 
 def phase_moe_v3(torch, dev, build):
@@ -5972,14 +6066,17 @@ def phase_smoke_check(torch, dev, build, cfg, *, tokens=4):
 # ---------------------------------------------------------------------------
 
 
-# mamba2-2.7b's QATT keeps all 64 layers: 2.83 G parameters x 12 B (f32
-# masters, momentum, one gradient set) = 34.0 GB, 40.46 GB at its peak on
-# the card; recurrentgemma-2b keeps its 26 too (2.89 G parameters, 34.7
-# GB; peak 40.04). Time, not memory, cuts the f32 step on both routes to
+# mamba2-2.7b's QATT would fit all 64 layers (2.83 G parameters x 12 B:
+# f32 masters, momentum, one gradient set = 34.0 GB, 40.46 GB at its peak
+# on the card) but takes 12-19 s a step there; the card run's time limit
+# cuts it to SSM_QATT_LAYERS and 2 steps, and recurrentgemma-2b's QATT
+# (all 26 layers: 2.89 G parameters, 34.7 GB; peak 40.04) to 2 steps.
+# Time, not memory, also cuts the f32 step on both routes to
 # the trained masters' first F32_LAYERS layers (f32 without tensor cores
 # is several times a bf16 step), and the step profiles to one 1 x 2,048
 # microbatch (a whole step launches hundreds of thousands of kernels,
 # and the profiler's processing of them takes minutes).
+SSM_QATT_LAYERS = 16
 F32_LAYERS = 8
 CKPT_LAYERS = 2          # the checkpoint cells: 0.34 G parameters
 CKPT_STEPS, CKPT_EVERY, CKPT_CRASH = 6, 2, 3
@@ -6030,12 +6127,12 @@ def phase_train_rest(torch, dev, build):
     """Phase 19: the trainer side that phases 7, 11 and 12 leave out.
 
     * QATT of recurrentgemma-2b at full width and depth (:func:
-      `phase_train`: 4 steps of 8 x 2,048 tokens in 8 microbatches, the
+      `phase_train`: 2 steps of 8 x 2,048 tokens in 8 microbatches, the
       last one's throttle on both routes, deploy on both routes, 8 served
       steps at batch 4 on its dense cache clean and correctable-only) and
       a profile of a one-microbatch step;
-    * QATT of mamba2-2.7b at full width and depth (:func:`ssm_train`: 3
-      steps, a profile), then one f32 step on both routes from the same
+    * QATT of mamba2-2.7b at full width cut to SSM_QATT_LAYERS layers
+      (:func:`ssm_train`: 2 steps, a profile), then one f32 step on both routes from the same
       masters (the first ``F32_LAYERS``), momentum and batch under
       deterministic algorithms; and the f32 gradient of a full-width
       2-layer mamba2 over 1 x 2,048 tokens with its blocks remat'ed
@@ -6055,7 +6152,7 @@ def phase_train_rest(torch, dev, build):
     build.reset_counts()
     t0 = time.time()
     rg = get("recurrentgemma-2b")
-    _, params = phase_train(torch, dev, build, rg, steps=4, kv_policy=None,
+    _, params = phase_train(torch, dev, build, rg, steps=2, kv_policy=None,
                             fname="chip_smoke_train_hybrid.json")
     report["recurrentgemma-2b"] = json.loads(
         (OUT_DIR / "chip_smoke_train_hybrid.json").read_text())
@@ -6066,7 +6163,9 @@ def phase_train_rest(torch, dev, build):
     torch.cuda.empty_cache()
     report["recurrentgemma-2b"]["seconds"] = time.time() - t0
     t0 = time.time()
-    report["mamba2-2.7b"] = ssm_train(torch, dev, get("mamba2-2.7b"))
+    report["mamba2-2.7b"] = ssm_train(
+        torch, dev, get("mamba2-2.7b").with_(n_layers=SSM_QATT_LAYERS),
+        steps=2)
     report["mamba2-2.7b"]["seconds"] = time.time() - t0
     small = get("mamba2-2.7b").with_(n_layers=CKPT_LAYERS)
     t0 = time.time()
@@ -6418,6 +6517,546 @@ def admm_vs_qatt(torch, dev) -> dict:
     return {"pretrain_acc": acc0, "qatt_acc": qatt_acc, "admm_acc": admm_acc,
             "admm_residual_large": admm_large, **rec, "projection": proj}
 
+
+# ---------------------------------------------------------------------------
+# phase 4 (a): the whole-tree decode ablations of full-width deepseek-7b
+# ---------------------------------------------------------------------------
+
+# decode-at-use (ecc_qmatmul, bf16 out) against the whole-tree decode
+# (torch.matmul over the bf16-decoded tree): the two round each projection
+# at different points, so at full depth the logits differ by bf16 ulps;
+# held to the bf16 full-depth route limits of phase 13
+ABLATION_MAX_ATOL, ABLATION_MEAN_ATOL = HYBRID_MAX_ATOL, HYBRID_MEAN_ATOL
+ABLATION_STEPS = 6
+
+
+def decode_ablation(torch, dev, cfg, enc, *, batch=4, steps=ABLATION_STEPS):
+    """The reference's whole-tree decode ablations on the kernel route
+    (``in-place-fused`` KV), over ``enc``, phase 4's resident tree:
+    ``steps`` lockstep steps each (the tokens fed are the decode-at-use
+    run's greedy tokens) of the decode-at-use step, of
+    ``decode_at_use=False`` (the whole tree decoded every step) and of
+    ``decode_per_step=False`` (decoded once outside, its decode timed
+    apart). The two whole-tree modes give bit-equal logits; decode at use
+    is within ABLATION_*_ATOL of them. -> ms/step, the decode-once cost
+    and the peak device memory above the resident tree per mode."""
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
+    from repro_torch.serving import kvcache, protected
+
+    plan = policy_mod.ProtectionPolicy(backend="cuda").plan(
+        lm.param_shapes(cfg))
+    modes = {"decode-at-use": {}, "whole-tree": dict(decode_at_use=False),
+             "decode-once": dict(decode_per_step=False)}
+    fed, logits, report = None, {}, {}
+    for name, kw in modes.items():
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step = protected.make_serve_step(
+            cfg, plan=plan, backend="cuda", kv_policy="in-place-fused",
+            with_flags=False, **kw)
+        t0 = time.time()
+        params = plan.decode_tree(enc) if name == "decode-once" else enc
+        torch.cuda.synchronize()
+        once_s = time.time() - t0
+        cache = kvcache.init_cache(cfg, batch, 64, kv_policy="in-place-fused",
+                                   device=dev)
+        tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+        out, toks, ms = [], [], []
+        for t in range(steps):
+            pos = torch.full((batch,), t, dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            lg, cache = step(params, cache, tok if fed is None else fed[t],
+                             pos)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.time() - t1))
+            tok = lg.argmax(dim=-1)
+            out.append(lg)
+            toks.append(tok)
+        if fed is None:
+            fed = [torch.zeros_like(toks[0])] + toks[:-1]
+        logits[name] = torch.stack(out)
+        del params, cache
+        report[name] = {"step_ms": ms, "median_ms": statistics.median(ms[1:]),
+                        "peak_gb_over_resident":
+                            (torch.cuda.max_memory_allocated() - base) / 1e9}
+        if name == "decode-once":
+            report[name]["decode_once_s"] = once_s
+        log(f"(a) {cfg.name} {name}: {report[name]['median_ms']:.2f} ms/step "
+            f"median of steps 2-{steps}, peak "
+            f"{report[name]['peak_gb_over_resident']:.2f} GB above the "
+            f"resident tree" + (f", decoded once in {once_s:.2f} s"
+                                if name == "decode-once" else ""))
+    if not bool(torch.isfinite(logits["decode-at-use"].float()).all()):
+        fail("(a) decode-at-use logits are not finite")
+    if not torch.equal(_bits(torch, logits["whole-tree"]),
+                       _bits(torch, logits["decode-once"])):
+        fail("(a) the two whole-tree modes serve the same decoded tree, yet "
+             "their logits differ")
+    mx, mean = _max_mean_diff(torch, logits["decode-at-use"],
+                              logits["whole-tree"])
+    report["at_use_vs_whole_tree"] = {"max": mx, "mean": mean}
+    log(f"(a) decode-at-use vs whole-tree logits: max {mx:.4g}, mean "
+        f"{mean:.4g} (limits {ABLATION_MAX_ATOL}, {ABLATION_MEAN_ATOL}); "
+        f"the whole-tree modes bit-equal")
+    if mx > ABLATION_MAX_ATOL or mean > ABLATION_MEAN_ATOL:
+        fail(f"(a) decode-at-use logits {mx:.4g} / {mean:.4g} from the "
+             f"whole-tree decode's")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phases 13-15 (b): guarded steps of the hybrid, ssm and moe families
+# ---------------------------------------------------------------------------
+
+
+def guarded_routes(torch, dev, cfg, enc, *, steps=3, batch=4,
+                   rate=MOE_FAULT_RATE):
+    """Static int8 with clamps and ABFT (``with_act_quant("static", scales,
+    clamp=True).with_abft(True)``, ``act_quant="plan"``) over ``enc`` with
+    single and double flips injected at ``rate``, ``steps`` steps on the
+    kernel and plain routes in lockstep from the scales of a (2, 64)
+    seeded calibration batch on the kernel route: the ECC flags and the
+    ABFT rows (mismatches, clamp hits) equal across routes at every step,
+    no mismatch. -> ms/step per route, the rows of the last step, the
+    largest logit difference."""
+    from repro_torch.models import lm
+    from repro_torch.protection import policy as policy_mod
+    from repro_torch.serving import kvcache, protected
+
+    shapes = lm.param_shapes(cfg)
+    plans = {r: policy_mod.ProtectionPolicy(backend=r).plan(shapes)
+             for r in ("cuda", "torch")}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    cal = torch.randint(0, cfg.vocab, (2, 64), generator=gen, device=dev)
+    t0 = time.time()
+    scales = protected.calibrate_act_scales(cfg, enc, cal,
+                                            plan=plans["cuda"],
+                                            backend="cuda")
+    cal_s = time.time() - t0
+    dirty, _ = _inject(torch, enc, rate, gen)
+    run = {}
+    for r in plans:
+        plan = plans[r].with_act_quant("static", scales,
+                                       clamp=True).with_abft(True)
+        run[r] = [protected.make_serve_step(cfg, plan=plan, backend=r,
+                                            act_quant="plan"),
+                  kvcache.init_cache(cfg, batch, 64, device=dev), []]
+    tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+    diff, rows = 0.0, None
+    for t in range(steps):
+        pos = torch.full((batch,), t, dtype=torch.int32, device=dev)
+        out = {}
+        for r, (step, cache, ms) in run.items():
+            torch.cuda.synchronize()
+            t1 = time.time()
+            lg, run[r][1], fl = step(dirty, cache, tok, pos)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.time() - t1))
+            out[r] = (lg, {k: v.tolist() for k, v in fl.items()})
+        (lk, fk), (lp, fp) = out["cuda"], out["torch"]
+        if fk != fp:
+            fail(f"(b) {cfg.name} guarded step {t}: routes disagree on flags "
+                 f"and ABFT rows: cuda {fk} vs torch {fp}")
+        if not bool(torch.isfinite(lk.float()).all()):
+            fail(f"(b) {cfg.name} guarded step {t}: non-finite logits")
+        mm = sum(sum(x[0] for x in ([v] if k == "top_abft" else v))
+                 for k, v in fk.items() if k.endswith("_abft"))
+        if mm:
+            fail(f"(b) {cfg.name} guarded step {t}: {mm} ABFT mismatches on "
+                 f"a clean compute")
+        diff = max(diff, float((lk.float() - lp.float()).abs().max()))
+        rows = fk
+        tok = lk.argmax(dim=-1)
+    del dirty
+    rep = {"calibration_s": cal_s, "rate": rate,
+           "cuda_ms": statistics.median(run["cuda"][2]),
+           "torch_ms": statistics.median(run["torch"][2]),
+           "rows": rows, "max_logit_diff": diff}
+    totals = {k: [sum(x[j] for x in (v if isinstance(v[0], list) else [v]))
+                  for j in (0, 1)] for k, v in rows.items()}
+    log(f"(b) {cfg.name} static int8 + clamps + ABFT, {steps} steps on both "
+        f"routes in lockstep: flags and ABFT rows equal at every step (the "
+        f"last step's row totals {totals}); cuda {rep['cuda_ms']:.2f} "
+        f"ms/step, plain {rep['torch_ms']:.2f}; largest logit difference "
+        f"{diff:.4g}; calibration {cal_s:.2f} s")
+    return rep
+
+
+def counted_apart(build, fn, *args, **kw):
+    """``fn(*args, **kw)`` with its kernel launches counted apart from the
+    running path's, whose counts resume where they were. -> (its result,
+    its launch counts)."""
+    before = dict(build.COUNTS)
+    build.reset_counts()
+    out = fn(*args, **kw)
+    own = dict(build.COUNTS)
+    build.COUNTS.update(before)
+    log(f"launch counts of {fn.__name__}, counted apart: {own}")
+    return out, own
+
+
+def _inject(torch, enc, rate, gen):
+    from repro_torch.protection import policy as policy_mod
+    return policy_mod.inject_tree_device(enc, rate, gen)
+
+
+# ---------------------------------------------------------------------------
+# phase 20 (c): mixed schemes and self-healing on full-width deepseek-7b
+# ---------------------------------------------------------------------------
+
+# Full width and depth, no cut: the MILR kit's host side (a float64 copy
+# of one leaf at a time, 10.8 GB for each stacked MLP leaf, and 32 probe
+# responses a column) fits the host; the phase logs its time and peak
+HEAL_SLOTS, HEAL_MAX_LEN = 4, 64
+HEAL_MIGRATE_AT = 30     # the burst's middle: it runs 61 steps
+
+
+def _flip_singles(torch, pt, n, gen, hit):
+    """One bit in each of ``n`` distinct 64-bit blocks of ``pt.enc`` that
+    no earlier call hit (``hit``: the set of block ids so far) -> a new
+    leaf."""
+    import dataclasses
+    enc = pt.enc.clone()
+    words = enc.view(-1, 8).view(torch.int64)[:, 0]
+    picks = []
+    while len(picks) < n:
+        b = int(torch.randint(0, words.numel(), (1,), generator=gen,
+                              device=enc.device))
+        if b not in hit:
+            hit.add(b)
+            picks.append(b)
+    idx = torch.tensor(picks, device=enc.device)
+    bits = torch.randint(0, 64, (n,), generator=gen, device=enc.device)
+    words[idx] ^= torch.ones_like(bits) << bits
+    return dataclasses.replace(pt, enc=enc)
+
+
+def phase_heal(torch, dev, build):
+    """(c) deepseek-7b at full width and depth:
+
+    1. mixed schemes: planned under ``attn-inplace-mlp-secded`` (the MLP
+       leaves under secded72, the rest in place), encoded, 4 steps on the
+       kernel (``in-place-fused``) and plain (``in-place``) routes in
+       lockstep: flags equal; ms/step beside the all-in-place plan's on
+       the kernel route, and a profile of two kernel-route steps of each;
+    2. self-healing: from ``all-in-place``, a MILR repair kit pinned on
+       the clean tree (its time and host peak), then a burst of two waves of 4 requests
+       (prompts of 18-30 tokens: 2-3 pages each) through the front-end on
+       HEAL_SLOTS slots with a scrub pass every step (two weight leaves,
+       four pages) and the kit. Before every 3rd step: single flips into
+       the in-place weight leaves and into live pages no slot is writing;
+       once, a DUE block (two flips) into ``layers/attn/wo``; once, two
+       flips into every block of a free page never handed out. At step
+       HEAL_MIGRATE_AT, ``start_migration`` to ``attn-inplace-mlp-secded``
+       (one leaf a step). Then the final at-rest pass.
+    3. The DUE leaf is repaired (rows <= the kit's samples: the solve is
+       determined); the healed tree decodes to the int8 values of a clean
+       encode under the plan it ended on, whose logits it serves bit for
+       bit; no page leaks; the free page is zero again. Then the times
+       of a full scrub pass over the weights and the pages, and a
+       profile of each.
+    -> the launch counts of the path."""
+    import dataclasses
+    import resource
+    import tracemalloc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    from repro_torch.protection import get_policy_preset, repair
+    from repro_torch.protection.schemes import get_scheme
+    from repro_torch.serving import (frontend, kvcache, protected, scrubber,
+                                     telemetry)
+
+    cfg = get("deepseek-7b")
+    shapes = lm.param_shapes(cfg)
+    torch.cuda.empty_cache()
+    build.reset_counts()
+    report = {"layers": cfg.n_layers}
+    presets = ("attn-inplace-mlp-secded", "all-in-place")
+    plans = {(p, r): get_policy_preset(p, backend=r).plan(shapes)
+             for p in presets for r in ("cuda", "torch")}
+    mixed = plans[("attn-inplace-mlp-secded", "cuda")]
+    log(f"(c) {cfg.name} at {cfg.n_layers} layers under "
+        f"attn-inplace-mlp-secded: {mixed.summary()['by_scheme']}")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def profiled(fn, what, fname, reps):
+        """``reps`` calls of ``fn`` in one profiler window (its first
+        device events can go unrecorded) -> device and wall ms a call."""
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t1 = time.time()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.time() - t1) / reps
+        kernels = _profile_table(torch, prof, wall * reps,
+                                 f"{reps} x {what}", fname, rows=12,
+                                 steps=reps)
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+        split = {k: v / reps for k, v in _kernel_split(kernels, {
+            "ecc_qmatmul": QMM_KERNELS, "ecc_decode": ("decode_kernel",),
+            "ecc_encode": ("encode_kernel",)}).items()}
+        split["the rest"] = busy - sum(split.values())
+        log(f"(c) profile, {what}, per call: device busy {busy:.2f} ms of "
+            f"{wall:.2f} ms wall, split {split}")
+        return {"reps": reps, "wall_ms": wall, "busy_ms": busy,
+                "split": split}
+
+    # 1. the mixed plan on both routes; all-in-place (the burst's start) on
+    # the kernel route beside it. Both clean trees stay resident: the
+    # burst starts from one and the healed tree is held to the other.
+    ms_by, prof_by, encs = {}, {}, {}
+    for preset in presets:
+        encs[preset] = enc = lm.init_params(
+            cfg, 0, device=dev, leaf_fn=plans[(preset, "cuda")].encode_leaf)
+        routes = (("cuda", "in-place-fused"), ("torch", "in-place"))
+        run = {r: [protected.make_serve_step(
+                       cfg, plan=plans[(preset, r)], backend=r,
+                       kv_policy=kv),
+                   kvcache.init_cache(cfg, 4, 64, kv_policy=kv, device=dev),
+                   []]
+               for r, kv in routes[:2 if preset == presets[0] else 1]}
+        tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
+        for t in range(4):
+            pos = torch.full((4,), t, dtype=torch.int32, device=dev)
+            rows = {}
+            for r, (step, cache, ms) in run.items():
+                torch.cuda.synchronize()
+                t1 = time.time()
+                lg, run[r][1], fl = step(enc, cache, tok, pos)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.time() - t1))
+                rows[r] = ({k: v.tolist() for k, v in fl.items()}, lg)
+            if "torch" in rows and rows["cuda"][0] != rows["torch"][0]:
+                fail(f"(c) {preset} step {t}: routes disagree on flags "
+                     f"{rows['cuda'][0]} vs {rows['torch'][0]}")
+            tok = rows["cuda"][1].argmax(dim=-1)
+        ms_by[preset] = {r: statistics.median(v[2][1:])
+                         for r, v in run.items()}
+        step, cache, _ = run["cuda"]
+        pos = iter(range(4, 6))
+        prof_by[preset] = profiled(
+            lambda: step(enc, cache, tok, torch.full(
+                (4,), next(pos), dtype=torch.int32, device=dev)),
+            f"{preset} decode step of {cfg.name} (kernel route)",
+            f"chip_smoke_heal_{preset}_profile.txt", reps=2)
+        del enc, run, step, cache
+    report["mixed_vs_all_in_place_ms"] = ms_by
+    report["step_profiles"] = prof_by
+    log(f"(c) {cfg.name} ms/step (median of steps 2-4): "
+        f"attn-inplace-mlp-secded cuda {ms_by[presets[0]]['cuda']:.2f}, "
+        f"plain {ms_by[presets[0]]['torch']:.2f} (flags equal across the "
+        f"routes); all-in-place cuda {ms_by[presets[1]]['cuda']:.2f}")
+
+    # 2. the healing burst
+    torch.cuda.empty_cache()
+    base, target = plans[("all-in-place", "cuda")], mixed
+    enc = encs["all-in-place"]
+    torch.cuda.synchronize()
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    tracemalloc.start()
+    t0 = time.time()
+    kit = repair.build_repair_kit(enc, seed=0, backend="cuda")
+    report["kit_build_s"] = time.time() - t0
+    _, np_peak = tracemalloc.get_traced_memory()
+    tracemalloc.stop()
+    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    pinned = sum(e.x.nbytes + e.y.nbytes for e in kit.entries.values()
+                 if e.x is not None)
+    twins = sum(e.twin.enc.nbytes + e.twin.checks.nbytes
+                for e in kit.entries.values() if e.twin is not None)
+    report["kit"] = {"build_s": report["kit_build_s"],
+                     "host_peak_gb": np_peak / 1e9,
+                     "pinned_host_gb": pinned / 1e9,
+                     "twins_device_gb": twins / 1e9,
+                     "process_maxrss_gib": [rss0, rss1]}
+    log(f"(c) pinned the MILR kit over {len(kit)} leaves in "
+        f"{report['kit_build_s']:.1f} s: host peak {np_peak / 1e9:.2f} GB "
+        f"of NumPy arrays (tracemalloc), {pinned / 1e9:.4f} GB of probes "
+        f"and responses kept, {twins / 1e9:.3f} GB of secded72 twins on "
+        f"the card; the process's peak RSS {rss0:.1f} -> {rss1:.1f} GiB")
+    fe = frontend.ServingFrontend(
+        cfg, enc, plan=base, slots=HEAL_SLOTS, max_len=HEAL_MAX_LEN,
+        kv_policy="in-place-fused", scrub_every=1, scrub_weight_leaves=2,
+        scrub_kv_pages=4, repair_kit=kit, backend="cuda", device=dev)
+    free_pid = fe.allocator.n_pages - 1
+    repair_s = []
+    real_repair = fe._repair
+
+    def timed_repair(paths):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        out = real_repair(paths)
+        repair_s.append(time.time() - t1)
+        return out
+    fe._repair = timed_repair
+    waves = frontend.make_waves(seed=5, n_waves=2, wave_size=4,
+                                vocab=cfg.vocab, prompt_len=(18, 30),
+                                max_new=(4, 8), gap_steps=6)
+    pending = sorted(waves, key=lambda r: (r.arrival_step, r.rid))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    hits: dict = {}
+    kv_hits: set = set()
+    i, n_w, n_kv, mig_start, mig_done = 0, 0, 0, None, None
+    for _ in range(10_000):
+        while i < len(pending) and pending[i].arrival_step <= fe.step_no:
+            fe.submit(pending[i])
+            i += 1
+        if i >= len(pending) and not fe.queue.peek() and fe.active == 0:
+            break
+        t = fe.step_no
+        if fe.active and t % 3 == 0:
+            def flip(path, pt):
+                nonlocal n_w
+                if getattr(pt, "scheme_id", None) != "in-place":
+                    return pt
+                n_w += 4
+                return _flip_singles(torch, pt, 4, gen,
+                                     hits.setdefault(tree.path_str(path),
+                                                     set()))
+            fe.enc_params = tree.map_with_path(flip, fe.enc_params)
+            quiet = sorted(set(fe.allocator.live_pages())
+                           - fe._busy_pages())
+            for pid in quiet:
+                for key in ("k_pages", "v_pages"):
+                    # a block hit before may not be scrubbed yet: a second
+                    # flip there would make a live-page DUE, which no
+                    # scrub can heal
+                    while True:
+                        layer = int(torch.randint(0, cfg.n_layers, (1,),
+                                                  generator=gen, device=dev))
+                        pool = fe.cache[key][layer, pid].view(-1, 8)
+                        b = int(torch.randint(0, pool.shape[0], (1,),
+                                              generator=gen, device=dev))
+                        if (key, layer, pid, b) not in kv_hits:
+                            break
+                    kv_hits.add((key, layer, pid, b))
+                    pool[b, int(torch.randint(0, 8, (1,), generator=gen,
+                                              device=dev))] ^= 4
+                    n_kv += 1
+        if t == 4:
+            wo = fe.enc_params["layers"]["attn"]["wo"]
+            enc_wo = wo.enc.clone()
+            enc_wo.view(-1)[:2] ^= 1           # two flips in block 0
+            hits.setdefault("layers/attn/wo", set()).add(0)
+            fe.enc_params["layers"]["attn"]["wo"] = dataclasses.replace(
+                wo, enc=enc_wo)
+            for key in ("k_pages", "v_pages"):  # two flips in every block
+                fe.cache[key][:, free_pid, ..., ::8] = 3
+        if t == HEAL_MIGRATE_AT:
+            fe.start_migration(target, leaves_per_step=1, every=1)
+            mig_start = t
+        fe.step()
+        if mig_start is not None and mig_done is None and fe.migration_done:
+            mig_done = fe.step_no - mig_start
+    final = fe.final_scrub()
+    summ = telemetry.summarize(fe.telemetry.events)
+    ev = fe.telemetry.events
+    reps = [e for e in ev if e["event"] == "repair"]
+    log(f"(c) burst: {summ['requests']['finished']}/"
+        f"{summ['requests']['submitted']} requests in {summ['steps']} "
+        f"steps; injected {n_w} weight and {n_kv} KV single flips, one "
+        f"weight DUE block, one DUE free page; healing {summ['healing']}; "
+        f"repairs {[(r['path'], r['status'], r['rows']) for r in reps]}; "
+        f"migration done {mig_done} steps after its start; final {final}")
+    if summ["requests"]["finished"] != summ["requests"]["submitted"]:
+        fail("(c) the healing burst did not finish every request")
+    if summ["pool"]["leaked_pages"]:
+        fail(f"(c) {summ['pool']['leaked_pages']} pages leaked")
+    if [(r["path"], r["status"]) for r in reps] != [("layers/attn/wo",
+                                                     "repaired")]:
+        fail(f"(c) the DUE leaf was not repaired as the kit's rules decide "
+             f"(rows <= {kit.n_samples}: a determined solve): {reps}")
+    if final["w_due"] or final["kv_due"]:
+        fail(f"(c) residual DUE after the final pass: {final}")
+    heal = summ["healing"]
+    if not (heal["w_corrected"] and heal["kv_corrected"]):
+        fail(f"(c) the scrub wrote back no weight or no KV single: {heal}")
+    if mig_done is None or heal["migrated_leaves"] != len(
+            base.diff(target).paths):
+        fail(f"(c) the migration did not drain: {heal}")
+    for key in ("k_pages", "v_pages"):
+        if int(fe.cache[key][:, free_pid].count_nonzero()):
+            fail(f"(c) scrub_free left the free page {free_pid} non-zero")
+
+    # 3. the healed tree against a clean encode under the plan it ended on
+    clean = encs.pop("attn-inplace-mlp-secded")
+    for (path, h), (_, c) in zip(tree.leaves_with_path(fe.enc_params),
+                                 tree.leaves_with_path(clean)):
+        if getattr(c, "scheme_id", None) is None:
+            continue
+        qh = get_scheme(h.scheme_id).decode(h.enc, h.checks, "cuda")
+        qc = get_scheme(c.scheme_id).decode(c.enc, c.checks, "cuda")
+        if not torch.equal(qh, qc) or h.scheme_id != c.scheme_id:
+            fail(f"(c) healed leaf {tree.path_str(path)} ({h.scheme_id}) "
+                 f"does not decode to the clean {c.scheme_id} encode's int8")
+    step = protected.make_serve_step(cfg, plan=target, backend="cuda",
+                                     kv_policy="in-place-fused")
+    lgs = []
+    for t_ in (fe.enc_params, clean):
+        cache = kvcache.init_cache(cfg, 4, 64, kv_policy="in-place-fused",
+                                   device=dev)
+        lgs.append(step(t_, cache, torch.ones((4, 1), dtype=torch.long,
+                                             device=dev),
+                        torch.zeros((4,), dtype=torch.int32, device=dev))[0])
+    if not torch.equal(_bits(torch, lgs[0]), _bits(torch, lgs[1])):
+        fail("(c) the healed tree's logits differ from the clean tree's")
+    log("(c) the healed tree decodes to the clean encode's int8 under "
+        "attn-inplace-mlp-secded, and serves its logits bit for bit")
+
+    # scrub and repair times on the healed state
+    leaves = [x for _, x in tree.leaves_with_path(fe.enc_params)
+              if getattr(x, "scheme_id", None) not in (None, "faulty")]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    scrubber.scrub_tree(fe.enc_params, backend="cuda")
+    torch.cuda.synchronize()
+    leaf_ms = 1e3 * (time.time() - t0) / len(leaves)
+    pages = list(range(HEAL_SLOTS, fe.allocator.n_pages))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fe.scrubber.scrub_kv(fe.cache, fe.policy, occupied=pages, n=-1)
+    torch.cuda.synchronize()
+    page_ms = 1e3 * (time.time() - t0) / len(pages)
+    report["scrub_profiles"] = {
+        "weights": profiled(
+            lambda: scrubber.scrub_tree(fe.enc_params, backend="cuda"),
+            f"scrub pass over {cfg.name}'s {len(leaves)} weight leaves",
+            "chip_smoke_heal_scrub_profile.txt", reps=2),
+        "pages": profiled(
+            lambda: fe.scrubber.scrub_kv(fe.cache, fe.policy,
+                                         occupied=pages, n=-1),
+            f"scrub pass over {len(pages)} KV pages",
+            "chip_smoke_heal_scrub_kv_profile.txt", reps=8)}
+    report.update(
+        scrub_ms_per_leaf=leaf_ms, scrub_ms_per_page=page_ms,
+        repair_s=repair_s, migration_steps=mig_done, final=final,
+        healing=heal, injected={"weight_singles": n_w, "kv_singles": n_kv},
+        steps=summ["steps"], leaked_pages=summ["pool"]["leaked_pages"],
+        n_leaves=len(leaves), n_pages=len(pages))
+    log(f"(c) scrub {leaf_ms:.2f} ms per leaf (mean of {len(leaves)}, "
+        f"{sum(x.enc.numel() for x in leaves) / 1e9:.3f} GB), "
+        f"{page_ms:.3f} ms per page ({len(pages)} pages x {cfg.n_layers} "
+        f"layers, K and V); repair {repair_s} s; kit build "
+        f"{report['kit_build_s']:.1f} s; migration {mig_done} steps")
+    with open(OUT_DIR / "chip_smoke_heal.json", "w") as fh:
+        json.dump({"config": cfg.name, **report}, fh, indent=1)
+    counts = dict(build.COUNTS)
+    del fe, enc, encs, clean, kit
+    torch.cuda.empty_cache()
+    log(f"launch counts over the mixed-scheme and self-healing path: "
+        f"{counts}")
+    return counts
 
 
 if __name__ == "__main__":

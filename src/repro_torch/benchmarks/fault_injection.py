@@ -5,11 +5,13 @@ Counterpart of the reference's ``benchmarks/fault_injection.py``:
 amplified 3e-3 row where small-model effects show), several trials, on
 CNNs the port trains with WOT. Each (model, scheme) encodes once and runs
 its (trial x rate) grid through ``repro_torch.protection.run_campaign``;
-``--compute`` adds the ABFT compute-fault coverage rows.
+``--policy`` adds one row under a mixed-scheme preset
+(``protection.POLICY_PRESETS``); ``--compute`` adds the ABFT compute-fault
+coverage rows.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.fault_injection \\
       --device cpu --trials 2 [--models resnet18 vgg16] [--batch scan|vmap] \\
-      [--scale 0.25 --img 32] [--json PATH] [--compute]
+      [--scale 0.25 --img 32] [--json PATH] [--policy PRESET] [--compute]
 
 On the card (the default ``--device cuda``) the codecs run as the CUDA
 kernels. The output lines are the reference's: ``#`` comment lines, then
@@ -37,15 +39,14 @@ def run(models=("resnet18",), trials=5, rates=RATES, verbose=True,
         batch="scan", json_path=None, policy=None, compute=False,
         device=None, scale=0.25, img=32, pre_steps=80, wot_steps=40):
     """Table 2 of ``models``, trained at ``scale``/``img`` on ``device``.
-    ``compute`` adds the COMPUTE-fault rows (``compute_campaign``, targets
-    ``acc`` and ``wdec``): ABFT detection coverage, not accuracy drop.
-    ``policy`` (a mixed-scheme preset) is not ported yet.
-    -> ``{(model, scheme): (space overhead, row, clean)}``."""
-    if policy:
-        raise NotImplementedError(
-            "mixed-scheme policy presets (--policy) are not ported yet "
-            "(ROADMAP Queue 1 item 6)")
+    ``policy`` (a ``protection.POLICY_PRESETS`` name) adds one row
+    ``policy:<name>`` under that mixed-scheme preset, over every >= 2-D
+    leaf as the scheme rows. ``compute`` adds the COMPUTE-fault rows
+    (``compute_campaign``, targets ``acc`` and ``wdec``): ABFT detection
+    coverage, not accuracy drop.
+    -> ``{(model, row): (space overhead, row, clean)}``."""
     dev = device_mod.resolve(device)
+    rows = list(SCHEMES) + ([f"policy:{policy}"] if policy else [])
     results, campaigns = {}, {}
     for name in models:
         params, fwd, tmpl = train_cnn_wot(name, pre_steps=pre_steps,
@@ -58,6 +59,16 @@ def run(models=("resnet18",), trials=5, rates=RATES, verbose=True,
             campaigns[(name, scheme)] = res
             results[(name, scheme)] = (res.space_overhead, res.row(),
                                        res.clean)
+        if policy:
+            pol = protection.get_policy_preset(
+                policy, predicate=lambda p, l: getattr(l, "ndim", 0) >= 2,
+                backend=device_mod.default_backend(dev))
+            res = run_scheme_campaign(params, fwd, tmpl, None, policy=pol,
+                                      rates=rates, trials=trials, batch=batch,
+                                      key=len(SCHEMES), img=img, device=dev)
+            campaigns[(name, rows[-1])] = res
+            results[(name, rows[-1])] = (res.space_overhead, res.row(),
+                                         res.clean)
         if compute:
             # per-element rates over the probe surface: a CNN's matmul
             # leaves are its small fc layers, so the memory grid's rates
@@ -69,7 +80,7 @@ def run(models=("resnet18",), trials=5, rates=RATES, verbose=True,
                         batch=batch, key=100 + j, target=tgt, probe_m=64,
                         device=dev)
         if verbose:
-            _report(name, params, campaigns, rates, compute)
+            _report(name, params, campaigns, rates, compute, rows)
     if json_path:
         with open(json_path, "w") as f:
             json.dump({f"{m}/{s}": c.to_dict()
@@ -79,7 +90,7 @@ def run(models=("resnet18",), trials=5, rates=RATES, verbose=True,
     return results
 
 
-def _report(name, params, campaigns, rates, compute):
+def _report(name, params, campaigns, rates, compute, rows):
     clean = campaigns[(name, SCHEMES[0])].clean
     report = protection.coverage(params, eval_policy("in-place"))
     print(f"# {name}: clean int8+WOT accuracy {clean:.3f}")
@@ -91,7 +102,7 @@ def _report(name, params, campaigns, rates, compute):
           f"full grid sweep {sum(c.wall_clock_s for c in mine):.2f}s")
     print(f"# {'scheme':11s} {'ovh%':5s} " +
           " ".join(f"{r:>13.0e}" for r in rates))
-    for scheme in SCHEMES:
+    for scheme in rows:
         res = campaigns[(name, scheme)]
         cells = " ".join(f"{d * 100:6.2f}±{s * 100:4.1f}"
                          for d, s in res.row())
@@ -115,8 +126,9 @@ def main(argv=None):
     ap.add_argument("--json", default=None, metavar="PATH",
                     help="write every CampaignResult here as JSON")
     ap.add_argument("--policy", default=None,
-                    help="extra row under a mixed-scheme preset (not "
-                         "ported yet: raises)")
+                    choices=sorted(protection.POLICY_PRESETS),
+                    help="extra row under a mixed-scheme weight-protection "
+                         "preset")
     ap.add_argument("--compute", action="store_true",
                     help="extra rows: ABFT detection coverage of injected "
                          "COMPUTE faults (accumulator and decoded-weight "

@@ -10,7 +10,8 @@ corrected at the point of use.
       [--kv-policy in-place-fused|in-place-chunked] [--prompt-len 512] \\
       [--fault-rate 1e-4 [--trials 2] [--campaign-key K] \\
       [--campaign-out FILE]] [--abft] [--act-clamp] [--device cuda|cpu] \\
-      [--burst [--burst-out DIR]]
+      [--policy PRESET] [--autotune TABLE.json] [--scrub-every N] \\
+      [--repair] [--burst [--burst-out DIR]]
 
 The backend defaults to the kernels (``cuda``) on the card and to the
 plain route (``torch``) on the CPU. With ``--prompt-len`` a random prompt
@@ -33,6 +34,15 @@ injects the faults and serves. ``--campaign-key`` seeds the campaigns'
 streams and ``--campaign-out`` writes their JSON record (the reference's
 keys).
 
+``--policy`` serves under a named mixed-scheme preset
+(``protection.POLICY_PRESETS``, overriding ``--scheme``); ``--autotune``
+reads a shape-keyed backend table (``protection.AutotuneTable`` JSON) for
+per-leaf routes. ``--scrub-every N`` scrubs the weights (two leaves a
+pass; in ``--burst`` mode also the live KV pages) every N steps and ends
+with a full at-rest pass; ``--repair`` pins a MILR repair kit from the
+clean tree and repairs or quarantines the weight leaves a scrub finds
+with a DUE.
+
 ``--burst`` replays a seeded two-wave workload through the request
 front-end (:mod:`repro_torch.serving.frontend`: continuous batching over
 the paged pool, per-request fault attribution) instead of the fixed batch,
@@ -49,7 +59,7 @@ conv history, no KV cache) families and the moe family's MLA configs
 (deepseek-v2-236b, deepseek-v3-671b: the compressed latent cache) serve
 their dense caches only: a prompt, a paged ``--kv-policy`` or
 ``--burst`` raises ``ValueError`` for them, as the reference's paged
-cache does. Scrubbing and repair are not ported yet.
+cache does.
 """
 from __future__ import annotations
 
@@ -66,7 +76,9 @@ from repro_torch import device as device_mod
 from repro_torch.models import lm
 from repro_torch.core import quant
 from repro_torch.protection import backends, policy as policy_mod, schemes
-from repro_torch.serving import kvcache, protected
+from repro_torch.protection import plan as plan_mod
+from repro_torch.protection import repair as repair_mod
+from repro_torch.serving import kvcache, protected, scrubber
 
 
 def _sync(dev) -> None:
@@ -132,13 +144,45 @@ def fault_smoke_check(enc, policy, rate: float, seed: int, *,
     return res, due
 
 
+def _policy(scheme, backend, preset=None, autotune=None):
+    """The weight-protection policy: a named preset (overriding
+    ``scheme``) or one scheme on every weight; ``autotune`` routes leaves
+    by shape."""
+    if preset:
+        return plan_mod.get_policy_preset(preset, backend=backend,
+                                          autotune=autotune)
+    return policy_mod.ProtectionPolicy(default_scheme=scheme, backend=backend,
+                                       autotune=autotune)
+
+
+def _repair_kit(enc, seed, backend, log):
+    t0 = time.time()
+    kit = repair_mod.build_repair_kit(enc, seed=seed, backend=backend)
+    log(f"[serve] pinned MILR repair kit over {len(kit)} leaves in "
+        f"{time.time() - t0:.1f}s")
+    return kit
+
+
+def _repair_due(enc, kit, due_paths, backend, heal: dict):
+    """Repair or quarantine the scrub's DUE leaves (with a kit), counting
+    the outcomes into ``heal``."""
+    if not due_paths or kit is None:
+        return enc
+    enc, reports = repair_mod.repair_tree(enc, kit, paths=due_paths,
+                                          backend=backend)
+    for r in reports:
+        heal["repaired" if r["status"] == "repaired" else "quarantined"] += 1
+    return enc
+
+
 def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
           fault_rate: float = 0.0, correctable_only: bool = False,
           seed: int = 0, scheme: str = "in-place", backend=None,
           kv_policy=None, device=None, dtype=torch.bfloat16, weights=None,
           abft: bool = False, act_clamp: bool = False, act_quant=None,
           scales=None, smoke_trials: int = 0, campaign_key=None,
-          campaign_out=None, log=print) -> dict:
+          campaign_out=None, policy=None, autotune=None,
+          scrub_every: int = 0, repair: bool = False, log=print) -> dict:
     """Serve ``tokens`` greedy decode steps of a batch.
 
     The weights are drawn at random from ``seed`` and encoded leaf by leaf,
@@ -170,13 +214,23 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
     any fault is injected; its two results are returned under
     ``smoke_check``.
 
+    ``policy`` names a mixed-scheme preset (``protection.POLICY_PRESETS``;
+    it overrides ``scheme``) and ``autotune`` an autotune table (an
+    ``AutotuneTable`` or its JSON path) for per-leaf routes.
+    ``scrub_every`` scrubs two weight leaves every that many steps and
+    the whole tree after the run; with ``repair`` a MILR kit pinned from
+    the clean weights repairs or quarantines the leaves a scrub finds with
+    a DUE. Their totals come back under ``healing`` (``corrected``,
+    ``repaired``, ``quarantined``, ``residual_due_leaves``).
+
     Returns a dict with ``tokens`` (T, B) and ``logits`` (T, B, V) of every
     step, the run's fault accounting ``flags`` (weight corrected/DUE from
     the ``top`` and ``layers`` rows, KV from ``layers_kv``, prefill
     included), the run's ABFT totals ``abft`` (``mismatches``,
-    ``clamp_hits``; the ``*_abft`` rows), the flipped bit positions of each
-    injected image (``weight_positions``, ``kv_positions``), the calibrated
-    ``scales`` (or None), and the timings ``seconds``,
+    ``clamp_hits``; the ``*_abft`` rows), the flipped bit positions of
+    each injected image (``weight_positions``, ``kv_positions``), the
+    calibrated ``scales`` (or None), the ``healing`` totals (or None), and
+    the timings ``seconds``,
     ``tok_per_s`` and ``step_ms`` of the decode (host clock, each step
     ended by a device sync). With a prompt it also holds ``prompt`` (B, S),
     ``prefill_logits`` (B, S, V), ``prefill_s`` and ``prefill_tok_per_s``.
@@ -201,13 +255,14 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
         t0 = time.time()
         build.load_all()
         log(f"[serve] CUDA kernels ready in {time.time() - t0:.1f}s")
-    policy = policy_mod.ProtectionPolicy(default_scheme=scheme,
-                                         backend=backend)
+    policy = _policy(scheme, backend, policy, autotune)
     plan = policy.plan(lm.param_shapes(cfg))
     log("[serve] " + plan.coverage().summary().replace("\n", "\n[serve] "))
     s = plan.summary()
-    log(f"[serve] plan: backends {s['by_backend']}, {s['n_flat_padded']} "
-        f"flat-padded leaves")
+    schemes_b = ", ".join(f"{k}={v['stored_bytes']}B"
+                          for k, v in sorted(s["by_scheme"].items()))
+    log(f"[serve] plan: schemes {{{schemes_b}}}, backends "
+        f"{s['by_backend']}, {s['n_flat_padded']} flat-padded leaves")
     if weights is None:
         t0 = time.time()
         enc = lm.init_params(cfg, seed, device=dev, leaf_fn=plan.encode_leaf)
@@ -243,6 +298,7 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
             f"{s['n_clamped']} activation-clamped; activation quant "
             f"{s['act_quant'] or 'none'}")
     weight_positions: dict = {}
+    kit = _repair_kit(enc, seed, backend, log) if repair else None
     smoke = None
     if fault_rate and smoke_trials:
         smoke = fault_smoke_check(enc, policy, fault_rate, seed,
@@ -300,9 +356,16 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
         log(f"[serve] prefilled {batch} x {prompt_len} prompt tokens in "
             f"{dt:.2f}s ({batch * prompt_len / dt:.1f} tok/s)")
     _sync(dev)
+    heal = {"corrected": 0, "repaired": 0, "quarantined": 0}
+    scrub = (scrubber.Scrubber(leaves_per_step=2, backend=backend)
+             if scrub_every else None)
     t_run = time.time()
     for t in range(tokens):
         t_step = time.time()
+        if scrub is not None and t % scrub_every == 0:
+            enc, wst = scrub.scrub_weights(enc)
+            heal["corrected"] += wst["corrected"]
+            enc = _repair_due(enc, kit, wst["due_paths"], backend, heal)
         if kvp is not None and fault_rate and t == tokens // 2 and t > 0:
             # hit the LIVE pools mid-run: later steps decode a faulted history
             gen_kv = torch.Generator(device=dev)
@@ -349,10 +412,24 @@ def serve(cfg, *, batch: int = 4, tokens: int = 16, prompt_len: int = 0,
         log(f"[serve] ABFT compute-fault accounting: {guard['mismatches']} "
             f"checksum mismatches, {guard['clamp_hits']} activation clamp "
             f"hits")
+    if scrub is not None:
+        enc, fin = scrubber.scrub_tree(enc, backend=backend)
+        heal["corrected"] += fin["corrected"]
+        residual = fin["due_paths"]
+        if residual and kit is not None:
+            enc = _repair_due(enc, kit, residual, backend, heal)
+            enc, fin = scrubber.scrub_tree(enc, backend=backend)
+            residual = fin["due_paths"]
+        heal["residual_due_leaves"] = len(residual)
+        log(f"[serve] self-healing: wrote back {heal['corrected']} "
+            f"corrected bits during the run, {heal['repaired']} leaves "
+            f"repaired, {heal['quarantined']} quarantined; residual DUE "
+            f"leaves after the final pass: {len(residual)}")
     toks = torch.stack(out_tok).cpu()
     log(f"[serve] sample continuation: {toks[:, 0].tolist()}")
     return {"tokens": toks, "logits": torch.stack(out_logits),
             "flags": acc, "abft": guard, "scales": scales,
+            "healing": heal if scrub is not None else None,
             "weight_positions": weight_positions,
             "kv_positions": kv_positions, "smoke_check": smoke,
             "seconds": dt, "tok_per_s": tokens * batch / dt, "step_ms": ms,
@@ -366,7 +443,8 @@ def burst(cfg, *, batch: int = 4, tokens: int = 16, seed: int = 0,
           correctable_only: bool = False,
           prefix_sharing: bool = False, out_dir=None, before_step=None,
           after_step=None, smoke_trials: int = 0, campaign_key=None,
-          campaign_out=None, log=print) -> dict:
+          campaign_out=None, policy=None, autotune=None,
+          scrub_every: int = 0, repair: bool = False, log=print) -> dict:
     """Serve a seeded burst through the request front-end and roll it up.
 
     The workload defaults to the reference CLI's: ``make_waves(seed,
@@ -382,7 +460,12 @@ def burst(cfg, *, batch: int = 4, tokens: int = 16, seed: int = 0,
     ``before_step(fe)`` / ``after_step(fe)`` reach the front-end around
     each step (:func:`~repro_torch.serving.frontend.run_burst`). With
     ``fault_rate`` and ``smoke_trials`` the weights first go through
-    :func:`fault_smoke_check`, as in :func:`serve`.
+    :func:`fault_smoke_check`, as in :func:`serve`. ``policy`` and
+    ``autotune`` as in :func:`serve`; ``scrub_every`` and ``repair`` turn on
+    the front-end's self-healing (a scrub pass of one weight leaf and four
+    live pages every that many steps, MILR repair from a kit pinned on the
+    clean weights, the final at-rest pass), reported in the summary's
+    ``healing`` roll-up.
 
     Returns ``{"events", "summary", "results", "seconds", "weights",
     "weight_positions"}``: the telemetry events, the roll-up, ``{rid:
@@ -408,8 +491,7 @@ def burst(cfg, *, batch: int = 4, tokens: int = 16, seed: int = 0,
     if dev.type == "cuda" and (backend == "cuda" or kvp.fused):
         from repro_torch.kernels import build
         build.load_all()
-    plan = policy_mod.ProtectionPolicy(default_scheme=scheme,
-                                       backend=backend).plan(
+    plan = _policy(scheme, backend, policy, autotune).plan(
         lm.param_shapes(cfg))
     enc = weights
     if enc is None:
@@ -419,6 +501,7 @@ def burst(cfg, *, batch: int = 4, tokens: int = 16, seed: int = 0,
         log(f"[serve] drew and encoded the weights in "
             f"{time.time() - t0:.1f}s")
     weight_positions: dict = {}
+    kit = _repair_kit(enc, seed, backend, log) if repair else None
     if fault_rate and smoke_trials:
         fault_smoke_check(enc, plan.policy, fault_rate, seed,
                           trials=smoke_trials, campaign_key=campaign_key,
@@ -439,9 +522,9 @@ def burst(cfg, *, batch: int = 4, tokens: int = 16, seed: int = 0,
         cfg, enc, plan=plan, waves=waves, slots=slots, max_len=max_len,
         kv_policy=kvp, fault_rate=fault_rate, fault_seed=seed,
         correctable_only=correctable_only, telemetry_path=tpath,
-        prefix_sharing=prefix_sharing,
-        before_step=before_step, after_step=after_step, backend=backend,
-        device=dev)
+        prefix_sharing=prefix_sharing, scrub_every=scrub_every,
+        repair_kit=kit, before_step=before_step, after_step=after_step,
+        backend=backend, device=dev)
     _sync(dev)
     dt = time.time() - t0
     r, t, d, p = (summ["requests"], summ["throughput"], summ["due"],
@@ -457,6 +540,12 @@ def burst(cfg, *, batch: int = 4, tokens: int = 16, seed: int = 0,
     log(f"[serve] KV faults: {d['corrected_total']} corrected, "
         f"{d['total']} DUE ({d['requests_with_due']} requests); "
         f"pages leaked {p['leaked_pages']}")
+    h = summ["healing"]
+    if scrub_every and h["final_due"] is not None:
+        log(f"[serve] self-healing: {h['scrub_passes']} scrub passes, "
+            f"{h['w_corrected']} weight and {h['kv_corrected']} KV bits "
+            f"written back, repairs {h['repairs']}; residual DUE "
+            f"{h['final_due']['w']} weight, {h['final_due']['kv']} KV")
     if out_dir:
         telemetry.write_requests_csv(events,
                                      os.path.join(out_dir, "requests.csv"))
@@ -519,24 +608,38 @@ def main(argv=None):
     ap.add_argument("--campaign-out", default=None, metavar="FILE",
                     help="write the smoke-check campaign record (trials, "
                          "key, per-rate means) as JSON")
+    ap.add_argument("--policy", default=None,
+                    choices=sorted(plan_mod.POLICY_PRESETS),
+                    help="serve under a named mixed-scheme preset "
+                         "(overrides --scheme)")
+    ap.add_argument("--autotune", default=None, metavar="TABLE.json",
+                    help="shape-keyed backend table for per-leaf dispatch")
+    ap.add_argument("--scrub-every", type=int, default=0,
+                    help="self-healing: scrub weights (and, in --burst "
+                         "mode, live KV pages) every N steps")
+    ap.add_argument("--repair", action="store_true",
+                    help="pin a MILR repair kit from the clean tree and "
+                         "repair/quarantine scrub-detected weight DUEs")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain route")
     args = ap.parse_args(argv)
-    smoke = dict(smoke_trials=args.trials, campaign_key=args.campaign_key,
-                 campaign_out=args.campaign_out)
+    common = dict(smoke_trials=args.trials, campaign_key=args.campaign_key,
+                  campaign_out=args.campaign_out, policy=args.policy,
+                  autotune=args.autotune, scrub_every=args.scrub_every,
+                  repair=args.repair)
     if args.burst:
         return burst(configs.get_smoke(args.arch), batch=args.batch,
                      tokens=args.tokens, seed=args.seed,
                      kv_policy=args.kv_policy or "in-place",
                      scheme=args.scheme, backend=args.backend,
                      device=args.device, fault_rate=args.fault_rate,
-                     out_dir=args.burst_out, **smoke)
+                     out_dir=args.burst_out, **common)
     return serve(configs.get_smoke(args.arch), batch=args.batch,
                  tokens=args.tokens, prompt_len=args.prompt_len,
                  fault_rate=args.fault_rate, seed=args.seed,
                  scheme=args.scheme, backend=args.backend,
                  kv_policy=args.kv_policy, device=args.device,
-                 abft=args.abft, act_clamp=args.act_clamp, **smoke)
+                 abft=args.abft, act_clamp=args.act_clamp, **common)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,17 @@
 """``ProtectionPlan`` — materialized per-leaf protection decisions.
 
-Counterpart of ``repro.protection.plan`` for a single-scheme policy: built
-once from ``(policy, params)`` (tensors or :class:`ShapeDtype` records), it
-holds each leaf's :class:`LeafPlan` — scheme, layout, backend, stored
-bytes and the serve-time activation-quant, ABFT and clamp decisions — and
-encodes a tree (or one leaf at a time, for models that do not fit twice in
-memory) under it. Presets, mesh specs, diffs and autotune tiles are not
-ported yet.
+Counterpart of ``repro.protection.plan``: built once from ``(policy,
+params)`` (tensors or :class:`ShapeDtype` records), it holds each leaf's
+:class:`LeafPlan` — scheme (per-leaf rules), layout, backend and where it
+came from (rule, autotune table, policy), the autotune table's tile hints,
+stored bytes and the serve-time activation-quant, ABFT and clamp
+decisions — and encodes a tree (or one leaf at a time, for models that do
+not fit twice in memory) under it. It also carries the serving-state (KV)
+policy (:meth:`ProtectionPlan.with_kv_policy`), and diffs against another
+plan of the same tree (:class:`PlanDiff`) and migrates an encoded tree
+toward it leaf by leaf (:meth:`ProtectionPlan.migrate_step`, through
+:func:`transcode_leaf`). :data:`POLICY_PRESETS` are the reference's named
+mixed-scheme policies. The mesh specs are not ported.
 """
 from __future__ import annotations
 
@@ -17,11 +22,15 @@ from typing import Optional
 import torch
 
 from repro_torch import tree
-from repro_torch.core import quant
+from repro_torch.core import quant, wot
 
+from .backends import get_backend
 from .schemes import get_scheme
+from .tensor import ProtectedTensor, is_protected_tensor
 
-__all__ = ["LeafPlan", "ProtectionPlan", "make_plan", "ShapeDtype"]
+__all__ = ["LeafPlan", "ProtectionPlan", "make_plan", "ShapeDtype",
+           "LeafDiff", "PlanDiff", "transcode_leaf", "POLICY_PRESETS",
+           "get_policy_preset"]
 
 BLOCK = 8
 
@@ -41,6 +50,13 @@ class ShapeDtype:
 class LeafPlan:
     """One leaf's resolved decision (see the reference's field docs).
 
+    backend_src: where the backend came from: "rule" | "autotune" |
+               "policy" ("" when unprotected).
+    tiles, int8_tiles, tiles_src: the autotune table's (bm, bn, bk) and
+               int8 (bm, bn, 0) hints for the per-layer matmul
+               ``shape[-2:]`` and their source ("exact" | "nearest" | "");
+               recorded as the reference records them, and ignored by the
+               CUDA kernels, which choose their own tiles.
     act_quant: None (float activations) | "dynamic" (per-token absmax) |
                "static" (calibrated ``a_scale``), set by
                :meth:`ProtectionPlan.with_act_quant`.
@@ -60,6 +76,10 @@ class LeafPlan:
     pad_bytes: int
     check_bytes: int
     stored_bytes: int
+    backend_src: str = ""
+    tiles: Optional[tuple] = None
+    int8_tiles: Optional[tuple] = None
+    tiles_src: str = ""
     act_quant: Optional[str] = None
     a_scale: Optional[float] = None
     abft: bool = False
@@ -70,12 +90,84 @@ class LeafPlan:
         return self.scheme_id is not None
 
 
-class ProtectionPlan:
-    """Ordered ``{path: LeafPlan}`` for one ``(policy, tree)``."""
+@dataclasses.dataclass(frozen=True)
+class LeafDiff:
+    """One leaf whose protection decision differs between two plans."""
 
-    def __init__(self, policy, leaves: dict):
+    path: str
+    from_scheme: Optional[str]
+    to_scheme: Optional[str]
+    from_backend: str
+    to_backend: str
+    stored_bytes_delta: int
+
+    @property
+    def scheme_changed(self) -> bool:
+        return self.from_scheme != self.to_scheme
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanDiff:
+    """Ordered per-leaf delta between two plans of the SAME tree;
+    ``paths`` (the scheme changes, in plan order) is the work list a
+    ``serving.scrubber.Migrator`` drains, one leaf at a time."""
+
+    entries: tuple
+
+    @property
+    def paths(self) -> tuple:
+        """Leaves whose scheme changes: a backend-only change rewrites no
+        byte."""
+        return tuple(e.path for e in self.entries if e.scheme_changed)
+
+    @property
+    def empty(self) -> bool:
+        return not self.entries
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def summary(self) -> dict:
+        moves: dict = {}
+        for e in self.entries:
+            if e.scheme_changed:
+                k = f"{e.from_scheme}->{e.to_scheme}"
+                moves[k] = moves.get(k, 0) + 1
+        return {"n_changed": len(self.entries),
+                "n_scheme_changes": len(self.paths), "moves": moves,
+                "stored_bytes_delta": sum(e.stored_bytes_delta
+                                          for e in self.entries)}
+
+
+def transcode_leaf(pt: ProtectedTensor, to_scheme, *, backend="torch"):
+    """Re-encode one stored image under another scheme without a float
+    round trip: decode to int8 (correcting what the old code can), WOT-clamp
+    if the new scheme needs it (idempotent on a throttled encode), encode.
+    The quantized values, and every logit, are kept bit for bit.
+    -> ``(new_pt, corrected, due)``, the flags of the old image's decode
+    (DUE blocks carry what the old decode returned; repair is a pass of its
+    own)."""
+    frm = get_scheme(pt.scheme_id)
+    to = get_scheme(to_scheme)
+    be = get_backend(backend)
+    q, corrected, due = frm.decode_with_flags(pt.enc, pt.checks, be)
+    if to.requires_wot:
+        q = wot.throttle_q(q.reshape(-1)).reshape(q.shape)
+    enc, checks = to.encode(q, be)
+    new = ProtectedTensor(enc=enc, checks=checks, scale=pt.scale,
+                          scheme_id=to.scheme_id,
+                          orig_shape=tuple(pt.orig_shape))
+    return new, corrected, due
+
+
+class ProtectionPlan:
+    """Ordered ``{path: LeafPlan}`` for one ``(policy, tree)``, plus the
+    serving-state ``kv_policy`` (None unless set)."""
+
+    def __init__(self, policy, leaves: dict, *, kv_policy=None):
         self.policy = policy
         self.leaves = leaves
+        self.kv_policy = kv_policy
 
     def __len__(self) -> int:
         return len(self.leaves)
@@ -135,9 +227,15 @@ class ProtectionPlan:
             "by_scheme": self.by_scheme(),
             "by_backend": self.by_backend(),
             "n_flat_padded": sum(lp.layout == "flat-padded" for lp in prot),
+            "tiles_src": self._count(prot, "tiles_src"),
             "act_quant": self._count(prot, "act_quant"),
             "n_abft": sum(lp.abft for lp in prot),
             "n_clamped": sum(lp.clamp is not None for lp in prot),
+            "kv_policy": ({"scheme": self.kv_policy.scheme,
+                           "fused": self.kv_policy.fused,
+                           "attention_impl": self.kv_policy.attention_impl,
+                           "page_size": self.kv_policy.page_size}
+                          if self.kv_policy is not None else None),
         }
 
     @staticmethod
@@ -186,7 +284,7 @@ class ProtectionPlan:
                     clamp=s * quant.QMAX if clamp else lp.clamp)
             else:
                 leaves[p] = lp
-        return ProtectionPlan(self.policy, leaves)
+        return ProtectionPlan(self.policy, leaves, kv_policy=self.kv_policy)
 
     def with_abft(self, enabled: bool = True, *,
                   clamps: Optional[dict] = None) -> "ProtectionPlan":
@@ -203,7 +301,84 @@ class ProtectionPlan:
                 leaves[p] = dataclasses.replace(
                     lp, abft=bool(enabled),
                     clamp=float(clamps[p]) if p in clamps else lp.clamp)
-        return ProtectionPlan(self.policy, leaves)
+        return ProtectionPlan(self.policy, leaves, kv_policy=self.kv_policy)
+
+    def with_kv_policy(self, kv_policy) -> "ProtectionPlan":
+        """A new plan that also carries the paged KV cache's policy (a
+        ``serving.kvcache.KVProtectionPolicy`` or preset name); the serve
+        step and the prefill default their ``kv_policy`` from it."""
+        from repro_torch.serving import kvcache  # serving builds on us
+        return ProtectionPlan(self.policy, self.leaves,
+                              kv_policy=kvcache.get_kv_policy(kv_policy))
+
+    # -- plan diff and rolling migration ------------------------------------
+
+    def diff(self, other: "ProtectionPlan") -> PlanDiff:
+        """Per-leaf delta against ``other`` (the target), in this plan's
+        order; both plans must cover the same leaves."""
+        if set(self.leaves) != set(other.leaves):
+            missing = set(self.leaves) ^ set(other.leaves)
+            raise ValueError(
+                f"plans cover different trees ({len(self.leaves)} vs "
+                f"{len(other.leaves)} leaves; e.g. {sorted(missing)[:3]})")
+        entries = []
+        for p, lp in self.leaves.items():
+            tp = other.leaves[p]
+            if lp.scheme_id == tp.scheme_id and lp.backend == tp.backend:
+                continue
+            entries.append(LeafDiff(
+                path=p, from_scheme=lp.scheme_id, to_scheme=tp.scheme_id,
+                from_backend=lp.backend, to_backend=tp.backend,
+                stored_bytes_delta=tp.stored_bytes - lp.stored_bytes))
+        return PlanDiff(entries=tuple(entries))
+
+    def with_leaves(self, leaves: dict) -> "ProtectionPlan":
+        """A new plan with some leaves replaced (``{path: LeafPlan}``)."""
+        unknown = set(leaves) - set(self.leaves)
+        if unknown:
+            raise KeyError(f"not in this plan: {sorted(unknown)[:3]}")
+        return ProtectionPlan(self.policy, {**self.leaves, **leaves},
+                              kv_policy=self.kv_policy)
+
+    def migrate_step(self, enc_tree, target: "ProtectionPlan",
+                     paths) -> tuple:
+        """Promote the leaves ``paths`` to their ``target`` scheme in the
+        encoded tree (:func:`transcode_leaf` on the target leaf's backend)
+        and adopt the target's ``LeafPlan`` for them.
+        -> ``(new_enc_tree, new_plan, records)``, one ``{path, from, to,
+        corrected, due}`` record per promoted leaf, in plan order. The
+        serve step keeps working across the swap: decode dispatches on
+        each ``ProtectedTensor.scheme_id``."""
+        want = set(paths)
+        todo = [p for p in self.leaves if p in want]
+        if len(todo) != len(want):
+            raise KeyError(f"paths not in plan: "
+                           f"{sorted(want - set(todo))[:3]}")
+        todo_set = set(todo)
+        for p in todo:
+            if target.leaves[p].scheme_id is None:
+                raise ValueError(f"target leaves {p!r} unprotected — "
+                                 "migration only moves between schemes")
+        records = []
+
+        def mig(path, leaf):
+            p = tree.path_str(path)
+            if p not in todo_set:
+                return leaf
+            if not is_protected_tensor(leaf):
+                raise ValueError(f"{p!r} is not a ProtectedTensor in the "
+                                 "encoded tree")
+            tp = target.leaves[p]
+            new, cor, due = transcode_leaf(leaf, tp.scheme_id,
+                                           backend=tp.backend or "torch")
+            records.append({"path": p, "from": leaf.scheme_id,
+                            "to": tp.scheme_id, "corrected": int(cor),
+                            "due": int(due)})
+            return new
+
+        new_tree = tree.map_with_path(mig, enc_tree)
+        new_plan = self.with_leaves({p: target.leaves[p] for p in todo})
+        return new_tree, new_plan, records
 
     def coverage(self):
         from .policy import CoverageEntry, CoverageReport
@@ -212,17 +387,30 @@ class ProtectionPlan:
                           lp.stored_bytes, lp.pad_bytes) for lp in self])
 
     def encode_leaf(self, path, w):
-        """Encode one leaf under its planned scheme (unprotected leaves pass
-        through) — the hook that lets a model be built and encoded one leaf
-        at a time."""
+        """Encode one leaf under its planned scheme and backend (unprotected
+        leaves pass through) — the hook that lets a model be built and
+        encoded one leaf at a time."""
         lp = self._leaf(path)
         if not lp.protected:
             return w
-        return self.policy.encode_leaf(w, lp.scheme_id)
+        return self.policy.encode_leaf(w, lp.scheme_id, backend=lp.backend)
 
     def encode_tree(self, params):
-        """float params -> tree with ``ProtectedTensor`` leaves."""
+        """float params -> tree with ``ProtectedTensor`` leaves, each under
+        its planned scheme and backend."""
         return tree.map_with_path(self.encode_leaf, params)
+
+    def decode_tree(self, enc_tree, dtype=torch.bfloat16):
+        """Decode with each leaf's planned backend: one tree may mix
+        schemes and backends."""
+        from .policy import decode_leaf
+
+        def dec(path, leaf):
+            if not is_protected_tensor(leaf):
+                return leaf
+            return decode_leaf(leaf, dtype,
+                               backend=self._leaf(path).backend)
+        return tree.map_with_path(dec, enc_tree)
 
 
 def make_plan(policy, params) -> ProtectionPlan:
@@ -243,8 +431,50 @@ def make_plan(policy, params) -> ProtectionPlan:
         aligned = len(shape) >= 1 and shape[-1] % BLOCK == 0
         pad = 0 if aligned else (-n) % BLOCK
         checks = int((n + pad) * scheme.check_ratio)
+        be, be_src = policy.resolve_backend(p, shape)
+        # tile hints for the per-layer matmul: a stacked (L, K, N) leaf is
+        # sliced to (K, N), so the trailing two dims key the lookup
+        tiles = int8_tiles = None
+        tiles_src = ""
+        if policy.autotune is not None and len(shape) >= 2:
+            tiles, f_src = policy.autotune.lookup_tiles_src(shape[-2:])
+            int8_tiles, i_src = policy.autotune.lookup_tiles_src(
+                shape[-2:], key="int8_tiles")
+            srcs = {s for s in (f_src, i_src) if s}
+            tiles_src = ("nearest" if "nearest" in srcs
+                         else "exact" if srcs else "")
         leaves[p] = LeafPlan(
-            p, scheme.scheme_id, "", policy.backend.name,
+            p, scheme.scheme_id, "", be.name,
             "same-shape" if aligned else "flat-padded", shape, n,
-            shape if aligned else (n + pad,), pad, checks, n + pad + checks)
+            shape if aligned else (n + pad,), pad, checks, n + pad + checks,
+            backend_src=be_src, tiles=tiles, int8_tiles=int8_tiles,
+            tiles_src=tiles_src)
     return ProtectionPlan(policy, leaves)
+
+
+# MLP / FFN / expert projections: what attn-inplace-mlp-secded moves to the
+# standard SEC-DED(72,64) code (the reference's pattern)
+_MLP_PAT = (r"(^|/)(mlp|ffn|w_gate|w_up|w_down|"
+            r"we_gate|we_up|we_down|ws_gate|ws_up|ws_down)(/|$)")
+
+# preset name -> ProtectionPolicy keyword arguments (the reference's)
+POLICY_PRESETS: dict = {
+    "all-in-place": {},
+    "all-secded72": {"default_scheme": "secded72"},
+    "attn-inplace-mlp-secded": {"default_scheme": "in-place",
+                                "rules": [(_MLP_PAT, "secded72")]},
+    "unprotected": {"default_scheme": "faulty"},
+}
+
+
+def get_policy_preset(name: str, **overrides):
+    """A named preset ``ProtectionPolicy``; keyword arguments override the
+    preset's (e.g. ``predicate=``, ``backend=``, ``autotune=``)."""
+    from .policy import ProtectionPolicy
+    try:
+        kw = dict(POLICY_PRESETS[name])
+    except KeyError:
+        raise ValueError(f"unknown policy preset {name!r}; one of "
+                         f"{sorted(POLICY_PRESETS)}") from None
+    kw.update(overrides)
+    return ProtectionPolicy(**kw)

@@ -1,27 +1,31 @@
-"""``ProtectionPolicy`` — which leaves of a parameter tree get protected.
+"""``ProtectionPolicy`` — which leaves of a parameter tree get protected,
+and how.
 
-Counterpart of ``repro.protection.policy`` for a single-scheme policy:
-``predicate`` (default ``wot.is_protected_weight``: matmul/conv/embedding
-weights, not norms or biases) picks the protectable leaves, every one of
-them is quantized, WOT-throttled and encoded under the default scheme, and
-tensors whose last dim is not a block multiple are padded into the flat
-layout. Beside it, the policy-free tree ops the campaigns use: decode
-(with and without fault flags), host and device fault injection, and the
-space overhead. Per-leaf regex rules, backend rules, the autotune table
-and the ``pad``/``throttle`` options are not ported yet.
+Counterpart of ``repro.protection.policy``: ``predicate`` (default
+``wot.is_protected_weight``: matmul/conv/embedding weights, not norms or
+biases) picks the protectable leaves; ordered regex ``rules`` give a leaf
+another scheme or none, so one model mixes schemes; tensors whose last dim
+is not a block multiple are padded into the flat layout (``pad``) or left
+as coverage gaps; ``throttle`` applies the WOT clamp before encoding; and
+each leaf's codec route resolves from ``backend_rules``, then the
+shape-keyed ``autotune`` table, then ``backend``. Beside it, the
+policy-free tree ops the campaigns use: decode (with and without fault
+flags), host and device fault injection, and the space overhead. The
+reference's mesh specs (``spec_tree``, ``param_spec_fn``) are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import re
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from repro_torch import tree
-from repro_torch.core import faults, wot
+from repro_torch.core import faults, quant, wot
 
-from .backends import get_backend
-from .schemes import get_scheme
+from .backends import AutotuneTable, get_backend
+from .schemes import Scheme, get_scheme
 from .tensor import ProtectedTensor, is_protected_tensor
 
 __all__ = ["ProtectionPolicy", "CoverageReport", "CoverageEntry",
@@ -37,7 +41,7 @@ path_str = tree.path_str
 class CoverageEntry:
     path: str
     scheme_id: Optional[str]   # None => not protected
-    reason: str                # "" | "predicate"
+    reason: str                # "" | "predicate" | "rule" | "unaligned"
     n_weights: int
     nbytes: int                # stored bytes if protected, raw bytes if not
     pad_bytes: int
@@ -62,12 +66,27 @@ class CoverageReport:
         return [e for e in self.entries if not e.protected]
 
     @property
+    def n_protected(self) -> int:
+        return len(self.protected)
+
+    @property
+    def n_unprotected(self) -> int:
+        return len(self.unprotected)
+
+    @property
     def protected_bytes(self) -> int:
         return sum(e.nbytes for e in self.protected)
 
     @property
     def unprotected_bytes(self) -> int:
         return sum(e.nbytes for e in self.unprotected)
+
+    @property
+    def unprotected_weight_bytes(self) -> int:
+        """Bytes of weight leaves left unprotected as unaligned
+        (``pad=False``): the coverage gaps."""
+        return sum(e.nbytes for e in self.unprotected
+                   if e.reason == "unaligned")
 
     @property
     def pad_bytes(self) -> int:
@@ -89,56 +108,146 @@ class CoverageReport:
         if self.pad_bytes:
             lines.append(f"  flat-padded layout added {self.pad_bytes} "
                          f"pad bytes")
+        gaps = [e for e in self.unprotected if e.reason == "unaligned"]
+        if gaps:
+            lines.append(f"  WARNING: {len(gaps)} weight tensors "
+                         f"({self.unprotected_weight_bytes} bytes) left "
+                         f"unprotected (unaligned, pad=False):")
+            lines.extend(f"    {e.path} ({e.n_weights} elems)" for e in gaps)
         return "\n".join(lines)
 
 
 class ProtectionPolicy:
-    """Single-scheme protection strategy.
+    """Per-leaf protection strategy.
 
-    default_scheme: scheme id applied to every protectable leaf.
+    default_scheme: scheme id of every leaf the predicate selects.
+    rules:          ordered ``(pattern, scheme_id_or_None)`` pairs; the first
+                    regex that matches the leaf's path wins; ``None`` (or
+                    ``"none"``) leaves that leaf unprotected.
     predicate:      ``(path, leaf) -> bool`` choosing the protectable leaves
                     (default ``wot.is_protected_weight``; the paper's CNN
                     evaluation protects every leaf of >= 2 dims).
-    backend:        "torch" | "cuda" | a Backend — the block-codec route.
+    pad:            pad tensors whose last dim is not a multiple of 8 into
+                    the flat layout (default), or leave them unprotected
+                    (reason "unaligned").
+    throttle:       WOT-clamp the quantized weights before encoding
+                    (idempotent on WOT-trained weights; the in-place code
+                    needs it).
+    backend:        "torch" | "cuda" | a Backend: the default codec route.
+    backend_rules:  ordered ``(pattern, backend)`` pairs resolved per leaf.
+    autotune:       an :class:`AutotuneTable` (or the path of its JSON)
+                    consulted by shape when no backend rule matches.
     """
 
     def __init__(self, default_scheme: str = "in-place",
-                 predicate: Optional[Callable] = None, *, backend="torch"):
+                 rules: Sequence = (), predicate: Optional[Callable] = None,
+                 *, pad: bool = True, throttle: bool = True,
+                 backend="torch", backend_rules: Sequence = (),
+                 autotune=None):
         get_scheme(default_scheme)  # validate eagerly
         self.default_scheme = default_scheme
+        self.rules = [(re.compile(pat), sid) for pat, sid in rules]
+        for _, sid in self.rules:
+            if sid not in (None, "none"):
+                get_scheme(sid)
         self.predicate = predicate or wot.is_protected_weight
+        self.pad = pad
+        self.throttle = throttle
         self.backend = get_backend(backend)
+        self.backend_rules = [(re.compile(pat), get_backend(be))
+                              for pat, be in backend_rules]
+        if isinstance(autotune, (str, bytes)):
+            autotune = AutotuneTable.from_json(autotune)
+        self.autotune = autotune
+
+    # -- selection -----------------------------------------------------------
+
+    def scheme_for(self, path, leaf) -> Optional[Scheme]:
+        """Scheme for one leaf, or None if it stays unprotected."""
+        sid, _ = self._plan(path, leaf)
+        return get_scheme(sid) if sid is not None else None
 
     def _plan(self, path, leaf) -> tuple:
-        """-> (scheme_id | None, reason)."""
+        """-> (scheme_id | None, reason), in the reference's precedence:
+        predicate, then the first matching rule, then alignment."""
         if not self.predicate(path, leaf):
             return None, "predicate"
-        return self.default_scheme, ""
+        sid = self.default_scheme
+        p = path_str(path)
+        for pat, rule_sid in self.rules:
+            if pat.search(p):
+                if rule_sid in (None, "none"):
+                    return None, "rule"
+                sid = rule_sid
+                break
+        aligned = leaf.ndim >= 1 and leaf.shape[-1] % BLOCK == 0
+        if not aligned and not self.pad:
+            return None, "unaligned"
+        return sid, ""
+
+    def resolve_backend(self, path: str, shape) -> tuple:
+        """Per-leaf route: the first matching backend rule, then the
+        autotune table by shape, then the policy default.
+        -> ``(Backend, "rule" | "autotune" | "policy")``."""
+        for pat, be in self.backend_rules:
+            if pat.search(path):
+                return be, "rule"
+        if self.autotune is not None:
+            best = self.autotune.lookup(shape)
+            if best is not None:
+                return get_backend(best), "autotune"
+        return self.backend, "policy"
 
     def plan(self, params):
         """Materialize every per-leaf decision once (see ``plan.make_plan``)."""
         from .plan import make_plan
         return make_plan(self, params)
 
-    def encode_leaf(self, w: torch.Tensor, scheme) -> ProtectedTensor:
-        """float weight -> quantize -> WOT throttle -> scheme-encode."""
+    # -- leaf codec ----------------------------------------------------------
+
+    def encode_leaf(self, w: torch.Tensor, scheme,
+                    backend=None) -> ProtectedTensor:
+        """float weight -> quantize -> WOT throttle (``throttle``) ->
+        scheme-encode, on ``backend`` (default the policy's)."""
         scheme = get_scheme(scheme)
-        # quantize + WOT throttle on the backend's route over whole blocks:
-        # a ragged tail is zero-padded in f32, which changes neither the
-        # scale nor any real q, and quantizes to the flat layout's zero pad
-        q, scale = self.backend.quantize_throttle(wot.as_blocks(w))
+        be = self.backend if backend is None else get_backend(backend)
+        # quantize (+ throttle) over whole blocks: a ragged tail is
+        # zero-padded in f32, which changes neither the scale nor any real
+        # q, and quantizes to the flat layout's zero pad
+        blocks = wot.as_blocks(w)
+        if self.throttle:
+            q, scale = be.quantize_throttle(blocks)
+        else:
+            q, scale = quant.quantize(blocks.to(torch.float32))
         if w.ndim >= 1 and w.shape[-1] % BLOCK == 0:
             q_img = q.reshape(w.shape)        # same-shape layout
         else:
             q_img = q.reshape(-1)             # flat-padded layout
-        enc, checks = scheme.encode(q_img, self.backend)
+        enc, checks = scheme.encode(q_img, be)
         return ProtectedTensor(enc=enc, checks=checks,
                                scale=scale.to(torch.float32),
                                scheme_id=scheme.scheme_id,
                                orig_shape=tuple(w.shape))
 
+    def decode_leaf(self, pt: ProtectedTensor, dtype=torch.bfloat16):
+        return decode_leaf(pt, dtype, backend=self.backend)
+
+    # -- tree codec (views over the plan) ------------------------------------
+
     def encode_tree(self, params):
         return self.plan(params).encode_tree(params)
+
+    def decode_tree(self, enc_tree, dtype=torch.bfloat16):
+        """Decode with per-leaf backend resolution (rules + autotune)."""
+        if not self.backend_rules and self.autotune is None:
+            return decode_tree(enc_tree, dtype, backend=self.backend)
+
+        def dec(path, leaf):
+            if not is_protected_tensor(leaf):
+                return leaf
+            be, _ = self.resolve_backend(path_str(path), leaf.orig_shape)
+            return decode_leaf(leaf, dtype, backend=be)
+        return tree.map_with_path(dec, enc_tree)
 
     def coverage(self, params) -> CoverageReport:
         return self.plan(params).coverage()

@@ -34,11 +34,19 @@ pages freed back to the pool and zeroed) and a seeded burst driver
   their last reference drops; under pool pressure admission evicts cached
   pages least-recently-hit first.
 
-Self-healing (the reference's background scrub, MILR repair and rolling
-plan migration) is not ported yet: ``scrub_every > 0``, ``repair``,
-``repair_kit`` and :meth:`ServingFrontend.start_migration` raise
-``NotImplementedError``. The port updates the cache IN PLACE where the
-reference returns new arrays.
+* **Self-healing.** With ``scrub_every > 0`` each matching step runs a
+  budgeted scrub pass (:mod:`repro_torch.serving.scrubber`) over the
+  encoded weights and the live KV pages BEFORE the serve compute, so
+  corrected bits land before anything decodes them; weight leaves the
+  scrub refuses to write back (DUE) go to MILR repair or quarantine when a
+  ``repair_kit`` is attached. :meth:`ServingFrontend.start_migration`
+  drains a plan diff leaf by leaf between steps, and
+  :meth:`ServingFrontend.final_scrub` checks the at-rest state after the
+  run. All of it emits ``scrub`` / ``migrate`` / ``repair`` /
+  ``scrub_final`` telemetry within the determinism contract.
+
+The port updates the cache IN PLACE where the reference returns new
+arrays.
 """
 from __future__ import annotations
 
@@ -53,15 +61,13 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.protection import policy as policy_mod
+from repro_torch.protection import repair as repair_mod
 
-from . import kvcache, telemetry
+from . import kvcache, scrubber, telemetry
 from . import protected as sp
 
 __all__ = ["Request", "RequestQueue", "ServingFrontend", "make_waves",
            "run_burst"]
-
-_HEALING = ("self-healing (scrub, MILR repair, plan migration) is not "
-            "ported yet; it comes with the scrubber")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,9 +160,13 @@ class ServingFrontend:
     step :attr:`last_flags` holds that step's flags dict (on the device)
     and :attr:`last_active` the slots that served a request in it.
 
-    ``backend`` routes the weight and KV codecs and the attention ("cuda":
-    the kernels; default: the kernels on the card, the plain route on the
-    CPU); ``device`` defaults to the card."""
+    ``backend`` routes the weight and KV codecs, the scrub and the
+    attention ("cuda": the kernels; default: the kernels on the card, the
+    plain route on the CPU); ``device`` defaults to the card.
+    ``scrub_every`` (0: off) scrubs ``scrub_weight_leaves`` weight leaves
+    and ``scrub_kv_pages`` live pages every that many steps;
+    ``repair_kit`` (``protection.repair.build_repair_kit``) repairs the
+    weight leaves a scrub finds with a DUE."""
 
     def __init__(self, cfg: ArchConfig, enc_params, *, plan=None,
                  slots: int = 4, max_len: int = 128,
@@ -164,14 +174,14 @@ class ServingFrontend:
                  serve_step=None, collector=None, dtype=torch.bfloat16,
                  act_quant: Optional[str] = None,
                  prefix_sharing: bool = False, scrub_every: int = 0,
+                 scrub_weight_leaves: int = 1, scrub_kv_pages: int = 4,
                  repair_kit=None, backend=None, device=None):
         if scrub_every < 0:
             raise ValueError("scrub_every must be >= 0")
-        if scrub_every or repair_kit is not None:
-            raise NotImplementedError(_HEALING)
         self.device = device_mod.resolve(device)
         if backend is None:
             backend = device_mod.default_backend(self.device)
+        self.backend = backend
         kvp = kvcache.get_kv_policy(kv_policy)
         # per-request attribution on every path (see the module docstring)
         kvp = dataclasses.replace(kvp, per_slot_flags=True)
@@ -205,6 +215,13 @@ class ServingFrontend:
         self.last_active: tuple = ()
         self._slots: list = [None] * slots
         self._pending_meta: dict = {}   # rid -> (enqueue_step, enqueue_s)
+        self.scrub_every = scrub_every
+        self.repair_kit = repair_kit
+        self.scrubber = scrubber.Scrubber(
+            leaves_per_step=scrub_weight_leaves,
+            pages_per_step=scrub_kv_pages, backend=backend)
+        self._migrator: Optional[scrubber.Migrator] = None
+        self._migrate_every = 1
         self.telemetry.emit("init", slots=slots, n_pages=n_pages,
                             pool_free=self.allocator.free_count,
                             page_size=kvp.page_size, max_len=self.max_len,
@@ -212,7 +229,8 @@ class ServingFrontend:
                             attention_impl=kvp.attention_impl,
                             per_slot_flags=kvp.per_slot_flags,
                             prefix_sharing=self.prefix_sharing,
-                            scrub_every=scrub_every, repair=False)
+                            scrub_every=scrub_every,
+                            repair=repair_kit is not None)
 
     # -- request intake ----------------------------------------------------
 
@@ -345,8 +363,98 @@ class ServingFrontend:
                                     slot=free_slot, src=shared[-1],
                                     dst=fresh[0])
 
-    def start_migration(self, target_plan, **_):
-        raise NotImplementedError(_HEALING)
+    # -- self-healing: scrub, repair, migrate ------------------------------
+
+    def start_migration(self, target_plan, *, leaves_per_step: int = 1,
+                        every: int = 1) -> "scrubber.Migrator":
+        """Begin a rolling migration to ``target_plan``: every ``every``
+        steps the next ``leaves_per_step`` scheme-changed leaves are
+        transcoded and the front-end's plan swapped for the promoted one.
+        Serving continues throughout: decode dispatches on each leaf's own
+        scheme id."""
+        if self.plan is None:
+            raise ValueError("front-end was built without a plan — "
+                             "nothing to diff a migration against")
+        if self._migrator is not None and not self._migrator.done:
+            raise RuntimeError("a migration is already in flight")
+        self._migrator = scrubber.Migrator(self.plan, target_plan,
+                                           leaves_per_step=leaves_per_step)
+        self._migrate_every = max(1, every)
+        self.telemetry.emit("migrate", step=self.step_no, phase="start",
+                            pending=len(self._migrator.pending))
+        return self._migrator
+
+    @property
+    def migration_done(self) -> bool:
+        return self._migrator is None or self._migrator.done
+
+    def _busy_pages(self) -> set:
+        """Each active slot's current write-target page."""
+        ps = self.policy.page_size
+        return {s.pages[min(s.consumed // ps, len(s.pages) - 1)]
+                for s in self._slots if s is not None}
+
+    def _repair(self, due_paths):
+        """Hand scrub-detected DUE leaves to MILR repair or quarantine."""
+        self.enc_params, reports = repair_mod.repair_tree(
+            self.enc_params, self.repair_kit, paths=due_paths,
+            backend=self.backend)
+        for r in reports:
+            self.telemetry.emit("repair", step=self.step_no, **r)
+        return reports
+
+    def _heal(self):
+        """The per-step maintenance slice, after admission and BEFORE the
+        serve compute, so written-back corrections land before anything
+        decodes them."""
+        mig = self._migrator
+        if (mig is not None and not mig.done
+                and self.step_no % self._migrate_every == 0):
+            self.enc_params, recs = mig.step(self.enc_params)
+            self.plan = mig.plan
+            for r in recs:
+                self.telemetry.emit("migrate", step=self.step_no,
+                                    phase="promote",
+                                    pending=len(mig.pending), **r)
+        if self.scrub_every and self.step_no % self.scrub_every == 0:
+            self.enc_params, wst = self.scrubber.scrub_weights(
+                self.enc_params)
+            if wst["due_paths"] and self.repair_kit is not None:
+                self._repair(wst["due_paths"])
+            self.cache, kst = self.scrubber.scrub_kv(
+                self.cache, self.policy,
+                occupied=self.allocator.live_pages(),
+                busy=self._busy_pages())
+            self.telemetry.emit(
+                "scrub", step=self.step_no,
+                w_scanned=wst["scanned"], w_corrected=wst["corrected"],
+                w_due=wst["due"], kv_scanned=kst["scanned"],
+                kv_corrected=kst["corrected"], kv_due=kst["due"])
+
+    def final_scrub(self) -> dict:
+        """One full at-rest pass after the loop drains: every protected
+        weight leaf (DUE leaves repaired or quarantined with a kit, then
+        counted again), every live KV page, and the re-zeroing of free and
+        parking pages. Emits ``scrub_final`` and returns its fields:
+        ``w_due`` / ``kv_due`` are the residual uncorrectable state."""
+        self.enc_params, wst = self.scrubber.scrub_weights(self.enc_params,
+                                                           n=-1)
+        repaired = 0
+        wst2 = wst
+        if wst["due_paths"] and self.repair_kit is not None:
+            repaired = len(self._repair(wst["due_paths"]))
+            self.enc_params, wst2 = self.scrubber.scrub_weights(
+                self.enc_params, n=-1)
+        self.cache, kst = self.scrubber.scrub_kv(
+            self.cache, self.policy, occupied=self.allocator.live_pages(),
+            n=-1)
+        self.cache = self.scrubber.scrub_free(self.cache, self.allocator)
+        out = {"w_scanned": wst["scanned"], "w_corrected": wst["corrected"],
+               "w_repaired": repaired, "w_due": wst2["due"],
+               "kv_scanned": kst["scanned"],
+               "kv_corrected": kst["corrected"], "kv_due": kst["due"]}
+        self.telemetry.emit("scrub_final", step=self.step_no, **out)
+        return out
 
     # -- the serving loop --------------------------------------------------
 
@@ -382,6 +490,7 @@ class ServingFrontend:
         (idle slots feed a keep-alive token into their parking page),
         sample greedily, advance lifecycles, emit telemetry."""
         self._admit()
+        self._heal()
         t0 = time.perf_counter()
         tokens = np.zeros((self.slots_n, 1), np.int64)
         pos = np.zeros((self.slots_n,), np.int32)
@@ -514,7 +623,8 @@ def run_burst(cfg: ArchConfig, enc_params, *, plan=None, waves: Sequence,
               telemetry_path: Optional[str] = None, serve_step=None,
               max_steps: int = 10_000, dtype=torch.bfloat16,
               prefix_sharing: bool = False,
-              scrub_every: int = 0, repair: bool = False, repair_kit=None,
+              scrub_every: int = 0, scrub_weight_leaves: int = 1,
+              scrub_kv_pages: int = 4, repair: bool = False, repair_kit=None,
               weight_fault_rate: float = 0.0,
               before_step: Optional[Callable] = None,
               after_step: Optional[Callable] = None, backend=None,
@@ -533,18 +643,30 @@ def run_burst(cfg: ArchConfig, enc_params, *, plan=None, waves: Sequence,
     injection) and ``after_step(fe)`` after it: the hooks through which a
     test applies the same fault masks to two front-ends or reads each
     step's per-slot flags (``fe.last_flags``). Returns ``(events, summary,
-    results)``. Self-healing (``scrub_every``, ``repair``, ``repair_kit``)
-    raises ``NotImplementedError``."""
-    if repair:
-        raise NotImplementedError(_HEALING)
+    results)``.
+
+    ``scrub_every > 0`` turns on the budgeted self-healing slice
+    (``scrub_weight_leaves`` / ``scrub_kv_pages`` a pass) and ends the run
+    with :meth:`ServingFrontend.final_scrub`, so the summary's ``healing``
+    roll-up reports the residual at-rest DUE state; ``repair=True`` pins a
+    MILR repair kit from the (clean) entry tree first, seeded from
+    ``fault_seed``, or pass a ``repair_kit`` built before faults."""
     col = telemetry.TelemetryCollector(telemetry_path)
     try:
+        kit = repair_kit
+        if repair and kit is None:
+            kit = repair_mod.build_repair_kit(
+                enc_params, seed=fault_seed,
+                backend=backend or device_mod.default_backend(
+                    device_mod.resolve(device)))
         fe = ServingFrontend(cfg, enc_params, plan=plan, slots=slots,
                              max_len=max_len, n_pages=n_pages,
                              kv_policy=kv_policy, serve_step=serve_step,
                              collector=col, dtype=dtype,
                              prefix_sharing=prefix_sharing,
-                             scrub_every=scrub_every, repair_kit=repair_kit,
+                             scrub_every=scrub_every,
+                             scrub_weight_leaves=scrub_weight_leaves,
+                             scrub_kv_pages=scrub_kv_pages, repair_kit=kit,
                              backend=backend, device=device)
         pending = sorted(waves, key=lambda r: (r.arrival_step, r.rid))
         i = 0
@@ -576,6 +698,8 @@ def run_burst(cfg: ArchConfig, enc_params, *, plan=None, waves: Sequence,
                 after_step(fe)
         else:
             raise RuntimeError(f"burst not drained after {max_steps} steps")
+        if scrub_every > 0:
+            fe.final_scrub()
     finally:
         col.close()
     return col.events, telemetry.summarize(col.events), fe.results

@@ -50,7 +50,7 @@ __all__ = ["KVProtectionPolicy", "KV_POLICY_PRESETS", "get_kv_policy",
            "supports_paged", "pages_per_seq", "pages_needed",
            "init_paged_cache", "init_cache", "paged_gqa_decode",
            "paged_gqa_prefill", "as_protected_tree", "from_protected_tree",
-           "tree_layer_flags",
+           "tree_layer_flags", "cache_layer_flags",
            "kv_bytes", "dense_kv_bytes", "PageAllocator", "set_slot_pages",
            "zero_pages", "copy_page"]
 
@@ -592,6 +592,14 @@ def tree_layer_flags(tree: dict, backend="torch") -> torch.Tensor:
              for x in (cor, due)], dim=-1)
         out = pair if out is None else out + pair
     return out
+
+
+def cache_layer_flags(cache: dict, policy, backend=None) -> torch.Tensor:
+    """:func:`tree_layer_flags` directly on a paged cache dict (on
+    ``backend``, default the policy's)."""
+    policy = get_kv_policy(policy)
+    return tree_layer_flags(as_protected_tree(cache, policy),
+                            backend or policy.backend)
 
 
 def dense_kv_bytes(cfg: ArchConfig, batch: int, max_len: int,

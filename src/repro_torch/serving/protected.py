@@ -1,19 +1,21 @@
 """Protected serving: the decode-at-use serve step, prefill and int8
 calibration.
 
-Counterpart of ``repro.serving.protected`` in its decode-at-use mode with
-flags. Weights stay resident as ``ProtectedTensor`` leaves; every
-projection decodes its weight at the point of use — through the fused
-decode+matmul kernel on the ``cuda`` route, or inline per leaf on the
-``torch`` route — so no decoded copy of the tree is kept. The serve step
-returns logits and the (corrected, DUE) counts each layer's decodes
-observed, plus (checksum mismatches, clamp hits) rows when the plan
-guards its matmuls (``plan.with_abft``, ``with_act_quant(...,
-clamp=True)``). ``act_quant`` serves the projections over the int8 path;
-:func:`calibrate_act_scales` derives its static scales. The prefill fills
-a paged protected KV cache from a prompt, or without a KV policy runs the
-cache-less ``lm.forward``. The whole-tree decode ablations are not ported
-yet.
+Counterpart of ``repro.serving.protected``. Weights stay resident as
+``ProtectedTensor`` leaves; every projection decodes its weight at the
+point of use — through the fused decode+matmul kernel on the ``cuda``
+route, or inline per leaf on the ``torch`` route — so no decoded copy of
+the tree is kept. The serve step returns logits and the (corrected, DUE)
+counts each layer's decodes observed, plus (checksum mismatches, clamp
+hits) rows when the plan guards its matmuls (``plan.with_abft``,
+``with_act_quant(..., clamp=True)``). ``act_quant`` serves the
+projections over the int8 path; :func:`calibrate_act_scales` derives its
+static scales. The prefill fills a paged protected KV cache from a prompt,
+or without a KV policy runs the cache-less ``lm.forward``. The reference's
+ablations are kept: ``decode_at_use=False`` decodes the whole tree each
+step (or each prefill), ``decode_per_step=False`` serves a tree decoded
+once outside the step. A plan that carries a KV policy
+(``plan.with_kv_policy``) sets the default ``kv_policy``.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
 from repro_torch.protection.backends import get_backend
 from repro_torch.protection.fused import ProtectedWeight, is_matmul_weight
-from repro_torch.protection.policy import decode_leaf_with_flags
+from repro_torch.protection.policy import (decode_leaf_with_flags,
+                                           decode_tree)
 from repro_torch.protection.tensor import ProtectedTensor, is_protected_tensor
 
 from . import kvcache
@@ -171,9 +174,12 @@ def _use_tree(enc_params, router: _Router, dtype, recorder: L.FlagRecorder):
     return out
 
 
-def _kv_policy(kv_policy, attention_impl, backend):
-    """Resolve the KV policy, apply the ``attention_impl`` override and set
-    the codec route to the step's ``backend``."""
+def _kv_policy(kv_policy, attention_impl, backend, plan=None):
+    """Resolve the KV policy (default: the plan's), apply the
+    ``attention_impl`` override and set the codec route to the step's
+    ``backend``."""
+    if kv_policy is None and plan is not None:
+        kv_policy = plan.kv_policy
     kvp = kvcache.get_kv_policy(kv_policy)
     if attention_impl is not None:
         if kvp is None:
@@ -193,11 +199,32 @@ def _top_rows(recorder: L.FlagRecorder, top) -> dict:
     return rows
 
 
-def make_serve_step(cfg: ArchConfig, *, plan=None, dtype=torch.bfloat16,
-                    backend="torch", kv_policy=None,
-                    attention_impl=None, act_quant=None):
+def _decoder(plan, dtype, backend):
+    """The whole-tree decode of the ablations: the plan's (each leaf on its
+    planned route) or the step's ``backend`` for every leaf."""
+    if plan is not None:
+        return lambda enc_params: plan.decode_tree(enc_params, dtype)
+    be = get_backend(backend)
+    return lambda enc_params: decode_tree(enc_params, dtype, backend=be)
+
+
+def make_serve_step(cfg: ArchConfig, *, plan=None,
+                    decode_per_step: bool = True, decode_at_use=None,
+                    dtype=torch.bfloat16, backend="torch", with_flags=None,
+                    kv_policy=None, attention_impl=None, act_quant=None):
     """``serve_step(enc_params, cache, tokens, pos) -> (logits, cache,
-    flags)``.
+    flags)``, or ``(logits, cache)`` with ``with_flags=False``.
+
+    ``with_flags`` defaults to True on the decode-at-use step (the
+    reference's default is False) and to False on the whole-tree paths,
+    which discard flags: asking them for flags raises ``ValueError``, as
+    the reference does. ``decode_at_use`` defaults to ``decode_per_step``.
+    ``decode_at_use=False`` is the whole-tree ablation: every step decodes
+    the whole tree (the plan's routes, else ``backend``), then runs the
+    model on the float weights; ``decode_per_step=False`` serves
+    ``enc_params`` as given: a tree decoded once, outside the step (e.g.
+    ``plan.decode_tree(enc)``). ``act_quant`` needs the decode-at-use step
+    (``ValueError`` otherwise).
 
     Decode at use: each weight decodes at its point of use. ``plan`` routes
     each planned leaf by its backend; without one, ``backend`` ("torch" |
@@ -217,9 +244,30 @@ def make_serve_step(cfg: ArchConfig, *, plan=None, dtype=torch.bfloat16,
     "chunked") overrides the resolved KV policy's attention routing — the
     switch onto the page-chunked kernel for long contexts. ``act_quant`` (None |
     "dynamic" | "static" | "plan") serves the projections over the int8
-    path (see :class:`_Router`).
+    path (see :class:`_Router`). ``kv_policy`` defaults to the plan's
+    (``plan.with_kv_policy``).
     """
-    kvp = _kv_policy(kv_policy, attention_impl, backend)
+    kvp = _kv_policy(kv_policy, attention_impl, backend, plan)
+    if decode_at_use is None:
+        decode_at_use = decode_per_step
+    at_use = decode_at_use and decode_per_step
+    if with_flags is None:
+        with_flags = at_use
+    if act_quant is not None and not at_use:
+        raise ValueError("act_quant needs the decode-at-use serve step (the "
+                         "whole-tree decode paths serve float weights)")
+    if not at_use:
+        if with_flags:
+            raise ValueError("with_flags needs the decode-at-use serve step "
+                             "(the whole-tree decode paths discard flags)")
+        decode = _decoder(plan, dtype, backend)
+
+        def whole_tree_step(enc_params, cache, tokens, pos):
+            params = decode(enc_params) if decode_per_step else enc_params
+            return lm.decode_step(cfg, params, cache, tokens, pos,
+                                  dtype=dtype, kv_policy=kvp)
+
+        return whole_tree_step
     per_slot = kvp is not None and kvp.per_slot_flags
     router = _Router(plan, backend, act_quant=act_quant,
                      abft_per_slot=per_slot)
@@ -235,6 +283,8 @@ def make_serve_step(cfg: ArchConfig, *, plan=None, dtype=torch.bfloat16,
             cfg, params, cache, tokens, pos, dtype=dtype,
             layer_transform=_layer_transform(router, dtype, recorder),
             recorder=recorder, kv_policy=kvp)
+        if not with_flags:
+            return logits, cache
         return logits, cache, {**_top_rows(recorder, top), **flags}
 
     return serve_step
@@ -260,18 +310,34 @@ def make_prefill(cfg: ArchConfig, *, plan=None, dtype=torch.bfloat16,
     plan, ``"top_abft"`` and the ``*_abft`` rows. ``backend`` routes the codec and
     the attention (the flash kernel on "cuda", with the hybrid family's
     sliding window where it is shorter than the prompt); ``chunk`` is the
-    plain route's attention chunk. The whole-tree decode ablation
-    (``decode_at_use=False``) raises ``NotImplementedError``.
+    plain route's attention chunk. ``kv_policy`` defaults to the plan's.
+    ``decode_at_use=False`` is the whole-tree ablation: the prefill decodes
+    the whole tree first (the plan's routes, else ``backend``) and runs on
+    the float weights, with the same call forms; it takes neither
+    ``act_quant`` nor ``with_flags`` (``ValueError``, as the reference).
     """
+    kvp = _kv_policy(kv_policy, attention_impl, backend, plan)
+    attention = get_backend(backend).name
     if not decode_at_use:
-        raise NotImplementedError("the whole-tree decode prefill ablation "
-                                  "(decode_at_use=False) is not ported yet: "
-                                  "it comes with the whole-tree decode "
-                                  "ablations of the serve step")
-    kvp = _kv_policy(kv_policy, attention_impl, backend)
+        if act_quant is not None:
+            raise ValueError("act_quant needs the decode-at-use prefill")
+        if with_flags:
+            raise ValueError("with_flags needs the decode-at-use prefill")
+        decode = _decoder(plan, dtype, backend)
+        if kvp is None:
+            def whole_tree_forward(enc_params, tokens, extras=None):
+                return lm.forward(cfg, decode(enc_params), tokens,
+                                  dtype=dtype, chunk=chunk,
+                                  attention=attention, **(extras or {}))
+            return whole_tree_forward
+
+        def whole_tree_prefill(enc_params, cache, tokens):
+            return lm.prefill_with_cache(cfg, decode(enc_params), cache,
+                                         tokens, dtype=dtype, chunk=chunk,
+                                         kv_policy=kvp)
+        return whole_tree_prefill
     router = _Router(plan, backend, act_quant=act_quant)
     track_abft = router.any_abft
-    attention = get_backend(backend).name
 
     def run(enc_params, cache, tokens, extras=None):
         recorder = L.FlagRecorder(tokens.device, abft=track_abft)

@@ -38,13 +38,21 @@ finish     rid, step, slot, n_generated, kv_corrected, kv_due, pool_free,
 step       step, active, queue_depth, pool_free, pool_cached,
            kv_corrected, kv_due, w_corrected, w_due, [step_ms]; with a
            guarded plan also abft_mismatches, clamp_hits
+scrub      step, w_scanned, w_corrected, w_due, kv_scanned, kv_corrected,
+           kv_due  (one budgeted healing pass; w_due counts the leaves
+           left for repair)
+scrub_final step, w_scanned, w_corrected, w_repaired, w_due, kv_scanned,
+           kv_corrected, kv_due  (the at-rest pass after the run; w_due
+           and kv_due are the residual uncorrectable state)
+migrate    step, phase="start", pending | step, phase="promote", path,
+           from, to, corrected, due, pending  (rolling plan migration)
+repair     step, path, status ("repaired" | "quarantined" |
+           "unrecoverable"), scheme, rows, due_blocks, residual
 ========== =================================================================
 
-The reference's self-healing events (scrub, scrub_final, migrate, repair)
-keep their roll-up here, so a summary has the same shape; the port's
-front-end does not emit them yet. ``pool_cached`` counts prefix-cache-held
-pages; the leak check is ``initial_free - final_free - final_cached ==
-0``.
+The healing events carry no wall field, so they sit inside the
+deterministic view. ``pool_cached`` counts prefix-cache-held pages; the
+leak check is ``initial_free - final_free - final_cached == 0``.
 """
 
 from __future__ import annotations

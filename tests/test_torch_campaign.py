@@ -462,7 +462,27 @@ def test_fault_injection_script_prints_the_reference_lines(tmp_path, capsys):
     rec = json.loads(path.read_text())
     assert sorted(rec) == sorted(f"resnet18/{s}" for s in SCHEMES)
     assert jprot.CampaignResult.from_dict(rec["resnet18/in-place"]).trials == 1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    # --policy adds the reference's "policy:<preset>" row; its space
+    # overhead is the reference plan's over the same ResNet18 shapes
+    res = fault_injection.main(["--device", "cpu", "--trials", "1",
+                                "--scale", "0.125", "--img", "16",
+                                "--pre-steps", "2", "--wot-steps", "2",
+                                "--policy", "all-secded72"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("table2_")]
+    assert lines[-1].startswith("table2_resnet18_policy:all-secded72,")
+    from repro.models import cnn as jcnn
+    shapes = jax.eval_shape(lambda: jcnn.init_resnet18(
+        jax.random.PRNGKey(0), n_classes=N_CLASSES, scale=0.125,
+        img_size=16))
+    summ = jprot.get_policy_preset("all-secded72", predicate=_ndim2).plan(
+        shapes).summary()
+    want = (summ["protected_bytes"] - summ["weight_bytes"]) / \
+        summ["weight_bytes"]
+    ovh, row, _ = res[("resnet18", "policy:all-secded72")]
+    assert ovh == pytest.approx(want, rel=1e-12) and len(row) == len(
+        fault_injection.RATES)
+    with pytest.raises(SystemExit):
         fault_injection.main(["--device", "cpu", "--policy", "mixed"])
 
 

@@ -24,12 +24,15 @@ import pytest
 import torch
 
 import torch_parity as P
+from repro.protection import repair as jrepair
 from repro.serving import frontend as jfe
 from repro.serving import kvcache as jkv
 from repro.serving import protected as jprot
 from repro.serving import telemetry as jtel
 from repro_torch import configs as tconfigs
 from repro_torch import convert
+from repro_torch.models import lm as tlm
+from repro_torch.protection import get_policy_preset, repair
 from repro_torch.serving import frontend, kvcache, protected, telemetry
 
 ARCH = "deepseek-7b"
@@ -338,17 +341,65 @@ def test_burst_telemetry_files_and_cli(tmp_path):
 
 
 def test_self_healing_raises_until_ported(rig):
-    cfg, _, _, port_enc = rig
+    """Self-healing is ported: a burst over parity-zero KV with a scrub
+    every 2 steps (3 weight leaves, 2 pages a pass), a MILR repair kit,
+    NumPy KV masks before steps 2 and 6 and the final at-rest pass gives
+    the reference's tokens and deterministic telemetry (scrub and
+    scrub_final events included). The guard rails raise as the
+    reference's: a migration without a plan, a second one in flight."""
+    cfg, plan, enc, port_enc = rig
     tcfg = tconfigs.get_smoke(ARCH)
-    for kw in (dict(scrub_every=2), dict(repair_kit=object())):
-        with pytest.raises(NotImplementedError, match="self-healing"):
-            frontend.ServingFrontend(tcfg, port_enc, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="self-healing"):
-        frontend.run_burst(tcfg, port_enc, waves=[], repair=True,
-                           device="cpu")
+    kv = "parity-zero"
+    waves = _small_waves(cfg.vocab, jfe.make_waves)
+    kvp, step = _ref_step(kv)
+    jf = jfe.ServingFrontend(cfg, enc, plan=plan, slots=SLOTS,
+                             max_len=MAX_LEN, kv_policy=kvp, serve_step=step,
+                             dtype=jnp.float32, scrub_every=2,
+                             scrub_weight_leaves=3, scrub_kv_pages=2,
+                             repair_kit=jrepair.build_repair_kit(enc, seed=1))
+    tf = frontend.ServingFrontend(tcfg, port_enc, plan=P.port_plan(ARCH),
+                                  slots=SLOTS, max_len=MAX_LEN, kv_policy=kv,
+                                  dtype=torch.float32, scrub_every=2,
+                                  scrub_weight_leaves=3, scrub_kv_pages=2,
+                                  repair_kit=repair.build_repair_kit(
+                                      port_enc, seed=1), device="cpu")
+    masks = _masks({k: tuple(v.shape) for k, v in tf.cache.items()
+                    if k.endswith("_pages")}, (2, 6))
+    for fe, reqs in ((jf, waves), (tf, _small_waves(cfg.vocab,
+                                                    frontend.make_waves))):
+        pending = sorted(reqs, key=lambda r: (r.arrival_step, r.rid))
+        i = 0
+        while True:
+            while i < len(pending) and pending[i].arrival_step <= fe.step_no:
+                fe.submit(pending[i])
+                i += 1
+            if i >= len(pending) and not fe.queue.peek() and fe.active == 0:
+                break
+            for k, m in masks.get(fe.step_no, {}).items():
+                if fe is jf:
+                    fe.cache = {**fe.cache, k: fe.cache[k] ^ jnp.asarray(m)}
+                else:
+                    fe.cache[k] ^= torch.from_numpy(m)
+            fe.step()
+        fe.final_scrub()
+    assert tf.results == jf.results
+    _assert_views_equal(jf.telemetry.events, tf.telemetry.events, kv)
+    names = {e["event"] for e in tf.telemetry.events}
+    assert {"scrub", "scrub_final"} <= names
+    assert telemetry.summarize(tf.telemetry.events)["healing"]["final_due"][
+        "kv"] == 0
     fe = frontend.ServingFrontend(tcfg, port_enc, device="cpu")
-    with pytest.raises(NotImplementedError, match="self-healing"):
-        fe.start_migration(None)
+    with pytest.raises(ValueError, match="without a plan"):
+        fe.start_migration(P.port_plan(ARCH))
+    fe = frontend.ServingFrontend(tcfg, port_enc, plan=P.port_plan(ARCH),
+                                  device="cpu")
+    target = get_policy_preset("all-secded72").plan(tlm.param_shapes(tcfg))
+    fe.start_migration(target)
+    with pytest.raises(RuntimeError, match="already in flight"):
+        fe.start_migration(target)
+    with pytest.raises(ValueError, match="scrub_every"):
+        frontend.ServingFrontend(tcfg, port_enc, scrub_every=-1,
+                                 device="cpu")
 
 
 def test_guarded_per_slot_abft_rows_equal_the_reference(rig):

@@ -1082,3 +1082,60 @@ def test_gpu_cnn_forward_matches_cpu(cuda):
     finally:
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("shape", [(4096, 11008), (2, 4096, 4096)])
+def test_gpu_scrub_round_trip_at_full_width(cuda, shape):
+    """A deepseek-7b-width leaf on the ``cuda`` route: scrubbing a clean
+    leaf leaves every bit as it was; with single flips in every 97th block
+    the scrub writes back the clean image (each flip counted once), as the
+    plain route does; a DUE leaf is left as it was. The scrub launches the
+    decode and encode kernels."""
+    from repro_torch.serving import scrubber
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    pt = ProtectionPolicy(backend="cuda").encode_leaf(
+        torch.randn(shape, generator=gen, device=cuda), "in-place")
+    clean = pt.enc.clone()
+    counts = (build.COUNTS["ecc_decode"], build.COUNTS["ecc_encode"])
+    same, cor, due = scrubber.scrub_leaf(pt, "cuda")
+    assert (cor, due) == (0, 0) and torch.equal(same.enc, clean)
+    assert build.COUNTS["ecc_decode"] > counts[0]
+    assert build.COUNTS["ecc_encode"] > counts[1]
+    dirty = pt.enc.clone()
+    words = dirty.view(-1, 8).view(torch.int64)[:, 0]
+    idx = torch.arange(0, words.numel(), 97, device=cuda)
+    bits = torch.randint(0, 64, idx.shape, generator=gen, device=cuda)
+    words[idx] ^= torch.ones_like(bits) << bits
+    dpt = type(pt)(enc=dirty, checks=None, scale=pt.scale,
+                   scheme_id="in-place", orig_shape=pt.orig_shape)
+    healed, cor, due = scrubber.scrub_leaf(dpt, "cuda")
+    plain, pcor, pdue = scrubber.scrub_leaf(dpt, "torch")
+    assert (cor, due) == (pcor, pdue) == (idx.numel(), 0)
+    assert torch.equal(healed.enc, clean) and torch.equal(plain.enc, clean)
+    words[1] ^= 0b11                     # two flips in block 1: DUE
+    kept, _, due = scrubber.scrub_leaf(dpt, "cuda")
+    assert due == 1 and kept is dpt
+
+
+@pytest.mark.parametrize("shape", [(4096, 11008), (30, 4096, 4096)])
+def test_gpu_transcode_in_place_to_secded72_and_back(cuda, shape):
+    """``transcode_leaf`` in place -> secded72 -> in place at a full-width
+    leaf (with single flips, corrected on the way): byte-equal to the plain
+    route at each hop and back at the clean image."""
+    from repro_torch.protection.plan import transcode_leaf
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    pt = ProtectionPolicy(backend="cuda").encode_leaf(
+        torch.randn(shape, generator=gen, device=cuda), "in-place")
+    clean = pt.enc.clone()
+    words = pt.enc.view(-1, 8).view(torch.int64)[:, 0]
+    words[::101] ^= 1 << 9
+    hops = []
+    for route in ("cuda", "torch"):
+        mid, cor, due = transcode_leaf(pt, "secded72", backend=route)
+        back, cor2, due2 = transcode_leaf(mid, "in-place", backend=route)
+        assert (int(cor), int(due), int(cor2), int(due2)) == (
+            words[::101].numel(), 0, 0, 0)
+        hops.append((mid, back))
+    (km, kb), (pm, pb) = hops
+    assert torch.equal(km.enc, pm.enc) and torch.equal(km.checks, pm.checks)
+    assert torch.equal(kb.enc, pb.enc) and torch.equal(kb.enc, clean)

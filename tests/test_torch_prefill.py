@@ -224,11 +224,38 @@ def test_chunked_policy_routes_decode_through_the_chunked_wrapper(
 
 
 def test_make_prefill_raises_on_unported_forms():
-    """The whole-tree decode ablation is the one unported form (the
-    cache-less prefill and ``act_quant`` are ported)."""
-    cfg = tconfigs.get_smoke("deepseek-7b")
-    with pytest.raises(NotImplementedError, match="decode_at_use"):
-        tprot.make_prefill(cfg, kv_policy="in-place", decode_at_use=False)
+    """Every form of ``make_prefill`` is ported: the whole-tree decode
+    ablation (``decode_at_use=False``) fills the paged cache as the
+    reference's does (pages and tables equal, logits within ``F32_TOL``);
+    it refuses ``act_quant`` and ``with_flags`` with the reference's
+    ``ValueError``, as the decode-at-use prefill refuses an unknown
+    ``act_quant``."""
+    arch = "deepseek-7b"
+    cfg, plan, _, jenc = P._reference_model(arch)
+    prompt = _prompt(cfg)
+    jcache = jkv.init_cache(cfg, BATCH, MAX_LEN, kv_policy="in-place")
+    ref_logits, ref_cache = jax.jit(jprot.make_prefill(
+        cfg, plan=plan, decode_at_use=False, kv_policy="in-place",
+        dtype=jnp.float32))(jenc, jcache, jnp.asarray(prompt))
+    enc = convert.protected_from_numpy(P.export(jenc), device="cpu")
+    for backend in ("torch", "cuda"):
+        prefill = tprot.make_prefill(cfg, kv_policy="in-place",
+                                     decode_at_use=False, dtype=torch.float32,
+                                     backend=backend)
+        cache = tkv.init_cache(cfg, BATCH, MAX_LEN, kv_policy="in-place",
+                               device="cpu")
+        logits, cache = prefill(enc, cache, torch.from_numpy(prompt).long())
+        for k in ("k_pages", "v_pages", "kv_table"):
+            np.testing.assert_array_equal(cache[k].numpy(),
+                                          np.asarray(ref_cache[k]), err_msg=k)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits),
+                                   rtol=F32_TOL, atol=F32_TOL)
+    with pytest.raises(ValueError, match="act_quant"):
+        tprot.make_prefill(cfg, kv_policy="in-place", decode_at_use=False,
+                           act_quant="dynamic")
+    with pytest.raises(ValueError, match="with_flags"):
+        tprot.make_prefill(cfg, kv_policy="in-place", decode_at_use=False,
+                           with_flags=True)
     with pytest.raises(ValueError, match="act_quant"):
         tprot.make_prefill(cfg, kv_policy="in-place", act_quant="sometimes")
     prefill = tprot.make_prefill(cfg, kv_policy="in-place")

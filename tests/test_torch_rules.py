@@ -70,6 +70,28 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
             call()
 
 
+def test_healing_entry_points_default_to_cuda(monkeypatch):
+    """The serve CLI's mixed-scheme and self-healing flags and the burst
+    grid (``benchmarks.burst_sim``) default to the card: without a GPU
+    each raises."""
+    from repro_torch.benchmarks import burst_sim
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_smoke("deepseek-7b")
+    for call in (lambda: serve.main(["--tokens", "1", "--policy",
+                                     "attn-inplace-mlp-secded",
+                                     "--scrub-every", "1", "--repair"]),
+                 lambda: serve.main(["--burst", "--scrub-every", "1"]),
+                 lambda: serve.serve(cfg, tokens=1, scrub_every=1,
+                                     repair=True, log=lambda *_: None),
+                 lambda: burst_sim.main(["--smoke"]),
+                 lambda: burst_sim.run_grid(
+                     cfg, {}, None, [], kv_policies=["in-place"],
+                     fault_rates=[0.0], slots=2, max_len=16, n_pages=None,
+                     seed=0, log=lambda *_: None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
 @pytest.mark.parametrize("arch", ["phi3-medium-14b", "paligemma-3b",
                                   "whisper-base", "mamba2-2.7b",
                                   "deepseek-v2-236b", "deepseek-v3-671b"])

@@ -45,7 +45,9 @@ def export(enc):
     if isinstance(enc, dict):
         return {k: export(v) for k, v in enc.items()}
     if is_protected_tensor(enc):
-        return {"enc": np.asarray(enc.enc), "checks": None,
+        return {"enc": np.asarray(enc.enc),
+                "checks": (None if enc.checks is None
+                           else np.asarray(enc.checks)),
                 "scale": np.asarray(enc.scale), "scheme_id": enc.scheme_id,
                 "orig_shape": tuple(enc.orig_shape)}
     return np.asarray(enc)
