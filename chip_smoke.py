@@ -167,8 +167,8 @@ d_model 4096, vocab 102400) at batch 4:
   one); ADMM against QATT on full-width ResNet18 at 32 x 32 (QATT and
   ADMM's final clamp meet the WOT constraint, ADMM's residual large
   values reported, the projection bit-equal across routes);
-* phase 20: mixed schemes and self-healing on full-width, full-depth
-  deepseek-7b: the ``attn-inplace-mlp-secded`` plan served on both routes
+* phase 20: mixed schemes and self-healing on full-width deepseek-7b
+  (16 of its 30 layers since PR 27): the ``attn-inplace-mlp-secded`` plan served on both routes
   in lockstep (flags equal) beside all-in-place on the kernel route, a
   profile of each; then, from all-in-place, a burst through the front-end
   with a scrub pass every step and a MILR repair kit (its build time and
@@ -180,7 +180,21 @@ d_model 4096, vocab 102400) at batch 4:
   again, and the healed
   tree decoding to the int8 of a clean encode under the final plan,
   whose logits it serves bit for bit; scrub ms per leaf and per page and
-  a profile of each scrub pass, repair seconds, steps to migrate.
+  a profile of each scrub pass, repair seconds, steps to migrate;
+* phase 21: distribution. A world-1 NCCL process group (a FileStore, no
+  network) and the (1, 1) ('data', 'model') mesh; the sharded decode cell
+  (``launch.specs.decode_cell``) of full-width deepseek-7b at 8 layers on
+  DTensors (in-place plan, in-place fused paged KV with per-slot rows,
+  batch 4, weight flips) for 8 steps in lockstep with the unsharded
+  serve step: logits, flags, per-slot rows, page tables and pools bit for
+  bit, ms/step of both, ``ecc_qmatmul``, the paged kernel and
+  ``kv_write`` counted on the sharded steps; the sharded train cell at 2
+  layers (8 x 2,048, 2 steps) against ``make_train_step``: loss and every
+  master bit for bit, ``quantize_throttle`` counted (its two passes, an
+  all-reduce MAX between them); ``compressed_psum`` of a 64 M-value
+  gradient against the local ``compress`` (payload and residual equal),
+  timed beside a plain f32 all-reduce; a protected 2-layer checkpoint
+  restored with ``shardings=`` bit-equal to ``restore(device="cuda")``.
 
 Phase 4 also runs the whole-tree decode ablations over its resident
 tree (decode at use, ``decode_at_use=False``, ``decode_per_step=False``;
@@ -450,14 +464,19 @@ def main():
         f"QATT) took {time.time() - t0:.0f}s")
     t0 = time.time()
     heal_counts = phase_heal(torch, dev, build)
-    log(f"phase 20 (mixed schemes and self-healing on full-width, "
-        f"full-depth deepseek-7b: scrub, MILR repair, live migration) took "
+    log(f"phase 20 (mixed schemes and self-healing on full-width "
+        f"deepseek-7b at {HEAL_LAYERS} layers: scrub, MILR repair, live "
+        f"migration) took {time.time() - t0:.0f}s")
+    t0 = time.time()
+    dist_counts, _ = phase_dist(torch, dev, build)
+    log(f"phase 21 (distribution: the sharded decode and train cells on a "
+        f"world-1 NCCL mesh, compressed_psum, the elastic restore) took "
         f"{time.time() - t0:.0f}s")
     paths = (decode_counts, ablation_counts, long_counts, train_counts,
              guarded_counts, burst_counts, phi3_counts, vlm_counts,
              encdec_counts, hybrid_counts, hybrid_guarded, ssm_counts,
              ssm_guarded, moe_v2_counts, moe_v2_guarded, moe_v3_counts,
-             cnn_counts, smoke_counts, rest_counts, heal_counts)
+             cnn_counts, smoke_counts, rest_counts, heal_counts, dist_counts)
     counts = {k: sum(c[k] for c in paths) for k in build.COUNTS}
     if sorted(entries) != sorted(counts):
         fail(f"kernels checked {sorted(entries)} != kernels counted "
@@ -518,7 +537,10 @@ def main():
               "ecc_qmatmul")),
             ("mixed schemes and self-healing", heal_counts,
              ("ecc_decode", "ecc_encode", "ecc_qmatmul", "kv_write",
-              "fused_page_attention"))):
+              "fused_page_attention")),
+            ("distribution (the sharded cells)", dist_counts,
+             ("ecc_qmatmul", "fused_page_attention", "kv_write",
+              "quantize_throttle"))):
         missing = [k for k in needed if cnt[k] <= 0]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
@@ -6709,10 +6731,13 @@ def _inject(torch, enc, rate, gen):
 # phase 20 (c): mixed schemes and self-healing on full-width deepseek-7b
 # ---------------------------------------------------------------------------
 
-# Full width and depth, no cut: the MILR kit's host side (a float64 copy
-# of one leaf at a time, 10.8 GB for each stacked MLP leaf, and 32 probe
-# responses a column) fits the host; the phase logs its time and peak
+# Full width; the MILR kit's host side (a float64 copy of one leaf at a
+# time, 10.8 GB for each stacked MLP leaf at 30 layers, and 32 probe
+# responses a column) fits the host; the phase logs its time and peak.
+# Cut to 16 of 30 layers since PR 27 for phase 21's time (its checks are
+# per leaf and per page: depth scales the time, not what is checked)
 HEAL_SLOTS, HEAL_MAX_LEN = 4, 64
+HEAL_LAYERS = 16
 HEAL_MIGRATE_AT = 30     # the burst's middle: it runs 61 steps
 
 
@@ -6737,7 +6762,7 @@ def _flip_singles(torch, pt, n, gen, hit):
 
 
 def phase_heal(torch, dev, build):
-    """(c) deepseek-7b at full width and depth:
+    """(c) deepseek-7b at full width, cut to ``HEAL_LAYERS`` layers:
 
     1. mixed schemes: planned under ``attn-inplace-mlp-secded`` (the MLP
        leaves under secded72, the rest in place), encoded, 4 steps on the
@@ -6775,7 +6800,7 @@ def phase_heal(torch, dev, build):
     from repro_torch.serving import (frontend, kvcache, protected, scrubber,
                                      telemetry)
 
-    cfg = get("deepseek-7b")
+    cfg = get("deepseek-7b").with_(n_layers=HEAL_LAYERS)
     shapes = lm.param_shapes(cfg)
     torch.cuda.empty_cache()
     build.reset_counts()
@@ -7058,6 +7083,327 @@ def phase_heal(torch, dev, build):
         f"{counts}")
     return counts
 
+
+
+# ---------------------------------------------------------------------------
+# phase 21: distribution — the sharded cells on a world-1 NCCL mesh
+# ---------------------------------------------------------------------------
+
+# (b)'s decode cell: deepseek-7b at full width cut to 8 layers (its check
+# is the lockstep against the unsharded step, which depth does not change)
+DIST_LAYERS, DIST_STEPS, DIST_BATCH, DIST_MAX_LEN = 8, 8, 4, 64
+DIST_RATE = 1e-6
+# (c)'s train cell: full width, 2 layers, 8 x 2,048 tokens, 2 steps
+DIST_TRAIN_LAYERS, DIST_TRAIN_STEPS = 2, 2
+# (d)'s gradient: 64 M f32 values
+DIST_PSUM_N = 64 * 2 ** 20
+
+
+def _world1(torch, tmp):
+    """A world-1 process group over NCCL (a FileStore in ``tmp``, no
+    network) and the (1, 1) ('data', 'model') mesh on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    return make_production_mesh(shape=(1, 1), device="cuda")
+
+
+def phase_dist(torch, dev, build):
+    """(a) a world-1 NCCL process group and a (1, 1) mesh; (b) the sharded
+    decode cell of deepseek-7b (``DIST_LAYERS`` layers, in-place policy,
+    in-place fused paged KV with per-slot rows, batch 4, correctable and
+    uncorrectable weight flips) for ``DIST_STEPS`` steps in lockstep with
+    the unsharded serve step: flags, per-slot rows, page tables and logits
+    equal bit for bit, ms/step of both; (c) the sharded train cell at
+    ``DIST_TRAIN_LAYERS`` layers, 8 x 2,048, against ``make_train_step``:
+    loss and masters bit-equal; (d) ``compressed_psum`` of a 64 M-value
+    f32 gradient against the local ``compress`` formula, timed beside a
+    plain f32 all-reduce; (e) a protected 2-layer checkpoint restored with
+    ``shardings=`` equal to ``restore(device="cuda")``. Writes
+    ``chip_smoke_dist.json``. -> (the sharded paths' launch counts, the
+    report)."""
+    import tempfile
+
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(dir=str(ROOT / "build"))
+    try:
+        mesh = _world1(torch, tmp)
+        log(f"(a) world-1 NCCL process group, mesh {mesh}")
+        report = {}
+        counts = {k: 0 for k in build.COUNTS}
+        for name, fn in (("decode", dist_decode), ("train", dist_train),
+                         ("psum", dist_psum), ("restore", dist_restore)):
+            t0 = time.time()
+            out, own = counted_apart(build, fn, torch, dev, mesh, tmp)
+            report[name] = {**out, "launches": own,
+                            "phase_s": time.time() - t0}
+            for k, v in out.get("sharded_launches", {}).items():
+                counts[k] += v
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    with open(OUT_DIR / "chip_smoke_dist.json", "w") as fh:
+        json.dump(report, fh, indent=1)
+    return counts, report
+
+
+def _tally(build, acc: dict, fn, *args):
+    """``fn(*args)`` with its kernel launches added to ``acc`` (the sharded
+    runs' own, apart from the unsharded steps beside them)."""
+    before = dict(build.COUNTS)
+    out = fn(*args)
+    for k, v in build.COUNTS.items():
+        acc[k] = acc.get(k, 0) + v - before[k]
+    return out
+
+
+def dist_decode(torch, dev, mesh, tmp):
+    """(b) -> the report. The fed tokens are the unsharded step's greedy
+    tokens, the same for both."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import get
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import specs
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.protection import policy as policy_mod
+    from repro_torch.serving import kvcache
+
+    cfg = get("deepseek-7b").with_(n_layers=DIST_LAYERS)
+    kvp = dataclasses.replace(kvcache.get_kv_policy("in-place-fused"),
+                              per_slot_flags=True)
+    pol = policy_mod.ProtectionPolicy(backend="cuda")
+    plan, abstract = specs.serving_plan(cfg, mesh, policy=pol)
+    step, _, in_sh, out_sh = specs.decode_cell(
+        cfg, ShapeConfig("dist", DIST_MAX_LEN, DIST_BATCH, "decode"), mesh,
+        plan=plan, abstract=abstract, with_flags=True, kv_policy=kvp,
+        backend="cuda")
+    enc = lm_params(torch, dev, cfg, plan)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    enc, _ = _inject(torch, enc, DIST_RATE, gen)
+    run = specs.sharded(step, mesh, in_sh, out_sh)
+    cache = kvcache.init_cache(cfg, DIST_BATCH, DIST_MAX_LEN, kv_policy=kvp,
+                               device=dev)
+    placed = specs.place((enc, cache), tuple(in_sh[:2]), mesh)
+    ucache = tree.map_with_path(lambda _, t: t.clone(), cache)
+    del cache
+    from repro_torch.kernels import build
+    tok = torch.zeros((DIST_BATCH, 1), dtype=torch.int32, device=dev)
+    ms = {"sharded": [], "unsharded": []}
+    dcache, launches = placed[1], {}
+    for t in range(DIST_STEPS):
+        pos = torch.full((DIST_BATCH,), t, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        lg, dcache, fl = _tally(build, launches, run, placed[0], dcache, tok,
+                                pos)
+        torch.cuda.synchronize()
+        ms["sharded"].append(1e3 * (time.time() - t0))
+        t0 = time.time()
+        ulg, ucache, ufl = step(enc, ucache, tok, pos)
+        torch.cuda.synchronize()
+        ms["unsharded"].append(1e3 * (time.time() - t0))
+        lg = lg.to_local()
+        if not torch.equal(lg, ulg):
+            fail(f"(b) step {t}: sharded logits differ from the unsharded "
+                 f"step's (max {float((lg.float() - ulg.float()).abs().max())})")
+        for k, v in ufl.items():
+            if not torch.equal(fl[k].to_local(), v):
+                fail(f"(b) step {t}: flags row {k!r} differs")
+        tok = ulg.argmax(dim=-1).to(torch.int32)
+    table = sh.local_tree(dcache)["kv_table"]
+    if not torch.equal(table, ucache["kv_table"]):
+        fail("(b) the sharded cache's page tables differ")
+    for k in ("k_pages", "v_pages", "k_scale", "v_scale"):
+        if not torch.equal(dcache[k].to_local(), ucache[k]):
+            fail(f"(b) the sharded cache's {k} differ")
+    n_fl = {k: int(v.sum()) for k, v in ufl.items()}
+    if not n_fl.get("layers"):
+        fail(f"(b) no weight flag was raised at rate {DIST_RATE}: {n_fl}")
+    missing = [k for k in ("ecc_qmatmul", "fused_page_attention", "kv_write")
+               if launches.get(k, 0) <= 0]
+    if missing:
+        fail(f"(b) kernels never launched on the sharded decode: {missing}")
+    med = {k: statistics.median(v[1:]) for k, v in ms.items()}
+    log(f"(b) sharded decode cell, {cfg.name} x {cfg.n_layers} layers, "
+        f"batch {DIST_BATCH}, {DIST_STEPS} steps in lockstep: logits, flags "
+        f"(last step {n_fl}), per-slot rows, page tables and pools "
+        f"bit-equal; {med['sharded']:.2f} ms/step sharded (DTensor "
+        f"dispatch) against {med['unsharded']:.2f} unsharded; sharded "
+        f"launches {launches}")
+    del enc, placed, dcache, ucache
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "step_ms": ms, "median_ms": med,
+            "flags_last_step": n_fl, "sharded_launches": launches}
+
+
+def lm_params(torch, dev, cfg, plan):
+    """``cfg``'s seeded weights encoded leaf by leaf under ``plan``."""
+    from repro_torch.models import lm
+    return lm.init_params(cfg, 0, device=dev, leaf_fn=plan.encode_leaf)
+
+
+def dist_train(torch, dev, mesh, tmp):
+    """(c) -> the report: the sharded train cell's steps against the
+    unsharded step on the same masters and batches, loss and every master
+    bit-equal after each step."""
+    from repro_torch import tree
+    from repro_torch.configs import get
+    from repro_torch.kernels import build
+    from repro_torch.launch import specs
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.training import optim, train as train_mod
+
+    batch, seq = 8, 2048
+    cfg = get("deepseek-7b").with_(n_layers=DIST_TRAIN_LAYERS)
+    step, _, in_sh, out_sh = specs.train_cell(
+        cfg, ShapeConfig("dist", seq, batch, "train"), mesh, chunk=2048,
+        backend="cuda")
+    run = specs.sharded(step, mesh, in_sh, out_sh)
+    ustep = train_mod.make_train_step(cfg.with_(microbatch=1), chunk=2048,
+                                      backend="cuda")
+    params = lm.init_params(cfg, 0, device=dev)
+    uparams = tree.map_with_path(lambda _, t: t.clone(), params)
+    state = [specs.place((params, optim.sgd_init(params)), tuple(in_sh[:2]),
+                         mesh), (uparams, optim.sgd_init(uparams))]
+    del params, uparams
+    ms = {"sharded": [], "unsharded": []}
+    losses, launches = [], {}
+    for i in range(DIST_TRAIN_STEPS):
+        _dist_train_step(torch, dev, cfg, mesh, run, ustep, state, i, batch,
+                         seq, ms, launches, losses)
+    if launches.get("quantize_throttle", 0) <= 0:
+        fail("(c) quantize_throttle never launched on the sharded step")
+    log(f"(c) sharded train cell, {cfg.name} x {cfg.n_layers} layers, "
+        f"{batch} x {seq}: losses {losses} and every master bit-equal to "
+        f"the unsharded step's; ms/step sharded {ms['sharded']}, unsharded "
+        f"{ms['unsharded']}; sharded launches {launches}")
+    del state
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "losses": losses, "step_ms": ms,
+            "sharded_launches": launches}
+
+
+def _dist_train_step(torch, dev, cfg, mesh, run, ustep, state, i, batch, seq,
+                     ms, launches, losses):
+    """One step of (c) on both sides (``state``: [sharded (params, opt),
+    unsharded (params, opt)], updated in place by the steps)."""
+    from repro_torch import tree
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import build
+    b = synthetic.token_batch(cfg.vocab_padded, batch, seq, seed=0, step=i)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    t_ms, (p2, _, loss) = _tally(build, launches, event_ms, torch,
+                                 lambda: run(*state[0], b))
+    ms["sharded"].append(t_ms)
+    t_ms, (up, _, uloss) = event_ms(torch, lambda: ustep(*state[1], b))
+    ms["unsharded"].append(t_ms)
+    if not torch.equal(loss.to_local(), uloss):
+        fail(f"(c) step {i}: sharded loss {float(loss.to_local())} != "
+             f"unsharded {float(uloss)}")
+    for path, w in tree.leaves_with_path(sh.local_tree(p2)):
+        if not torch.equal(w, tree.get_path(up, path)):
+            fail(f"(c) step {i}: master {tree.path_str(path)} differs")
+    losses.append(float(uloss))
+
+
+def dist_psum(torch, dev, mesh, tmp):
+    """(d) -> the report: ``compressed_psum`` over the world-1 NCCL group
+    equals the local ``compress`` (payload, residual, the mean as q *
+    scale); CUDA-event ms beside a plain f32 all-reduce of the same
+    gradient."""
+    import torch.distributed as dist
+
+    from repro_torch.training import compress
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    g = torch.randn(DIST_PSUM_N, generator=gen, device=dev)
+    r = torch.randn(DIST_PSUM_N, generator=gen, device=dev) * 1e-3
+    group = dist.group.WORLD
+    mean, nr, q = compress.compressed_psum(g, r, group, with_payload=True)
+    q0, s0, r0 = compress.compress(g, r)
+    if not (torch.equal(q, q0) and torch.equal(nr, r0)):
+        fail("(d) compressed_psum's payload or residual differs from "
+             "compress's")
+    if not torch.equal(mean, compress.decompress(q0, s0)):
+        fail("(d) compressed_psum's mean differs from q * scale")
+    timer = Timer(torch, dev)
+    psum_ms = timer.ms(lambda: compress.compressed_psum(g, r, group))
+    buf = g.clone()
+    plain_ms = timer.ms(lambda: dist.all_reduce(buf, group=group))
+    log(f"(d) compressed_psum of {DIST_PSUM_N / 2 ** 20:.0f} M f32 values "
+        f"over NCCL (world 1): payload and residual equal compress's; "
+        f"{psum_ms:.3f} ms against a plain f32 all_reduce {plain_ms:.3f} ms")
+    del g, r, buf, mean, nr, q, q0, r0
+    return {"n": DIST_PSUM_N, "compressed_psum_ms": psum_ms,
+            "all_reduce_f32_ms": plain_ms}
+
+
+def dist_restore(torch, dev, mesh, tmp):
+    """(e) -> the report: a protected (params, momentum) checkpoint of
+    deepseek-7b at 2 layers, full width, restored with ``shardings=`` onto
+    the mesh, equal to ``restore(device="cuda")`` leaf for leaf; the
+    restore's peak device memory above what was allocated before it (each
+    chunk is decoded alone on the card: the restored shards plus one
+    leaf's codec and dequantize buffers at most, held under the shards'
+    bytes plus twice the largest leaf's)."""
+    from repro_torch import tree
+    from repro_torch.configs import get
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import lm
+    from repro_torch.training import checkpoint, optim
+
+    cfg = get("deepseek-7b").with_(n_layers=2)
+    params = lm.init_params(cfg, 0, device=dev)
+    state = (params, optim.sgd_init(params))
+    path = os.path.join(tmp, "ckpt")
+    t0 = time.time()
+    checkpoint.save(path, state, step=1, protected=True, device=dev)
+    save_s = time.time() - t0
+    pspec = sh.param_specs(lm.param_shapes(cfg))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    got, _ = checkpoint.restore(path, state, device=dev,
+                                shardings=(pspec, optim.SgdState(pspec)),
+                                mesh=mesh)
+    sharded_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    sizes = [d.to_local().nelement() * d.to_local().element_size()
+             for part in got for _, d in tree.leaves_with_path(part)]
+    if peak > sum(sizes) + 2 * max(sizes):
+        fail(f"(e) the sharded restore peaked at {peak} bytes, above its "
+             f"shards' {sum(sizes)} plus twice the largest leaf's "
+             f"{max(sizes)}")
+    whole, _ = checkpoint.restore(path, state, device=dev)
+    n = 0
+    for part_got, part_whole in zip(got, whole):
+        for p, w in tree.leaves_with_path(part_whole):
+            d = tree.get_path(part_got, p)
+            if not torch.equal(d.to_local(), w):
+                fail(f"(e) restored leaf {tree.path_str(p)} differs")
+            n += 1
+    log(f"(e) protected checkpoint of {cfg.name} x {cfg.n_layers} layers "
+        f"({n} leaves) restored with shardings= onto the mesh bit-equal to "
+        f"restore(device='cuda'); save {save_s:.2f} s, sharded restore "
+        f"{sharded_s:.2f} s, its peak {peak / 2**30:.3f} GiB above the "
+        f"{base / 2**30:.3f} GiB before it for {sum(sizes) / 2**30:.3f} GiB "
+        f"of shards (largest leaf {max(sizes) / 2**30:.3f} GiB)")
+    del params, state, got, whole
+    torch.cuda.empty_cache()
+    return {"leaves": n, "save_s": save_s, "sharded_restore_s": sharded_s,
+            "restore_peak_bytes": peak, "shard_bytes": sum(sizes),
+            "largest_leaf_bytes": max(sizes)}
 
 if __name__ == "__main__":
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")

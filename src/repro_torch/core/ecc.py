@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 BLOCK_BYTES = 8
 CHECK_BIT = 6  # bit index inside a byte that holds a check bit (bytes 0..6)
@@ -91,9 +92,11 @@ def _tables(device) -> dict:
                 flip[syn] = _as_int64(1 << int(SYN2BIT[syn]))
             spread[syn] = sum(((syn >> i) & 1) << (8 * i + CHECK_BIT)
                               for i in range(7))
-        t = {"rowmask": [_as_int64(m) for m in ROWMASK64_PACKED],
-             "flip": torch.tensor(flip, dtype=torch.int64, device=device),
-             "spread": torch.tensor(spread, dtype=torch.int64, device=device)}
+        with unset_fake_temporarily():   # real tables, even when traced
+            t = {"rowmask": [_as_int64(m) for m in ROWMASK64_PACKED],
+                 "flip": torch.tensor(flip, dtype=torch.int64, device=device),
+                 "spread": torch.tensor(spread, dtype=torch.int64,
+                                        device=device)}
         _TABLE_CACHE[key] = t
     return t
 
@@ -202,8 +205,10 @@ def _tables72(device) -> dict:
         flip = [0] * 256
         for g in range(64):
             flip[int(COLS72[g])] = _as_int64(1 << g)
-        t = {"rowmask": [_as_int64(m) for m in ROWMASK72_PACKED],
-             "flip": torch.tensor(flip, dtype=torch.int64, device=device)}
+        with unset_fake_temporarily():
+            t = {"rowmask": [_as_int64(m) for m in ROWMASK72_PACKED],
+                 "flip": torch.tensor(flip, dtype=torch.int64,
+                                      device=device)}
         _TABLE_CACHE[("72", key)] = t
     return t
 

@@ -52,7 +52,10 @@ def throttle_tensor_(w: torch.Tensor, *, backend="torch", with_q=False):
     The zero padding of a ragged tail changes neither the scale nor any
     real value's ``q``. With ``with_q`` returns ``(w, q int8 (w.shape),
     scale f32 ())``, else ``w``."""
+    from repro_torch.distributed import local
     from repro_torch.protection.backends import get_backend
+    if local.is_dtensor(w):   # a sharded master: each shard in place
+        return local.throttle_(w, backend=backend, with_q=with_q)
     q, scale = get_backend(backend).quantize_throttle(w, write_back=True,
                                                       with_q=with_q)
     return (w, q, scale) if with_q else w

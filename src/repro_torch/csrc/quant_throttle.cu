@@ -30,8 +30,13 @@
 // Rounding follows jnp.round: rintf (half to even) of a true IEEE division
 // w / scale (no reciprocal multiply, no fast math).
 //
-// Plain C interface for ctypes: the entry point launches on the given
-// stream, allocates nothing, and returns cudaGetLastError().
+// On a sharded tensor the scale is the global one: the second entry point
+// runs one pass at a time (1: absmax into amax; 2: quantize and clamp with
+// the amax it is given), so the caller can all-reduce the amax (MAX over
+// the bit patterns, which order as the values do) between the passes.
+//
+// Plain C interface for ctypes: the entry points launch on the given
+// stream, allocate nothing, and return cudaGetLastError().
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -135,5 +140,24 @@ extern "C" int quantize_throttle_launch(void* w, void* q, void* amax,
   qt_kernel<<<grid_for((n + 7) / 8, kThreads), kThreads, 0, s>>>(
       (float*)w, (const unsigned int*)amax, (int8_t*)q, (float*)scale, n,
       write_back);
+  return (int)cudaGetLastError();
+}
+
+// One pass of quantize_throttle_launch: which == 1 zeroes amax and runs
+// pass 1 (absmax), which == 2 runs pass 2 against the amax in place.
+extern "C" int quantize_throttle_pass_launch(void* w, void* q, void* amax,
+                                             void* scale, long long n,
+                                             int write_back, int which,
+                                             void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (which == 1) {
+    cudaMemsetAsync(amax, 0, sizeof(unsigned int), s);
+    absmax_kernel<<<grid_for((n + 3) / 4, kThreads), kThreads, 0, s>>>(
+        (const float*)w, n, (unsigned int*)amax);
+  } else {
+    qt_kernel<<<grid_for((n + 7) / 8, kThreads), kThreads, 0, s>>>(
+        (float*)w, (const unsigned int*)amax, (int8_t*)q, (float*)scale, n,
+        write_back);
+  }
   return (int)cudaGetLastError();
 }

@@ -50,6 +50,8 @@ SIGNATURES = {
                                 _P]),
     "quantize_throttle_launch": ("quant_throttle",
                                  [_P, _P, _P, _P, _LL, _I, _P]),
+    "quantize_throttle_pass_launch": ("quant_throttle",
+                                      [_P, _P, _P, _P, _LL, _I, _I, _P]),
     "throttle_launch": ("throttle", [_P, _P, _LL, _P]),
     "kv_write_launch": ("kv_write", [_P] * 16 + [_I] * 8 + [_P]),
 }

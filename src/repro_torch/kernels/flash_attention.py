@@ -145,7 +145,12 @@ def flash_attention(q, k, v, *, bq: int = KERNEL_BQ, bk: int = KERNEL_BK,
     """Kernel wrapper of :func:`flash_attention_plain` (same contract). GQA
     callers broadcast KV heads beforehand. The kernel's tiles are fixed at
     64 x 64 and its head dims at :data:`KERNEL_HEAD_DIMS` (v's the same as
-    q's) and :data:`KERNEL_HEAD_SPLITS`; it raises on others."""
+    q's) and :data:`KERNEL_HEAD_SPLITS`; it raises on others. DTensors
+    (heads or batch split over a mesh) run on their local heads."""
+    from repro_torch.distributed import local
+    if local.is_dtensor(q):
+        return local.per_head(flash_attention, q, k, v, bq=bq, bk=bk,
+                              window=window)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, bq=bq, bk=bk, window=window)
     if window < 0:

@@ -141,6 +141,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--smoke", action="store_true", default=True,
+                    help="the arch's smoke config (the default, as the "
+                         "reference's)")
     ap.add_argument("--ckpt", default=None, metavar="DIR",
                     help="resume from and checkpoint (protected) into DIR")
     ap.add_argument("--ckpt-every", type=int, default=10)

@@ -19,6 +19,14 @@ calibration absmaxes through module-level sinks
 hands each decode-at-use view the methods of a :class:`FlagRecorder`
 that the serve step creates per step and the model drains per layer, so
 they come back as values.
+
+The sharding context (:func:`set_sharding_ctx`; a sharded cell's step sets
+its own for the duration of each call, ``launch.specs``) pins internals to
+a layout as the reference's does: attention heads over 'model'
+(:func:`constrain_heads`), the MoE dispatch buffers, the residual stream
+(``lm._constrain_residual``). With a context that holds a ``mesh`` and a
+DTensor input, :func:`constrain` is ``x.redistribute(mesh, placements)``;
+otherwise it returns ``x``.
 """
 from __future__ import annotations
 
@@ -26,9 +34,58 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import local
+
 
 def Identity(w):
     return w
+
+
+# --------------------------------------------------------------------------
+# sharding context: {"dp": ("pod", "data") | "data", "model": "model", "sp":
+# bool, "model_size": int, "mesh": DeviceMesh | None}; None => no constraints
+# --------------------------------------------------------------------------
+
+SHARDING_CTX: dict | None = None
+
+
+def set_sharding_ctx(ctx: dict | None):
+    global SHARDING_CTX
+    SHARDING_CTX = ctx
+
+
+def constrain(x, *spec):
+    """Pin ``x`` to the layout ``P(*spec)`` (axes that do not divide their
+    dimension dropped): a DTensor is redistributed over the context's
+    mesh; anything else, or no context, passes through."""
+    if SHARDING_CTX is None or SHARDING_CTX.get("mesh") is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.protection.plan import _drop_nondividing
+    mesh = SHARDING_CTX["mesh"]
+    spec = _drop_nondividing(sh.P(*spec), tuple(x.shape), sh.mesh_sizes(mesh))
+    return x.redistribute(mesh, sh.to_placements(spec, mesh))
+
+
+def ctx_dp():
+    return SHARDING_CTX.get("dp") if SHARDING_CTX else None
+
+
+def constrain_heads(t):
+    """(B, H, S, D) attention tensor -> heads over 'model' when the head
+    count divides the axis, so softmax and scores stay local per shard.
+    Off under sequence parallelism, where S owns the 'model' axis (the
+    reference measured the two constraints together forcing full
+    rematerialization)."""
+    if SHARDING_CTX is None or SHARDING_CTX.get("sp"):
+        return t
+    msize = SHARDING_CTX.get("model_size", 1)
+    if t.shape[1] % msize == 0:
+        return constrain(t, ctx_dp(), "model", None, None)
+    return t
 
 
 class FlagRecorder:
@@ -169,8 +226,15 @@ def chunked_causal_attention(q, k, v, *, chunk: int = 2048,
     restricts each query to a sliding local window (the chunk becomes the
     window). Returns (B, H, S, Dv). Query chunk ``i`` attends its diagonal
     chunk first, then merges key chunks ``0..i-1`` in order (``i-1`` only
-    when windowed), as the reference's triangle path does.
+    when windowed), as the reference's triangle path does. The reference
+    turns the triangle off under sequence parallelism (its per-chunk slices
+    would land on single shards); here a sharded q is attended per head on
+    local tensors (``local.per_head``), so the triangle always applies and
+    gives the reference's values.
     """
+    if local.is_dtensor(q):   # each rank attends its own heads
+        return local.per_head(chunked_causal_attention, q, k, v, chunk=chunk,
+                              window=window)
     b, h, s, d = q.shape
     dv = v.shape[-1]
     scale = 1.0 / np.sqrt(d)
@@ -212,7 +276,11 @@ def chunked_causal_attention(q, k, v, *, chunk: int = 2048,
 
 
 def decode_attention(q, k_cache, v_cache, length_mask=None):
-    """q: (B,H,1,D); caches: (B,H,Skv,D). Full-cache single-token attention."""
+    """q: (B,H,1,D); caches: (B,H,Skv,D). Full-cache single-token attention
+    (a sharded cache attends shard by shard: ``distributed.local``)."""
+    if local.is_dtensor(k_cache):
+        return local.cache_attention(q, k_cache, v_cache, length_mask,
+                                     decode_attention)
     scale = 1.0 / np.sqrt(q.shape[-1])
     s = torch.einsum("bhqd,bhkd->bhqk", q, k_cache).to(torch.float32) * scale
     if length_mask is not None:
@@ -230,12 +298,25 @@ def gqa_params_shape(cfg):
     return p
 
 
+def heads(t, b, s, n, hd):
+    """A projection's (B, S, n*hd) output -> (B, S, n, hd). A DTensor split
+    over its last dim by more shards than ``n`` divides into is gathered
+    on that dim first (the heads cannot be cut there)."""
+    if local.is_dtensor(t):
+        t = local.splittable(t, n)
+    return t.reshape(b, s, n, hd)
+
+
 def _proj(x, w, b=None, wt=Identity):
     w = wt(w)
     if getattr(w, "decode_at_use", False):
         y = w.matmul(x)  # decode-at-use view: fused kernel or inline decode
     else:
-        y = x @ w.to(x.dtype)
+        if local.is_dtensor(w):   # a sharded weight: lay the operands out
+            x, w = local.tp_operands(x, w)
+            y = local.grad_as_output(x @ w.to(x.dtype))
+        else:
+            y = x @ w.to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -252,15 +333,15 @@ def gqa_attention(p, x, cfg, *, positions, wt=Identity, causal=True,
     it."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _proj(x, p["wq"], p.get("bq"), wt).reshape(b, s, h, hd)
-    k = _proj(x, p["wk"], p.get("bk"), wt).reshape(b, s, kv, hd)
-    v = _proj(x, p["wv"], p.get("bv"), wt).reshape(b, s, kv, hd)
+    q = heads(_proj(x, p["wq"], p.get("bq"), wt), b, s, h, hd)
+    k = heads(_proj(x, p["wk"], p.get("bk"), wt), b, s, kv, hd)
+    v = heads(_proj(x, p["wv"], p.get("bv"), wt), b, s, kv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     rep = h // kv    # GQA broadcast kv -> h
-    k = k.repeat_interleave(rep, dim=2)
-    v = v.repeat_interleave(rep, dim=2)
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    k = local.whole_grad(k.repeat_interleave(rep, dim=2), 2)
+    v = local.whole_grad(v.repeat_interleave(rep, dim=2), 2)
+    q, k, v = (constrain_heads(t.transpose(1, 2)) for t in (q, k, v))
     if causal and attention == "cuda":
         from repro_torch.kernels import flash_attention
         o = flash_attention.flash_attention(q, k, v,
@@ -268,10 +349,18 @@ def gqa_attention(p, x, cfg, *, positions, wt=Identity, causal=True,
     elif causal:
         o = chunked_causal_attention(q, k, v, chunk=chunk, window=window)
     else:  # bidirectional (an encoder)
-        o, _, l = _attend_chunk(q, k, v, None, 1.0 / np.sqrt(hd))
-        o = o / torch.clamp(l, min=1e-30)[..., None].to(o.dtype)
+        o = full_attention(q, k, v)
     o = o.transpose(1, 2).reshape(b, s, h * hd)
     return _proj(o, p["wo"], None, wt)
+
+
+def full_attention(q, k, v):
+    """Unmasked attention (an encoder, cross-attention): q (B, H, Sq, D),
+    k/v (B, H, Sk, D[v]) -> (B, H, Sq, Dv)."""
+    if local.is_dtensor(q):
+        return local.per_head(full_attention, q, k, v)
+    o, _, l = _attend_chunk(q, k, v, None, 1.0 / np.sqrt(q.shape[-1]))
+    return o / torch.clamp(l, min=1e-30)[..., None].to(o.dtype)
 
 
 def gqa_decode(p, x, cfg, cache, *, pos, window=0):
@@ -286,16 +375,16 @@ def gqa_decode(p, x, cfg, cache, *, pos, window=0):
     reference masks it. Returns (out, cache)."""
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _proj(x, p["wq"], p.get("bq")).reshape(b, 1, h, hd)
-    k = _proj(x, p["wk"], p.get("bk")).reshape(b, 1, kv, hd)
-    v = _proj(x, p["wv"], p.get("bv")).reshape(b, 1, kv, hd)
+    q = heads(_proj(x, p["wq"], p.get("bq")), b, 1, h, hd)
+    k = heads(_proj(x, p["wk"], p.get("bk")), b, 1, kv, hd)
+    v = heads(_proj(x, p["wv"], p.get("bv")), b, 1, kv, hd)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
     rows = torch.arange(b, device=x.device)
     smax = cache["k"].shape[1]
     slot = pos % smax if window else pos
-    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+    local.put_rows(cache["k"], rows, slot, k[:, 0].to(cache["k"].dtype))
+    local.put_rows(cache["v"], rows, slot, v[:, 0].to(cache["v"].dtype))
     rep = h // kv
     kh = cache["k"].repeat_interleave(rep, dim=2).transpose(1, 2)  # (B,H,S,hd)
     vh = cache["v"].repeat_interleave(rep, dim=2).transpose(1, 2)
@@ -336,10 +425,9 @@ def cross_attention(p, x, kv, cfg, wt=Identity):
     over every encoder position (no mask)."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
-    q = _proj(x, p["wq"], None, wt).reshape(b, s, h, hd).transpose(1, 2)
+    q = heads(_proj(x, p["wq"], None, wt), b, s, h, hd).transpose(1, 2)
     k, v = (t.transpose(1, 2) for t in kv)
-    o, _, l = _attend_chunk(q, k, v, None, 1.0 / np.sqrt(hd))
-    o = o / torch.clamp(l, min=1e-30)[..., None].to(o.dtype)
+    o = full_attention(q, k, v)
     o = o.transpose(1, 2).reshape(b, s, h * hd)
     return _proj(o, p["wo"], None, wt)
 
@@ -375,7 +463,7 @@ def _mla_q(p, x, cfg, wt=Identity):
         q = _proj(_proj(x, p["w_dq"], None, wt), p["w_uq"], None, wt)
     else:
         q = _proj(x, p["wq"], None, wt)
-    q = q.reshape(b, s, h, qn + qr)
+    q = heads(q, b, s, h, qn + qr)
     return q[..., :qn], q[..., qn:]
 
 
@@ -404,11 +492,11 @@ def mla_attention(p, x, cfg, *, positions, wt=Identity, chunk=2048,
         q_nope, q_rope = _mla_q(p, x, cfg, wt)
         q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
         latent, k_rope = _mla_kv_in(p, x, cfg, positions, wt)
-        k_nope = _proj(latent, p["w_uk"], None, wt).reshape(b, s, h, qn)
-        v = _proj(latent, p["w_uv"], None, wt).reshape(b, s, h, vd)
+        k_nope = heads(_proj(latent, p["w_uk"], None, wt), b, s, h, qn)
+        v = heads(_proj(latent, p["w_uv"], None, wt), b, s, h, vd)
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope.expand(b, s, h, qr)], dim=-1)
-        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        q, k, v = (constrain_heads(t.transpose(1, 2)) for t in (q, k, v))
         if attention == "cuda":
             from repro_torch.kernels import flash_attention
             o = flash_attention.flash_attention(q, k, v)
@@ -435,11 +523,11 @@ def mla_decode(p, x, cfg, cache, *, pos):
         latent, k_rope = _mla_kv_in(p, x, cfg, pos[:, None])
         rows = torch.arange(b, device=x.device)
         lat_c, kr_c = cache["latent"], cache["k_rope"]
-        lat_c[rows, pos] = latent[:, 0].to(lat_c.dtype)
-        kr_c[rows, pos] = k_rope[:, 0, 0].to(kr_c.dtype)
+        local.put_rows(lat_c, rows, pos, latent[:, 0].to(lat_c.dtype))
+        local.put_rows(kr_c, rows, pos, k_rope[:, 0, 0].to(kr_c.dtype))
         smax = lat_c.shape[1]
-        k_nope = _proj(lat_c, p["w_uk"]).reshape(b, smax, h, qn)
-        v = _proj(lat_c, p["w_uv"]).reshape(b, smax, h, vd)
+        k_nope = heads(_proj(lat_c, p["w_uk"]), b, smax, h, qn)
+        v = heads(_proj(lat_c, p["w_uv"]), b, smax, h, vd)
         s1 = torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
         s2 = torch.einsum("bqhd,bkd->bhqk", q_rope, kr_c.to(q_rope.dtype))
         sc = (s1 + s2).to(torch.float32) / np.sqrt(qn + qr)
@@ -553,8 +641,8 @@ def rglru_decode(p, x, cfg, cache):
         h = (cache["h"].to(torch.float32) * a + b).to(x.dtype)
         y_gate = F.gelu(_proj(x[:, 0], p["w_y_gate"]), approximate="tanh")
         out = _proj(h * y_gate, p["w_out"])[:, None]
-        cache["h"].copy_(h)
-        cache["conv"].copy_(hist[:, 1:])
+        local.assign(cache["h"], h)
+        local.assign(cache["conv"], hist[:, 1:])
     return out, cache
 
 
@@ -662,7 +750,7 @@ def mamba2_block(p, x, cfg, wt=Identity):
     conv_in, z, dt, A = _mamba2_in(p, _proj(x, p["w_in"], None, wt), cfg)
     conv_out = F.silu(_causal_conv(conv_in, _dense(p["conv_w"], x.dtype)))
     xi, B, C = torch.split(conv_out, [di, n, n], dim=-1)
-    xh = xi.reshape(b, s, h, hd)
+    xh = heads(xi, b, s, h, hd)
     with torch.profiler.record_function("ssd"):
         y, _ = _ssd_chunked(xh, dt, A, B, C, min(cfg.ssm_chunk, s))
     y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
@@ -694,8 +782,8 @@ def mamba2_decode(p, x, cfg, cache):
         y = y + xh * p["D"].to(x.dtype)[None, :, None]
         y = y.reshape(b, di) * F.silu(z)
         out = _proj(y, p["w_out"])[:, None]
-        cache["state"].copy_(state)
-        cache["conv"].copy_(hist[:, 1:])
+        local.assign(cache["state"], state)
+        local.assign(cache["conv"], hist[:, 1:])
     return out, cache
 
 
@@ -816,11 +904,14 @@ def moe(p, x, cfg, wt=Identity):
         src_tok = tok_sorted.gather(1, grid_j)                # (g, e*cap)
         xe = x.gather(1, src_tok[..., None].expand(b, e * cap, d))
         xe = torch.where(grid_valid[..., None], xe, 0)
+        xe = constrain(xe.reshape(b, e, cap, d), ctx_dp(), "model", None,
+                       None)                              # EP all-to-all
         # expert-major for the batched products: (e, g*cap, d)
-        xe = xe.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+        xe = xe.transpose(0, 1).reshape(e, b * cap, d)
         ye = _expert_ffn(xe, p, wt)
-        yflat = ye.reshape(e, b, cap, d).transpose(0, 1).reshape(
-            b, e * cap, d)
+        ye = constrain(ye.reshape(e, b, cap, d).transpose(0, 1), ctx_dp(),
+                       "model", None, None)
+        yflat = ye.reshape(b, e * cap, d)
         # each (token, k) pair's slot, for the combine gather
         keep = pos < cap
         slot = torch.where(keep, eid * cap + pos, 0)
@@ -846,6 +937,8 @@ def gelu_mlp(p, x, wt=Identity):
 
 
 def embed(tokens, emb, dtype=torch.bfloat16):
+    if local.is_dtensor(emb) or local.is_dtensor(tokens):
+        return local.embed(emb, tokens, dtype)
     return emb.to(dtype)[tokens]
 
 

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch import tree
+from repro_torch.distributed import local
 
 from . import layers as L
 from .config import ArchConfig
@@ -248,6 +249,23 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         cache["cross_k"] = torch.zeros(cross, dtype=dtype, device=dev)
         cache["cross_v"] = torch.zeros(cross, dtype=dtype, device=dev)
     return cache
+
+
+def set_sharding_ctx(ctx: dict | None):
+    """The launcher's and the dry-run's sharding context (see
+    ``layers.set_sharding_ctx``; None: no constraints)."""
+    L.set_sharding_ctx(ctx)
+
+
+def _constrain_residual(x):
+    """Sequence-parallel residual stream: (B, S, D) -> P(dp, model, None)."""
+    ctx = L.SHARDING_CTX
+    if ctx is None:
+        return x
+    dp, mdl = ctx["dp"], ctx["model"]
+    if ctx.get("sp") and x.shape[1] % ctx.get("model_size", 1) == 0:
+        return L.constrain(x, dp, mdl, None)
+    return L.constrain(x, dp, None, None)
 
 
 def _embed_in(cfg: ArchConfig, tokens, emb, dtype, prefix_embeds=None):
@@ -469,8 +487,9 @@ def forward(cfg: ArchConfig, params, tokens, *, wt=L.Identity,
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     x, fl, ab, la = _run_stack(
-        cfg, lambda x, lp: _block_full(cfg, lp, x, positions, wt, chunk,
-                                       attention, enc_out),
+        cfg, lambda x, lp: _block_full(cfg, lp, _constrain_residual(x),
+                                       positions, wt, chunk, attention,
+                                       enc_out),
         x, params["layers"], n_scan_layers(cfg),
         lt=_scoped_lt(layer_transform, "layers"),
         collect_flags=collect_flags, collect_acts=collect_acts,
@@ -513,7 +532,10 @@ def loss_fn(cfg: ArchConfig, params, batch, *, wt=L.Identity,
         logits = logits[:, -targets.shape[1]:]
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    if local.is_dtensor(logits):   # the vocab may be split over shards
+        tgt = local.take_last(logits, targets)
+    else:
+        tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
     return (lse - tgt).mean()
 
 
@@ -696,6 +718,7 @@ def prefill_with_cache(cfg: ArchConfig, params, cache, tokens, *,
         if lt is not None:
             lp = lt(lp)
         lc = {k: v[i] for k, v in cache.items()}
+        x = _constrain_residual(x)
         h = L.apply_norm(x, lp["ln1"], cfg.norm)
         o, _, kvf = kvcache.paged_gqa_prefill(lp["attn"], h, cfg, lc,
                                               positions=positions, policy=kvp,

@@ -15,7 +15,8 @@ from .plan import (POLICY_PRESETS, LeafDiff, LeafPlan,  # noqa: F401
 from .policy import (CoverageEntry, CoverageReport,  # noqa: F401
                      ProtectionPolicy, decode_leaf, decode_leaf_with_flags,
                      decode_tree, decode_tree_with_flags, inject_tree,
-                     inject_tree_device, space_overhead)
+                     inject_tree_device, space_overhead,
+                     spec_tree)
 from .schemes import (ALIASES, SCHEMES, Faulty, InPlace,  # noqa: F401
                       ParityZero, Scheme, Secded72, get_scheme, scheme_ids)
 from .tensor import ProtectedTensor, is_protected_tensor  # noqa: F401

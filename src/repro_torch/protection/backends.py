@@ -40,10 +40,11 @@ class Backend:
         raise NotImplementedError
 
     def quantize_throttle(self, w: torch.Tensor, *, write_back=False,
-                          with_q=True):
+                          with_q=True, amax_reduce=None):
         """(nblk, 8) f32 -> (WOT-compliant q int8 (nblk, 8), scale f32 ());
         with ``write_back`` any f32 ``w``, the moved masters written back
-        in place (``kernels.quant_throttle.quantize_throttle``)."""
+        in place; ``amax_reduce`` joins a shard's absmax across the shards
+        (``kernels.quant_throttle.quantize_throttle``)."""
         raise NotImplementedError
 
     def throttle(self, q_blocks: torch.Tensor) -> torch.Tensor:
@@ -60,10 +61,11 @@ class TorchBackend(Backend):
     def decode64(self, blocks):
         return ecc.decode64(blocks)
 
-    def quantize_throttle(self, w, *, write_back=False, with_q=True):
+    def quantize_throttle(self, w, *, write_back=False, with_q=True,
+                          amax_reduce=None):
         from repro_torch.kernels.quant_throttle import quantize_throttle_plain
         return quantize_throttle_plain(w, write_back=write_back,
-                                       with_q=with_q)
+                                       with_q=with_q, amax_reduce=amax_reduce)
 
     def throttle(self, q_blocks):
         from repro_torch.kernels.throttle import throttle_plain
@@ -84,9 +86,11 @@ class CudaBackend(Backend):
         return (dec.reshape(blocks.shape), (flags & 1).bool(),
                 (flags & 2).bool())
 
-    def quantize_throttle(self, w, *, write_back=False, with_q=True):
+    def quantize_throttle(self, w, *, write_back=False, with_q=True,
+                          amax_reduce=None):
         from repro_torch.kernels.quant_throttle import quantize_throttle
-        return quantize_throttle(w, write_back=write_back, with_q=with_q)
+        return quantize_throttle(w, write_back=write_back, with_q=with_q,
+                                 amax_reduce=amax_reduce)
 
     def throttle(self, q_blocks):
         from repro_torch.kernels.throttle import throttle

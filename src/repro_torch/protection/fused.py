@@ -36,6 +36,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import quant
+from repro_torch.distributed import local
 from repro_torch.kernels import ref
 
 from .backends import get_backend
@@ -133,7 +134,8 @@ class ProtectedWeight:
             self._record_abft(row_mm.sum() + col_mm, clamp_hits.sum())
 
     def astype(self, dtype):
-        """Decode just this leaf (recording flags) -> dequantized tensor."""
+        """Decode just this leaf (recording flags) -> dequantized tensor (a
+        DTensor placed as a sharded image, each shard decoded in place)."""
         w, corrected, due = decode_leaf_with_flags(self.pt, dtype,
                                                    backend=self.backend)
         self.record(corrected, due)
@@ -219,6 +221,8 @@ class ProtectedWeight:
         ``act_quant`` decision ``x`` is quantized here and served over the
         int8 path instead. Raw int8 ``x`` is taken only with a static
         ``a_scale``, which says what the integers mean (bf16 output)."""
+        if local.is_dtensor(self.pt.enc):   # a sharded image
+            return local.sharded_matmul(self, x)
         lead = x.shape[:-1]
         a2 = x.reshape(-1, x.shape[-1])
         n_out = self.pt.orig_shape[-1]

@@ -11,13 +11,19 @@ policy (:meth:`ProtectionPlan.with_kv_policy`), and diffs against another
 plan of the same tree (:class:`PlanDiff`) and migrates an encoded tree
 toward it leaf by leaf (:meth:`ProtectionPlan.migrate_step`, through
 :func:`transcode_leaf`). :data:`POLICY_PRESETS` are the reference's named
-mixed-scheme policies. The mesh specs are not ported.
+mixed-scheme policies. Built with a mesh (a ``DeviceMesh`` or a plain
+``{axis: size}`` dict) and a ``param_spec_fn``, every leaf also carries its
+sharding spec (``LeafPlan.spec``, a ``ProtectedTensor`` of
+``distributed.sharding.P`` for a protected leaf): a same-shape image
+inherits the weight's spec, sanitized against the mesh's sizes; a
+flat-padded image gets a 1-D spec over ('data', 'model') while every shard
+keeps whole 8-byte blocks (:meth:`ProtectionPlan.spec_tree`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -33,6 +39,7 @@ __all__ = ["LeafPlan", "ProtectionPlan", "make_plan", "ShapeDtype",
            "get_policy_preset"]
 
 BLOCK = 8
+FLAT_SHARD_AXES = ("data", "model")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +71,9 @@ class LeafPlan:
     abft:      verify ABFT checksums on this leaf's matmuls
                (:meth:`ProtectionPlan.with_abft`).
     clamp:     activation-range bound (absmax) of the epilogue output, hits
-               counted; None leaves the output unclipped."""
+               counted; None leaves the output unclipped.
+    spec:      the leaf's sharding spec (a ``ProtectedTensor`` of specs
+               for a protected leaf), or None without a ``param_spec_fn``."""
     path: str
     scheme_id: Optional[str]
     reason: str
@@ -84,10 +93,17 @@ class LeafPlan:
     a_scale: Optional[float] = None
     abft: bool = False
     clamp: Optional[float] = None
+    spec: Any = dataclasses.field(default=None, compare=False)
 
     @property
     def protected(self) -> bool:
         return self.scheme_id is not None
+
+    @property
+    def flat_sharded(self) -> bool:
+        """True when a flat-padded image got a real (non-replicated) spec."""
+        return (self.layout == "flat-padded" and self.spec is not None
+                and tuple(self.spec.enc) != ())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,12 +178,15 @@ def transcode_leaf(pt: ProtectedTensor, to_scheme, *, backend="torch"):
 
 class ProtectionPlan:
     """Ordered ``{path: LeafPlan}`` for one ``(policy, tree)``, plus the
-    serving-state ``kv_policy`` (None unless set)."""
+    serving-state ``kv_policy`` (None unless set) and the mesh axes the
+    specs were sized for (None without a mesh)."""
 
-    def __init__(self, policy, leaves: dict, *, kv_policy=None):
+    def __init__(self, policy, leaves: dict, *, kv_policy=None,
+                 mesh_axes=None):
         self.policy = policy
         self.leaves = leaves
         self.kv_policy = kv_policy
+        self.mesh_axes = mesh_axes
 
     def __len__(self) -> int:
         return len(self.leaves)
@@ -227,6 +246,7 @@ class ProtectionPlan:
             "by_scheme": self.by_scheme(),
             "by_backend": self.by_backend(),
             "n_flat_padded": sum(lp.layout == "flat-padded" for lp in prot),
+            "n_flat_sharded": sum(lp.flat_sharded for lp in prot),
             "tiles_src": self._count(prot, "tiles_src"),
             "act_quant": self._count(prot, "act_quant"),
             "n_abft": sum(lp.abft for lp in prot),
@@ -284,7 +304,8 @@ class ProtectionPlan:
                     clamp=s * quant.QMAX if clamp else lp.clamp)
             else:
                 leaves[p] = lp
-        return ProtectionPlan(self.policy, leaves, kv_policy=self.kv_policy)
+        return ProtectionPlan(self.policy, leaves, kv_policy=self.kv_policy,
+                              mesh_axes=self.mesh_axes)
 
     def with_abft(self, enabled: bool = True, *,
                   clamps: Optional[dict] = None) -> "ProtectionPlan":
@@ -301,7 +322,8 @@ class ProtectionPlan:
                 leaves[p] = dataclasses.replace(
                     lp, abft=bool(enabled),
                     clamp=float(clamps[p]) if p in clamps else lp.clamp)
-        return ProtectionPlan(self.policy, leaves, kv_policy=self.kv_policy)
+        return ProtectionPlan(self.policy, leaves, kv_policy=self.kv_policy,
+                              mesh_axes=self.mesh_axes)
 
     def with_kv_policy(self, kv_policy) -> "ProtectionPlan":
         """A new plan that also carries the paged KV cache's policy (a
@@ -309,7 +331,8 @@ class ProtectionPlan:
         step and the prefill default their ``kv_policy`` from it."""
         from repro_torch.serving import kvcache  # serving builds on us
         return ProtectionPlan(self.policy, self.leaves,
-                              kv_policy=kvcache.get_kv_policy(kv_policy))
+                              kv_policy=kvcache.get_kv_policy(kv_policy),
+                              mesh_axes=self.mesh_axes)
 
     # -- plan diff and rolling migration ------------------------------------
 
@@ -338,7 +361,8 @@ class ProtectionPlan:
         if unknown:
             raise KeyError(f"not in this plan: {sorted(unknown)[:3]}")
         return ProtectionPlan(self.policy, {**self.leaves, **leaves},
-                              kv_policy=self.kv_policy)
+                              kv_policy=self.kv_policy,
+                              mesh_axes=self.mesh_axes)
 
     def migrate_step(self, enc_tree, target: "ProtectionPlan",
                      paths) -> tuple:
@@ -412,10 +436,66 @@ class ProtectionPlan:
                                backend=self._leaf(path).backend)
         return tree.map_with_path(dec, enc_tree)
 
+    def spec_tree(self, enc_tree):
+        """Sharding specs for an encoded tree, from the plan's materialized
+        per-leaf specs (flat-padded images sharded when block-aligned)."""
+        def spec(path, leaf):
+            lp = self._leaf(path)
+            if lp.spec is None:
+                raise ValueError(
+                    f"plan has no spec for {lp.path!r} — build it with "
+                    f"make_plan(..., param_spec_fn=...) to use spec_tree()")
+            return lp.spec
+        return tree.map_with_path(spec, enc_tree)
 
-def make_plan(policy, params) -> ProtectionPlan:
+
+def _drop_nondividing(spec, shape, sizes):
+    """Drop mesh axes from dims they don't divide (the dry-run's sanitize
+    pass, applied at plan time when the mesh is known)."""
+    from repro_torch.distributed.sharding import P
+    if sizes is None or not isinstance(spec, P):
+        return spec
+    dims = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for dim_size, entry in zip(shape, dims):
+        if entry is None:
+            out.append(None)
+            continue
+        names = entry if isinstance(entry, tuple) else (entry,)
+        prod = math.prod(sizes.get(n, 0) for n in names)
+        out.append(entry if prod and dim_size % prod == 0 else None)
+    return P(*out)
+
+
+def _flat_spec(enc_len: int, sizes):
+    """1-D sharded spec for a flat-padded image over ('data', 'model') when
+    every shard keeps whole 8-byte ECC blocks; replicated otherwise."""
+    from repro_torch.distributed.sharding import P
+    if sizes is None:
+        return P()
+    axes = tuple(a for a in FLAT_SHARD_AXES if a in sizes)
+    if not axes:
+        return P()
+    n_shards = math.prod(sizes[a] for a in axes)
+    if n_shards <= 1 or enc_len % (BLOCK * n_shards) != 0:
+        return P()
+    return P(axes)
+
+
+def make_plan(policy, params, *, mesh=None,
+              param_spec_fn: Optional[Callable] = None) -> ProtectionPlan:
     """Materialize a :class:`ProtectionPlan`; only shapes, dtypes and paths
-    of ``params`` are read."""
+    of ``params`` are read.
+
+    mesh:          optional ``DeviceMesh`` or ``{axis: size}`` dict; sizes
+                   the flat-padded images' 1-D specs and sanitizes the
+                   same-shape specs against the axis sizes.
+    param_spec_fn: ``(path, leaf) -> P`` for weight leaves (the rule table
+                   serving uses, ``distributed.sharding.param_spec``);
+                   without it the plan has no specs and
+                   :meth:`ProtectionPlan.spec_tree` raises."""
+    from repro_torch.distributed.sharding import P, mesh_sizes
+    sizes = mesh_sizes(mesh)
     leaves: dict = {}
     for path, leaf in tree.leaves_with_path(params):
         p = tree.path_str(path)
@@ -424,8 +504,12 @@ def make_plan(policy, params) -> ProtectionPlan:
         n = int(math.prod(shape))
         if sid is None:
             itemsize = torch.empty((), dtype=leaf.dtype).element_size()
+            spec = None
+            if param_spec_fn is not None:
+                spec = _drop_nondividing(param_spec_fn(path, leaf), shape,
+                                         sizes)
             leaves[p] = LeafPlan(p, None, reason, "", "raw", shape, n, (), 0, 0,
-                                 n * itemsize)
+                                 n * itemsize, spec=spec)
             continue
         scheme = get_scheme(sid)
         aligned = len(shape) >= 1 and shape[-1] % BLOCK == 0
@@ -443,13 +527,26 @@ def make_plan(policy, params) -> ProtectionPlan:
             srcs = {s for s in (f_src, i_src) if s}
             tiles_src = ("nearest" if "nearest" in srcs
                          else "exact" if srcs else "")
+        spec = None
+        if param_spec_fn is not None:
+            if aligned:
+                enc_spec = _drop_nondividing(
+                    param_spec_fn(path, ShapeDtype(shape, torch.uint8)),
+                    shape, sizes)
+            else:
+                enc_spec = _flat_spec(n + pad, sizes)
+            spec = ProtectedTensor(enc=enc_spec,
+                                   checks=P() if checks else None,
+                                   scale=P(), scheme_id=scheme.scheme_id,
+                                   orig_shape=shape)
         leaves[p] = LeafPlan(
             p, scheme.scheme_id, "", be.name,
             "same-shape" if aligned else "flat-padded", shape, n,
             shape if aligned else (n + pad,), pad, checks, n + pad + checks,
             backend_src=be_src, tiles=tiles, int8_tiles=int8_tiles,
-            tiles_src=tiles_src)
-    return ProtectionPlan(policy, leaves)
+            tiles_src=tiles_src, spec=spec)
+    return ProtectionPlan(policy, leaves,
+                          mesh_axes=tuple(sizes) if sizes else None)
 
 
 # MLP / FFN / expert projections: what attn-inplace-mlp-secded moves to the

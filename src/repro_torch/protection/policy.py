@@ -10,8 +10,8 @@ as coverage gaps; ``throttle`` applies the WOT clamp before encoding; and
 each leaf's codec route resolves from ``backend_rules``, then the
 shape-keyed ``autotune`` table, then ``backend``. Beside it, the
 policy-free tree ops the campaigns use: decode (with and without fault
-flags), host and device fault injection, and the space overhead. The
-reference's mesh specs (``spec_tree``, ``param_spec_fn``) are not ported.
+flags), host and device fault injection, the space overhead, and the
+sharding specs of an encoded tree (:func:`spec_tree`).
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core import faults, quant, wot
+from repro_torch.distributed import local
 
 from .backends import AutotuneTable, get_backend
 from .schemes import Scheme, get_scheme
@@ -31,7 +32,7 @@ from .tensor import ProtectedTensor, is_protected_tensor
 __all__ = ["ProtectionPolicy", "CoverageReport", "CoverageEntry",
            "decode_leaf", "decode_leaf_with_flags", "decode_tree",
            "decode_tree_with_flags", "inject_tree", "inject_tree_device",
-           "space_overhead", "path_str"]
+           "space_overhead", "spec_tree", "path_str"]
 
 BLOCK = 8
 path_str = tree.path_str
@@ -198,10 +199,12 @@ class ProtectionPolicy:
                 return get_backend(best), "autotune"
         return self.backend, "policy"
 
-    def plan(self, params):
-        """Materialize every per-leaf decision once (see ``plan.make_plan``)."""
+    def plan(self, params, *, mesh=None, param_spec_fn=None):
+        """Materialize every per-leaf decision once (see ``plan.make_plan``;
+        ``mesh`` and ``param_spec_fn`` add each leaf's sharding spec)."""
         from .plan import make_plan
-        return make_plan(self, params)
+        return make_plan(self, params, mesh=mesh,
+                         param_spec_fn=param_spec_fn)
 
     # -- leaf codec ----------------------------------------------------------
 
@@ -262,6 +265,8 @@ def _dequant(pt: ProtectedTensor, q, dtype):
 def decode_leaf(pt: ProtectedTensor, dtype=torch.bfloat16, *,
                 backend="torch"):
     """ProtectedTensor -> dequantized weight tensor (faults corrected)."""
+    if local.is_dtensor(pt.enc):
+        return local.decode_leaf_with_flags(pt, dtype, backend)[0]
     q = get_scheme(pt.scheme_id).decode(pt.enc, pt.checks,
                                         get_backend(backend))
     return _dequant(pt, q, dtype)
@@ -270,7 +275,11 @@ def decode_leaf(pt: ProtectedTensor, dtype=torch.bfloat16, *,
 def decode_leaf_with_flags(pt: ProtectedTensor, dtype=torch.bfloat16, *,
                            backend="torch"):
     """ProtectedTensor -> ``(dequantized weight, corrected, due)`` with int32
-    scalar counts of repaired and detected-uncorrectable blocks."""
+    scalar counts of repaired and detected-uncorrectable blocks. A sharded
+    image (a DTensor ``enc``) decodes shard by shard, its counts summed
+    over the shards (``distributed.local``)."""
+    if local.is_dtensor(pt.enc):
+        return local.decode_leaf_with_flags(pt, dtype, backend)
     scheme = get_scheme(pt.scheme_id)
     q, corrected, due = scheme.decode_with_flags(pt.enc, pt.checks,
                                                  get_backend(backend))
@@ -391,6 +400,32 @@ def inject_tree_device(enc_tree, rate: float, generator: torch.Generator,
         return _with_image(pt, image)
 
     return tree.map_with_path(inj, enc_tree), positions
+
+
+def spec_tree(enc_tree, param_spec_fn, *, mesh=None):
+    """Sharding specs for an encoded tree: a same-shape image inherits the
+    weight's spec byte for byte; check bytes and scales are replicated.
+    Flat-padded images replicate by default; with ``mesh`` they get the 1-D
+    block-aligned sharded spec (``plan._flat_spec``). A
+    :class:`~repro_torch.protection.plan.ProtectionPlan` materializes
+    these specs once per leaf."""
+    from repro_torch.distributed.sharding import P, mesh_sizes
+
+    from .plan import _flat_spec
+
+    sizes = mesh_sizes(mesh)
+
+    def spec(path, leaf):
+        if is_protected_tensor(leaf):
+            enc_spec = (_flat_spec(int(leaf.enc.shape[0]), sizes)
+                        if leaf.is_flat else param_spec_fn(path, leaf.enc))
+            checks_spec = None if leaf.checks is None else P()
+            return ProtectedTensor(enc=enc_spec, checks=checks_spec,
+                                   scale=P(), scheme_id=leaf.scheme_id,
+                                   orig_shape=tuple(leaf.orig_shape))
+        return param_spec_fn(path, leaf)
+
+    return tree.map_with_path(spec, enc_tree)
 
 
 def space_overhead(enc_tree) -> float:

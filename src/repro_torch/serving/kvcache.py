@@ -33,6 +33,7 @@ returns new arrays.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import heapq
 from typing import Optional, Sequence
 
@@ -40,6 +41,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import ecc
+from repro_torch.distributed import local
 from repro_torch.kernels import kv_write, paged_attention
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
@@ -477,34 +479,43 @@ def paged_gqa_decode(p, x, cfg: ArchConfig, lc, *, pos,
     ``policy.per_slot_flags``."""
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = L._proj(x, p["wq"], p.get("bq")).reshape(b, 1, h, hd)
-    k = L._proj(x, p["wk"], p.get("bk")).reshape(b, 1, kv, hd)
-    v = L._proj(x, p["wv"], p.get("bv")).reshape(b, 1, kv, hd)
+    q = L.heads(L._proj(x, p["wq"], p.get("bq")), b, 1, h, hd)
+    k = L.heads(L._proj(x, p["wk"], p.get("bk")), b, 1, kv, hd)
+    v = L.heads(L._proj(x, p["wv"], p.get("bv")), b, 1, kv, hd)
     q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
     k = L.apply_rope(k, pos[:, None], cfg.rope_theta)
+    if local.is_dtensor(lc["k_pages"]):   # each data rank's own pages
+        o, flags = local.paged_local(
+            functools.partial(_paged_attend, policy=policy), lc, q, k, v,
+            pos, per_slot=policy.per_slot_flags)
+    else:
+        o, flags = _paged_attend(lc, q, k, v, pos, policy=policy)
+    o = o.transpose(1, 2).reshape(b, 1, h * hd)
+    return L._proj(o, p["wo"]), lc, flags
+
+
+def _paged_attend(lc, q, k, v, pos, *, policy: KVProtectionPolicy):
+    """One decode token's K/V write into its page (in place) and the
+    attention over the pool -> (o (B, H, 1, hd), flags)."""
     table = lc["kv_table"]
     _write_kv(lc, k, v, policy, pos=pos)
-
     qh = q.transpose(1, 2)                                   # (B, H, 1, hd)
     pool = (lc["k_pages"], lc.get("k_checks"), lc["k_scale"], lc["v_pages"],
             lc.get("v_checks"), lc["v_scale"], table)
     if policy.attention_impl == "chunked":   # the kernels read the pool
-        o, flags = paged_attention.chunked_page_attention_paged(
+        return paged_attention.chunked_page_attention_paged(
             qh, *pool, pos, scheme=policy.scheme,
             chunk_tokens=policy.chunk_pages * policy.page_size,
             per_slot=policy.per_slot_flags)
-    elif policy.fused:
-        o, flags = paged_attention.fused_page_attention_paged(
+    if policy.fused:
+        return paged_attention.fused_page_attention_paged(
             qh, *pool, pos, scheme=policy.scheme,
             per_slot=policy.per_slot_flags)
-    else:
-        ke, kch, ksc = paged_attention.gather_strips(*pool[:3], table)
-        ve, vch, vsc = paged_attention.gather_strips(*pool[3:6], table)
-        o, corrected, due = _reference_paged_attention(
-            qh, ke, kch, ksc, ve, vch, vsc, pos, policy)
-        flags = torch.stack([corrected, due])
-    o = o.transpose(1, 2).reshape(b, 1, h * hd)
-    return L._proj(o, p["wo"]), lc, flags
+    ke, kch, ksc = paged_attention.gather_strips(*pool[:3], table)
+    ve, vch, vsc = paged_attention.gather_strips(*pool[3:6], table)
+    o, corrected, due = _reference_paged_attention(
+        qh, ke, kch, ksc, ve, vch, vsc, pos, policy)
+    return o, torch.stack([corrected, due])
 
 
 def paged_gqa_prefill(p, x, cfg: ArchConfig, lc, *, positions,
@@ -520,9 +531,9 @@ def paged_gqa_prefill(p, x, cfg: ArchConfig, lc, *, positions,
     (2, B) under ``policy.per_slot_flags``."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = L._proj(x, p["wq"], p.get("bq")).reshape(b, s, h, hd)
-    k = L._proj(x, p["wk"], p.get("bk")).reshape(b, s, kv, hd)
-    v = L._proj(x, p["wv"], p.get("bv")).reshape(b, s, kv, hd)
+    q = L.heads(L._proj(x, p["wq"], p.get("bq")), b, s, h, hd)
+    k = L.heads(L._proj(x, p["wk"], p.get("bk")), b, s, kv, hd)
+    v = L.heads(L._proj(x, p["wv"], p.get("bv")), b, s, kv, hd)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
 
@@ -537,9 +548,9 @@ def paged_gqa_prefill(p, x, cfg: ArchConfig, lc, *, positions,
     kf = (kq.to(torch.float32) * ksc[..., None, None]).to(x.dtype)[:, :s]
     vf = (vq.to(torch.float32) * vsc[..., None, None]).to(x.dtype)[:, :s]
     rep = h // kv
-    qh = q.transpose(1, 2)                                   # (B, H, S, hd)
-    kh = kf.repeat_interleave(rep, dim=2).transpose(1, 2)
-    vh = vf.repeat_interleave(rep, dim=2).transpose(1, 2)
+    qh = L.constrain_heads(q.transpose(1, 2))               # (B, H, S, hd)
+    kh = L.constrain_heads(kf.repeat_interleave(rep, dim=2).transpose(1, 2))
+    vh = L.constrain_heads(vf.repeat_interleave(rep, dim=2).transpose(1, 2))
     if policy.backend == "cuda":
         from repro_torch.kernels import flash_attention
         o = flash_attention.flash_attention(qh, kh, vh)

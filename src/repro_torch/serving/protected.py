@@ -174,6 +174,18 @@ def _use_tree(enc_params, router: _Router, dtype, recorder: L.FlagRecorder):
     return out
 
 
+def make_plan(params, policy=None, *, mesh=None, param_spec_fn=None):
+    """The serving :class:`~repro_torch.protection.ProtectionPlan` of a
+    parameter tree (or its shape records): scheme, layout, backend and,
+    with ``param_spec_fn``, the sharding spec of every leaf, resolved once
+    for :func:`make_serve_step`, :func:`make_prefill` and the dry-run's
+    cells (``policy`` defaults to in-place on every weight)."""
+    from repro_torch import protection
+    return protection.make_plan(policy or protection.default_policy(),
+                                params, mesh=mesh,
+                                param_spec_fn=param_spec_fn)
+
+
 def _kv_policy(kv_policy, attention_impl, backend, plan=None):
     """Resolve the KV policy (default: the plan's), apply the
     ``attention_impl`` override and set the codec route to the step's

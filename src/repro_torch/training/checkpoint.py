@@ -19,7 +19,10 @@ checkpoint written by either package restores in the other:
   SgdState)`` checkpoint the momentum of every protected weight is
   quantized too;
 * ``restore(..., device=)`` puts the leaves on the device the current job
-  uses (the reference takes ``shardings=``).
+  uses; with ``shardings=`` (specs or placements, and the ``mesh``) it
+  places them as DTensors on the current mesh, whatever mesh saved them
+  (the reference's elastic re-meshing), each rank copying only its own
+  chunks to the device.
 
 ``treedef`` is free text that neither package reads: leaves are matched by
 their index in ``jax.tree_util`` order (``repro_torch.tree``). On a CUDA
@@ -40,6 +43,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch import protection, tree
 from repro_torch.core import quant, wot
+from repro_torch.protection.host import BLOCK
 
 
 def _numpy(leaf) -> np.ndarray:
@@ -138,12 +142,73 @@ def latest_step(path: str) -> Optional[int]:
 
 
 def restore(path: str, tree_like, *, step: Optional[int] = None,
-            device=None):
+            device=None, shardings=None, mesh=None):
     """Restore into the structure of ``tree_like``, every leaf a tensor on
     ``device`` (default ``"cuda"``; a protected leaf is decoded there and
     dequantized as ``q (f32) * scale``, as the reference does in NumPy).
-    -> ``(tree, step)``."""
+
+    ``shardings``: a tree of ``distributed.sharding.P`` specs (or DTensor
+    placements) shaped as ``tree_like`` (a spec may stand for a subtree),
+    with the ``mesh`` to place them on: every rank reads the checkpoint
+    leaf by leaf on the host and copies only its own chunk of each to
+    ``device``, a DTensor holding the same values as the unsharded restore
+    (elastic re-meshing: the saving job's mesh does not matter). A
+    protected leaf's chunk of whole 8-byte blocks is decoded on ``device``
+    alone; a chunk that would cut a block is decoded on the host from the
+    whole leaf. A rank's device holds its own chunks, and one chunk's
+    codec buffers at a time. -> ``(tree, step)``."""
+    if shardings is not None and mesh is None:
+        raise ValueError("restore(shardings=...) needs the mesh to place "
+                         "the leaves on")
     dev = device_mod.resolve(device)
+    step, n, read = _reader(path, tree_like, step)
+    if shardings is None:
+        return tree.unflatten_like(tree_like,
+                                   [read(i, dev) for i in range(n)]), step
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as sh
+    out = []
+    for i, (p, _) in enumerate(tree.leaves_with_path(tree_like)):
+        spec = sh.spec_at(shardings, p)
+        pls = sh.to_placements(spec, mesh) if isinstance(spec, sh.P) else spec
+        part, shape = read(i, dev, (mesh, pls))
+        out.append(DTensor.from_local(part, mesh, pls,
+                                      shape=torch.Size(shape),
+                                      stride=_contiguous(shape)))
+    return tree.unflatten_like(tree_like, out), step
+
+
+def _contiguous(shape) -> tuple:
+    out, acc = [], 1
+    for s in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= s
+    return tuple(reversed(out))
+
+
+def _block_chunks(shape, mesh, placements) -> bool:
+    """True when every rank's chunk of a leaf of ``shape`` holds whole
+    8-byte blocks: the last dim a block multiple, and each split of it
+    (``torch.chunk``'s, nested major first) too."""
+    if not shape or shape[-1] % BLOCK:
+        return False
+    size = shape[-1]
+    for i, pl in enumerate(placements):
+        if pl.is_shard(len(shape) - 1):
+            size = -(-size // mesh.size(i))
+            if size % BLOCK:
+                return False
+    return True
+
+
+def _reader(path: str, tree_like, step: Optional[int]) -> tuple:
+    """-> (step, number of leaves, ``read``). ``read(i, device)`` is leaf
+    ``i`` as a tensor on ``device``, a protected leaf decoded there;
+    ``read(i, device, (mesh, placements))`` is ``(this rank's chunk on
+    device, the leaf's shape)``: a protected leaf's chunk of whole blocks
+    decoded there alone, any other chunk cut from the leaf read (and
+    decoded) on the host."""
     step = step if step is not None else latest_step(path)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {path}")
@@ -156,22 +221,38 @@ def restore(path: str, tree_like, *, step: Optional[int] = None,
     if n != meta["n_leaves"]:
         raise ValueError(f"{path} step {step} holds {meta['n_leaves']} "
                          f"leaves, the tree to restore into {n}")
-    out = []
-    for i in range(n):
+
+    def read(i: int, dev, chunk=None):
+        from repro_torch.distributed import local
         lm_ = meta[f"leaf_{i}"]
+        if chunk is not None and not (lm_["protected"] and _block_chunks(
+                tuple(lm_["shape"]), *chunk)):
+            whole = read(i, torch.device("cpu"))
+            return (local.shard_slice(whole, *chunk).to(dev, copy=True)
+                    .contiguous(), tuple(whole.shape))
         a = data[f"leaf_{i}"]
-        if lm_["protected"]:
-            checks = (data[f"leaf_{i}_checks"]
-                      if f"leaf_{i}_checks" in data.files else None)
-            stored = protection.Stored(a, checks, lm_["n"])
-            q = host_scheme.decode(stored, device=dev).reshape(lm_["shape"])
-            dtype = torch.from_numpy(np.empty(0, lm_["dtype"])).dtype
-            scale = torch.tensor(np.float32(lm_["scale"]), device=dev)
-            out.append((torch.from_numpy(q).to(dev).to(torch.float32)
-                        * scale).to(dtype))
-        else:
-            out.append(torch.from_numpy(a).to(dev))
-    return tree.unflatten_like(tree_like, out), step
+        if not lm_["protected"]:
+            return torch.from_numpy(a).to(dev)
+        checks = (data[f"leaf_{i}_checks"]
+                  if f"leaf_{i}_checks" in data.files else None)
+        shape = tuple(lm_["shape"])
+        dtype = torch.from_numpy(np.empty(0, lm_["dtype"])).dtype
+        if chunk is not None:   # this rank's blocks only
+            img = local.shard_slice(torch.from_numpy(a).view(shape), *chunk)
+            if checks is not None:
+                checks = local.shard_slice(torch.from_numpy(checks).view(
+                    *shape[:-1], -1), *chunk).contiguous().numpy().ravel()
+            a, shape = img.contiguous().numpy().ravel(), tuple(img.shape)
+        if a.size:
+            q = host_scheme.decode(protection.Stored(
+                a, checks, a.size if chunk else lm_["n"]), device=dev)
+        else:   # an uneven split's empty chunk: nothing to launch
+            q = np.empty(0, np.int8)
+        q = q.reshape(shape)
+        scale = torch.tensor(np.float32(lm_["scale"]), device=dev)
+        w = (torch.from_numpy(q).to(dev).to(torch.float32) * scale).to(dtype)
+        return w if chunk is None else (w, tuple(lm_["shape"]))
+    return step, n, read
 
 
 class AsyncCheckpointer:

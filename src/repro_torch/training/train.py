@@ -16,6 +16,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core import quant, wot
+from repro_torch.distributed import local
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
@@ -44,13 +45,16 @@ def qat_wt_bf16(w):
 
 def _split_micro(batch: dict, n_micro: int) -> list:
     """Split every (B, ...) array of ``batch`` into ``n_micro`` contiguous
-    row blocks -> list of ``n_micro`` batches."""
+    row blocks -> list of ``n_micro`` batches. A batch sharded over 'data'
+    splits each rank's rows where they lie (``distributed.local``)."""
     out = [dict() for _ in range(n_micro)]
     for k, x in batch.items():
         if x.shape[0] % n_micro:
             raise ValueError(f"batch {x.shape[0]} is not a multiple of "
                              f"{n_micro} microbatches")
-        for i, part in enumerate(x.split(x.shape[0] // n_micro)):
+        parts = (local.split_rows(x, n_micro) if local.is_dtensor(x)
+                 else x.split(x.shape[0] // n_micro))
+        for i, part in enumerate(parts):
             out[i][k] = part
     return out
 
@@ -99,7 +103,7 @@ def make_train_step(cfg: ArchConfig, *, qat: bool = True,
                     torch.no_grad():
                 for m, p in zip(moms, ps):
                     if p.grad is not None:   # None: the loss ignores p
-                        m += p.grad.to(m.dtype) * inv
+                        m += local.like(p.grad, m).to(m.dtype) * inv
                     p.grad = None
             loss_sum = loss_sum + loss.detach()
             del ps, ptree, loss

@@ -1139,3 +1139,152 @@ def test_gpu_transcode_in_place_to_secded72_and_back(cuda, shape):
     (km, kb), (pm, pb) = hops
     assert torch.equal(km.enc, pm.enc) and torch.equal(km.checks, pm.checks)
     assert torch.equal(kb.enc, pb.enc) and torch.equal(kb.enc, clean)
+
+
+# ---------------------------------------------------------------------------
+# distribution: the sharded cells on a world-1 NCCL mesh (chip_smoke.py
+# phase 21 at smoke size)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def world1(cuda, tmp_path):
+    """A world-1 NCCL process group (a FileStore, no network) and its (1, 1)
+    ('data', 'model') mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield make_production_mesh(shape=(1, 1), device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _launches(fn):
+    before = dict(build.COUNTS)
+    out = fn()
+    return out, {k: v - before[k] for k, v in build.COUNTS.items()}
+
+
+def test_gpu_sharded_decode_cell_is_the_unsharded_step(world1):
+    """deepseek-7b smoke, in-place plan on the kernel route, in-place fused
+    paged KV with per-slot rows, weight flips: 3 lockstep steps of the
+    sharded cell give the unsharded step's logits, flags, per-slot rows and
+    pools bit for bit, through ecc_qmatmul, the paged kernel and
+    kv_write."""
+    import dataclasses
+
+    from repro_torch import configs, tree
+    from repro_torch.launch import specs
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.protection import policy as policy_mod
+    cfg = configs.get_smoke("deepseek-7b")
+    kvp = dataclasses.replace(kvcache.get_kv_policy("in-place-fused"),
+                              per_slot_flags=True)
+    plan, ab = specs.serving_plan(cfg, world1,
+                                  policy=ProtectionPolicy(backend="cuda"))
+    step, _, in_sh, out_sh = specs.decode_cell(
+        cfg, ShapeConfig("d", 64, 4, "decode"), world1, plan=plan,
+        abstract=ab, with_flags=True, kv_policy=kvp, backend="cuda")
+    enc = lm.init_params(cfg, 0, device="cuda", leaf_fn=plan.encode_leaf)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    enc, _ = policy_mod.inject_tree_device(enc, 2e-3, gen)
+    cache = kvcache.init_cache(cfg, 4, 64, kv_policy=kvp, device="cuda")
+    ucache = tree.map_with_path(lambda _, t: t.clone(), cache)
+    run = specs.sharded(step, world1, in_sh, out_sh)
+    tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    seen = {}
+    for t in range(3):
+        pos = torch.full((4,), t, dtype=torch.int32, device="cuda")
+        (lg, cache, fl), n = _launches(lambda: run(enc, cache, tok, pos))
+        for k, v in n.items():
+            seen[k] = seen.get(k, 0) + v
+        ulg, ucache, ufl = step(enc, ucache, tok, pos)
+        assert torch.equal(lg.to_local(), ulg)
+        for k, v in ufl.items():
+            assert torch.equal(fl[k].to_local(), v), k
+        tok = ulg.argmax(-1).to(torch.int32)
+    for k in ("k_pages", "v_pages", "k_scale", "v_scale", "kv_table"):
+        assert torch.equal(cache[k].to_local(), ucache[k]), k
+    assert all(seen[k] > 0 for k in ("ecc_qmatmul", "fused_page_attention",
+                                     "kv_write")), seen
+
+
+def test_gpu_sharded_train_cell_is_the_unsharded_step(world1):
+    """minitron-4b smoke, 2 microbatches, (8, 32): one sharded QATT step on
+    the kernel route gives the unsharded step's loss and masters bit for
+    bit, its throttle through quantize_throttle's two passes."""
+    from repro_torch import configs, tree
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import specs
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.training import optim, train
+    cfg = configs.get_smoke("minitron-4b").with_(microbatch=2)
+    step, _, in_sh, out_sh = specs.train_cell(
+        cfg, ShapeConfig("t", 32, 8, "train"), world1, chunk=16,
+        microbatch=2, backend="cuda")
+    run = specs.sharded(step, world1, in_sh, out_sh)
+    params = lm.init_params(cfg, 0, device="cuda")
+    uparams = tree.map_with_path(lambda _, t: t.clone(), params)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    batch = {k: torch.randint(0, cfg.vocab, (8, 32), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "targets")}
+    (p2, _, loss), n = _launches(lambda: run(params, optim.sgd_init(params),
+                                             batch))
+    assert n["quantize_throttle"] > 0
+    up, _, uloss = train.make_train_step(cfg, chunk=16, backend="cuda")(
+        uparams, optim.sgd_init(uparams), batch)
+    assert torch.equal(loss.to_local(), uloss)
+    for path, w in tree.leaves_with_path(sh.local_tree(p2)):
+        assert torch.equal(w, tree.get_path(up, path)), path
+
+
+def test_gpu_quantize_throttle_two_passes_equal_one_call(cuda):
+    """The sharded throttle's entry (absmax pass, the caller's all-reduce,
+    quantize pass) is the one-call launcher bit for bit (identity reduce)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn((4096, 11008), generator=gen, device=cuda)
+    a, b = w.clone(), w.clone()
+    qa, sa = quant_throttle.quantize_throttle(a, write_back=True)
+    qb, sb = quant_throttle.quantize_throttle(b, write_back=True,
+                                              amax_reduce=lambda x: x)
+    assert torch.equal(a, b) and torch.equal(qa, qb) and torch.equal(sa, sb)
+
+
+def test_gpu_compressed_psum_is_compress_at_world_one(world1):
+    import torch.distributed as dist
+
+    from repro_torch.training import compress
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    g = torch.randn(1 << 20, generator=gen, device="cuda")
+    r = torch.randn(1 << 20, generator=gen, device="cuda") * 1e-3
+    mean, nr, q = compress.compressed_psum(g, r, dist.group.WORLD,
+                                           with_payload=True)
+    q0, s0, r0 = compress.compress(g, r)
+    assert torch.equal(q, q0) and torch.equal(nr, r0)
+    assert torch.equal(mean, compress.decompress(q0, s0))
+
+
+def test_gpu_sharded_restore_equals_restore(world1, tmp_path):
+    from repro_torch import configs, tree
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import lm
+    from repro_torch.training import checkpoint, optim
+    cfg = configs.get_smoke("deepseek-7b")
+    params = lm.init_params(cfg, 0, device="cuda")
+    state = (params, optim.sgd_init(params))
+    path = str(tmp_path / "ckpt")
+    checkpoint.save(path, state, step=1, protected=True, device="cuda")
+    pspec = sh.param_specs(lm.param_shapes(cfg))
+    got, _ = checkpoint.restore(path, state, device="cuda",
+                                shardings=(pspec, optim.SgdState(pspec)),
+                                mesh=world1)
+    whole, _ = checkpoint.restore(path, state, device="cuda")
+    for part_got, part_whole in zip(got, whole):
+        for p, w in tree.leaves_with_path(part_whole):
+            assert torch.equal(tree.get_path(part_got, p).to_local(), w), p
