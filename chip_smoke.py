@@ -47,7 +47,7 @@ d_model 4096, vocab 102400) at batch 4:
 * burst serving through the request front-end
   (``repro_torch.launch.serve.burst``: continuous batching over the paged
   pool on 8 slots, two waves of twelve requests; full-width deepseek-7b
-  cut to 15 layers): clean twice (equal
+  cut to 6 layers): clean twice (equal
   deterministic telemetry), ``parity-zero-fused`` and
   ``parity-zero-chunked`` with live KV flips (per-slot flags attributed
   exactly, no DUE), ``in-place-chunked`` with prefix sharing and
@@ -154,7 +154,7 @@ d_model 4096, vocab 102400) at batch 4:
 * phase 19: the rest of training. QATT of full-width, full-depth
   recurrentgemma-2b (2 steps of 8 x 2,048 tokens, the last throttle and
   the deploy bit-equal across routes, 8 served steps clean and
-  correctable-only on its dense cache) and mamba2-2.7b cut to 16 layers
+  correctable-only on its dense cache) and mamba2-2.7b cut to 8 layers
   (2 steps, then one f32 step on both routes from the same state:
   bit-equal under deterministic algorithms), each with a profile of a step; the f32
   gradient of a 2-layer full-width mamba2 with remat'ed blocks bit-equal
@@ -168,7 +168,7 @@ d_model 4096, vocab 102400) at batch 4:
   ADMM's final clamp meet the WOT constraint, ADMM's residual large
   values reported, the projection bit-equal across routes);
 * phase 20: mixed schemes and self-healing on full-width deepseek-7b
-  (16 of its 30 layers since PR 27): the ``attn-inplace-mlp-secded`` plan served on both routes
+  (8 of its 30 layers): the ``attn-inplace-mlp-secded`` plan served on both routes
   in lockstep (flags equal) beside all-in-place on the kernel route, a
   profile of each; then, from all-in-place, a burst through the front-end
   with a scrub pass every step and a MILR repair kit (its build time and
@@ -194,7 +194,21 @@ d_model 4096, vocab 102400) at batch 4:
   all-reduce MAX between them); ``compressed_psum`` of a 64 M-value
   gradient against the local ``compress`` (payload and residual equal),
   timed beside a plain f32 all-reduce; a protected 2-layer checkpoint
-  restored with ``shardings=`` bit-equal to ``restore(device="cuda")``.
+  restored with ``shardings=`` bit-equal to ``restore(device="cuda")``;
+  and (b2) the int8 at-use cell (dynamic activation scales) and the
+  guarded cell (ABFT on every matmul leaf, clamps) at 4 layers, 4 steps
+  each in lockstep with the unsharded step: logits and every flags row,
+  the ABFT mismatch and clamp-hit rows too, bit for bit (the mesh's one
+  'model' shard runs the sharded path's joins);
+* phase 22: ``benchmarks.kernel_bench`` at its full shape list on the
+  card (every kernel timed with CUDA events beside its plain version,
+  the strip kernel bit-equal to it, the chunked kernel within the fp64
+  oracle's gate) into a temporary autotune artifact, loaded with
+  ``AutotuneTable.from_json``; full-width deepseek-7b at 2 layers served
+  4 steps with that table and without it (flags equal, logits bit-equal
+  where every entry's best is the kernel route); ``roofline.main`` over
+  a dry-run record written in the phase; the ``quickstart`` and
+  ``serve_protected`` examples (``examples/torch/``) on the card.
 
 Phase 4 also runs the whole-tree decode ablations over its resident
 tree (decode at use, ``decode_at_use=False``, ``decode_per_step=False``;
@@ -338,9 +352,10 @@ ROUTE_F32_ATOL = 0.05
 TRAIN_LAYERS = 8
 # The burst phase (9): eight slots of 16-token pages, 128 tokens each.
 BURST_SLOTS, BURST_MAX_LEN = 8, 128
-# phase 9's bursts: full width, cut to half depth for the card run's time
-# limit (each burst step is host-bound, its time ~ proportional to depth)
-BURST_LAYERS = 15
+# phase 9's bursts: full width, cut to a fifth of the depth for the card
+# run's time limit (each burst step is host-bound, its time ~ proportional
+# to depth)
+BURST_LAYERS = 6
 # Kernels that no main path launches, each with its reason; phase 2 still
 # holds each against its plain version.
 MAIN_PATH_EXEMPT = {
@@ -469,14 +484,19 @@ def main():
         f"migration) took {time.time() - t0:.0f}s")
     t0 = time.time()
     dist_counts, _ = phase_dist(torch, dev, build)
-    log(f"phase 21 (distribution: the sharded decode and train cells on a "
-        f"world-1 NCCL mesh, compressed_psum, the elastic restore) took "
-        f"{time.time() - t0:.0f}s")
+    log(f"phase 21 (distribution: the sharded decode, int8, guarded and "
+        f"train cells on a world-1 NCCL mesh, compressed_psum, the elastic "
+        f"restore) took {time.time() - t0:.0f}s")
+    t0 = time.time()
+    api_counts, _ = phase_api(torch, dev, build)
+    log(f"phase 22 (kernel_bench and the autotune serve, roofline, the "
+        f"examples) took {time.time() - t0:.0f}s")
     paths = (decode_counts, ablation_counts, long_counts, train_counts,
              guarded_counts, burst_counts, phi3_counts, vlm_counts,
              encdec_counts, hybrid_counts, hybrid_guarded, ssm_counts,
              ssm_guarded, moe_v2_counts, moe_v2_guarded, moe_v3_counts,
-             cnn_counts, smoke_counts, rest_counts, heal_counts, dist_counts)
+             cnn_counts, smoke_counts, rest_counts, heal_counts, dist_counts,
+             api_counts)
     counts = {k: sum(c[k] for c in paths) for k in build.COUNTS}
     if sorted(entries) != sorted(counts):
         fail(f"kernels checked {sorted(entries)} != kernels counted "
@@ -540,6 +560,9 @@ def main():
               "fused_page_attention")),
             ("distribution (the sharded cells)", dist_counts,
              ("ecc_qmatmul", "fused_page_attention", "kv_write",
+              "quantize_throttle")),
+            ("the autotune serve and the examples", api_counts,
+             ("ecc_encode", "ecc_decode", "ecc_qmatmul",
               "quantize_throttle"))):
         missing = [k for k in needed if cnt[k] <= 0]
         if missing:
@@ -6098,7 +6121,7 @@ def phase_smoke_check(torch, dev, build, cfg, *, tokens=4):
 # is several times a bf16 step), and the step profiles to one 1 x 2,048
 # microbatch (a whole step launches hundreds of thousands of kernels,
 # and the profiler's processing of them takes minutes).
-SSM_QATT_LAYERS = 16
+SSM_QATT_LAYERS = 8
 F32_LAYERS = 8
 CKPT_LAYERS = 2          # the checkpoint cells: 0.34 G parameters
 CKPT_STEPS, CKPT_EVERY, CKPT_CRASH = 6, 2, 3
@@ -6734,10 +6757,10 @@ def _inject(torch, enc, rate, gen):
 # Full width; the MILR kit's host side (a float64 copy of one leaf at a
 # time, 10.8 GB for each stacked MLP leaf at 30 layers, and 32 probe
 # responses a column) fits the host; the phase logs its time and peak.
-# Cut to 16 of 30 layers since PR 27 for phase 21's time (its checks are
-# per leaf and per page: depth scales the time, not what is checked)
+# Cut to 8 of 30 layers for the card run's time (its checks are per leaf
+# and per page: depth scales the time, not what is checked)
 HEAL_SLOTS, HEAL_MAX_LEN = 4, 64
-HEAL_LAYERS = 16
+HEAL_LAYERS = 8
 HEAL_MIGRATE_AT = 30     # the burst's middle: it runs 61 steps
 
 
@@ -7097,6 +7120,11 @@ DIST_RATE = 1e-6
 DIST_TRAIN_LAYERS, DIST_TRAIN_STEPS = 2, 2
 # (d)'s gradient: 64 M f32 values
 DIST_PSUM_N = 64 * 2 ** 20
+# (b2)'s int8 and guarded decode cells: deepseek-7b at full width cut to 4
+# layers, 4 lockstep steps each (the lockstep against the unsharded step
+# is the check, which depth does not change); the guarded cell clamps
+# every matmul leaf at DIST_CLAMP
+DIST_GUARD_LAYERS, DIST_GUARD_STEPS, DIST_CLAMP = 4, 4, 1.0
 
 
 def _world1(torch, tmp):
@@ -7133,7 +7161,8 @@ def phase_dist(torch, dev, build):
         log(f"(a) world-1 NCCL process group, mesh {mesh}")
         report = {}
         counts = {k: 0 for k in build.COUNTS}
-        for name, fn in (("decode", dist_decode), ("train", dist_train),
+        for name, fn in (("decode", dist_decode),
+                         ("guarded", dist_guarded), ("train", dist_train),
                          ("psum", dist_psum), ("restore", dist_restore)):
             t0 = time.time()
             out, own = counted_apart(build, fn, torch, dev, mesh, tmp)
@@ -7241,6 +7270,121 @@ def dist_decode(torch, dev, mesh, tmp):
     torch.cuda.empty_cache()
     return {"layers": cfg.n_layers, "step_ms": ms, "median_ms": med,
             "flags_last_step": n_fl, "sharded_launches": launches}
+
+
+def dist_guarded(torch, dev, mesh, tmp):
+    """(b2) -> the report: the int8 at-use decode cell (dynamic per-token
+    activation scales) and the guarded cell (ABFT on every matmul leaf,
+    each clamped at DIST_CLAMP) of deepseek-7b at DIST_GUARD_LAYERS layers
+    over the same flipped images, each DIST_GUARD_STEPS steps in lockstep
+    with the unsharded step: logits, every flags row (the ABFT mismatch and
+    clamp-hit rows too), page tables and pools bit for bit. The mesh's
+    'model' axis has one shard, so each guarded or int8 matmul runs the
+    sharded path's joins (the int32 accumulator's all-reduce before the
+    epilogue, the checksums' and counts' all-reduces)."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import get
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import build
+    from repro_torch.launch import specs
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.protection import policy as policy_mod
+    from repro_torch.serving import kvcache
+
+    cfg = get("deepseek-7b").with_(n_layers=DIST_GUARD_LAYERS)
+    kvp = dataclasses.replace(kvcache.get_kv_policy("in-place-fused"),
+                              per_slot_flags=True)
+    pol = policy_mod.ProtectionPolicy(backend="cuda")
+    plan0, abstract = specs.serving_plan(cfg, mesh, policy=pol)
+    enc = lm_params(torch, dev, cfg, plan0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    enc, _ = _inject(torch, enc, DIST_RATE, gen)
+    report = {}
+    for mode in ("int8", "guarded"):
+        if mode == "int8":
+            plan, kw = plan0, {"act_quant": "dynamic"}
+        else:
+            plan, kw = plan0.with_abft(True, clamps={
+                p: DIST_CLAMP for p in plan0.leaves}), {}
+        step, _, in_sh, out_sh = specs.decode_cell(
+            cfg, ShapeConfig("dist", DIST_MAX_LEN, DIST_BATCH, "decode"),
+            mesh, plan=plan, abstract=abstract, with_flags=True,
+            kv_policy=kvp, backend="cuda", **kw)
+        run = specs.sharded(step, mesh, in_sh, out_sh)
+        cache = kvcache.init_cache(cfg, DIST_BATCH, DIST_MAX_LEN,
+                                   kv_policy=kvp, device=dev)
+        placed = specs.place((enc, cache), tuple(in_sh[:2]), mesh)
+        ucache = tree.map_with_path(lambda _, t: t.clone(), cache)
+        del cache
+        tok = torch.zeros((DIST_BATCH, 1), dtype=torch.int32, device=dev)
+        ms = {"sharded": [], "unsharded": []}
+        dcache, launches = placed[1], {}
+        for t in range(DIST_GUARD_STEPS):
+            pos = torch.full((DIST_BATCH,), t, dtype=torch.int32,
+                             device=dev)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            lg, dcache, fl = _tally(build, launches, run, placed[0], dcache,
+                                    tok, pos)
+            torch.cuda.synchronize()
+            ms["sharded"].append(1e3 * (time.time() - t0))
+            t0 = time.time()
+            ulg, ucache, ufl = step(enc, ucache, tok, pos)
+            torch.cuda.synchronize()
+            ms["unsharded"].append(1e3 * (time.time() - t0))
+            lg = lg.to_local()
+            if not torch.equal(lg, ulg):
+                fail(f"(b2) {mode} step {t}: sharded logits differ from the "
+                     f"unsharded step's (max "
+                     f"{float((lg.float() - ulg.float()).abs().max())})")
+            if sorted(fl) != sorted(ufl):
+                fail(f"(b2) {mode}: flags rows {sorted(fl)} != "
+                     f"{sorted(ufl)}")
+            for k, v in ufl.items():
+                if not torch.equal(fl[k].to_local(), v):
+                    fail(f"(b2) {mode} step {t}: flags row {k!r} differs: "
+                         f"{fl[k].to_local().tolist()} != {v.tolist()}")
+            tok = ulg.argmax(dim=-1).to(torch.int32)
+        if not torch.equal(sh.local_tree(dcache)["kv_table"],
+                           ucache["kv_table"]):
+            fail(f"(b2) {mode}: the sharded cache's page tables differ")
+        for k in ("k_pages", "v_pages", "k_scale", "v_scale"):
+            if not torch.equal(dcache[k].to_local(), ucache[k]):
+                fail(f"(b2) {mode}: the sharded cache's {k} differ")
+        n_fl = {k: v.sum(dim=tuple(range(1, v.ndim))).tolist()
+                if v.ndim > 1 else v.tolist() for k, v in ufl.items()}
+        if mode == "guarded":
+            rows = [k for k in ufl if k.endswith("_abft")]
+            # per-slot rows (the KV policy's per_slot_flags): (..., 2, B)
+            hits = sum(int(ufl[k].select(-2, 1).sum()) for k in rows)
+            mism = sum(int(ufl[k].select(-2, 0).sum()) for k in rows)
+            if not rows or hits <= 0 or mism:
+                fail(f"(b2) guarded: ABFT rows {rows}, {mism} mismatches, "
+                     f"{hits} clamp hits (want rows, 0, > 0)")
+        if launches.get("ecc_qmatmul", 0) <= 0:
+            fail(f"(b2) {mode}: ecc_qmatmul never launched on the sharded "
+                 f"steps")
+        med = {k: statistics.median(v[1:]) for k, v in ms.items()}
+        log(f"(b2) {mode} decode cell, {cfg.name} x {cfg.n_layers} layers, "
+            f"batch {DIST_BATCH}, {DIST_GUARD_STEPS} steps in lockstep: "
+            f"logits, flags (last step {n_fl}), page tables and pools "
+            f"bit-equal; {med['sharded']:.2f} ms/step sharded against "
+            f"{med['unsharded']:.2f} unsharded; sharded launches {launches}")
+        report[mode] = {"layers": cfg.n_layers, "step_ms": ms,
+                        "median_ms": med, "flags_last_step": n_fl,
+                        "sharded_launches": launches}
+        del placed, dcache, ucache
+    del enc
+    torch.cuda.empty_cache()
+    total = {}
+    for r in report.values():
+        for k, v in r["sharded_launches"].items():
+            total[k] = total.get(k, 0) + v
+    report["sharded_launches"] = total
+    return report
 
 
 def lm_params(torch, dev, cfg, plan):
@@ -7404,6 +7548,154 @@ def dist_restore(torch, dev, mesh, tmp):
     return {"leaves": n, "save_s": save_s, "sharded_restore_s": sharded_s,
             "restore_peak_bytes": peak, "shard_bytes": sum(sizes),
             "largest_leaf_bytes": max(sizes)}
+
+# ---------------------------------------------------------------------------
+# phase 22: kernel_bench and the autotune artifact, roofline, the examples
+# ---------------------------------------------------------------------------
+
+# the autotune serve: full-width deepseek-7b cut to 2 layers, 4 greedy
+# steps at batch 4, correctable weight flips only (its flags are then the
+# flipped blocks', whatever the values)
+API_LAYERS, API_STEPS, API_RATE = 2, 4, 1e-5
+
+
+def _example(name: str):
+    """``examples/torch/<name>.py`` as a module (it puts ``src`` on the
+    path itself)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_api(torch, dev, build):
+    """Phase 22: (a) ``benchmarks.kernel_bench`` at its full shape list on
+    the card into a temporary artifact (its CSV rows on the lines above):
+    every kernel column timed, every strip kernel bit-equal to its plain
+    version and every chunked kernel within the fp64 oracle's gate; (b)
+    the artifact loaded with ``AutotuneTable.from_json``; (c) ``serve``
+    of deepseek-7b at API_LAYERS layers for API_STEPS steps with that
+    table against the same serve without it: flags equal, and logits and
+    tokens bit-equal where every entry's best is "cuda" (else step 0's
+    logits within E2E_MAX_ATOL / E2E_MEAN_ATOL: a leaf on the plain
+    route); (d) a dry-run record (deepseek-7b smoke, decode_32k on 2 x 4,
+    a fake process group) through ``roofline.main``; (e) the examples
+    ``quickstart`` and ``serve_protected`` on the card. Writes
+    ``chip_smoke_api.json`` and the artifact as
+    ``chip_smoke_bench_kernels.json``. -> (the launch counts of (c) and
+    (e), the main paths, the report)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.benchmarks import kernel_bench, roofline
+    from repro_torch.configs import get
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.protection import AutotuneTable
+
+    report = {}
+    tmp = tempfile.mkdtemp(dir=str(ROOT / "build"))
+    try:
+        path = os.path.join(tmp, "bench_kernels_cuda.json")
+        t0 = time.time()
+        payload = kernel_bench.main(["--json", path])
+        report["kernel_bench_s"] = time.time() - t0
+        shutil.copy(path, OUT_DIR / "chip_smoke_bench_kernels.json")
+        cols = ("cuda_us", "fused_us", "fused_abft_us", "fused_int8_us",
+                "fused_int8_abft_us")
+        missing = [(e["shape"], c) for e in payload["entries"] for c in cols
+                   if e[c] is None]
+        if missing or payload["platform"] != "cuda":
+            fail(f"(a) kernel_bench on the card left CUDA columns empty: "
+                 f"{missing} ({payload['platform']})")
+        bad = [(r["shape"], r["scheme"]) for r in payload["attention"]
+               if r["bitexact"] is not True]
+        bad += [(r["shape"], r["scheme"]) for r in payload["attention_long"]
+                if r["within_tol"] is not True or r["chunked_us"] is None]
+        if bad:
+            fail(f"(a) kernel_bench: kernels off their plain version or the "
+                 f"oracle at {bad}")
+        table = AutotuneTable.from_json(path)
+        best = {tuple(e["shape"]): e["best"] for e in table.entries}
+        log(f"(a) kernel_bench wrote {len(table)} autotune entries "
+            f"(best {best}), {len(payload['attention'])} strip rows "
+            f"bit-equal, {len(payload['attention_long'])} chunked rows "
+            f"within the oracle's gate in {report['kernel_bench_s']:.1f}s")
+        report["bench"] = payload
+
+        cfg = get("deepseek-7b").with_(n_layers=API_LAYERS)
+        kw = dict(batch=4, tokens=API_STEPS, fault_rate=API_RATE,
+                  correctable_only=True, seed=0, device=dev,
+                  log=lambda *_: None)
+        build.reset_counts()
+        t0 = time.time()
+        with_table = serve_mod.serve(cfg, autotune=table, **kw)
+        plain = serve_mod.serve(cfg, **kw)
+        counts = dict(build.COUNTS)
+        report["serve_s"] = time.time() - t0
+        if with_table["flags"] != plain["flags"] or \
+                not plain["flags"]["corrected"]:
+            fail(f"(c) flags with the table {with_table['flags']} != "
+                 f"without {plain['flags']}")
+        if all(b == "cuda" for b in best.values()):
+            if not (torch.equal(with_table["logits"], plain["logits"]) and
+                    torch.equal(with_table["tokens"], plain["tokens"])):
+                fail("(c) every best is cuda, yet the logits with the table "
+                     "differ from those without")
+            held = "bit-equal"
+        else:
+            d = (with_table["logits"][0].float() -
+                 plain["logits"][0].float()).abs()
+            if float(d.max()) > E2E_MAX_ATOL or \
+                    float(d.mean()) > E2E_MEAN_ATOL:
+                fail(f"(c) a leaf on the plain route moved step 0's logits "
+                     f"by {float(d.max())} (mean {float(d.mean())})")
+            held = f"within {E2E_MAX_ATOL} (step 0, max {float(d.max())})"
+        log(f"(c) {cfg.name} x {cfg.n_layers} layers, {API_STEPS} steps "
+            f"served with the autotune table: flags {plain['flags']} equal, "
+            f"logits {held}; {with_table['step_ms']} ms/step with it, "
+            f"{plain['step_ms']} without")
+        report["serve"] = {"flags": plain["flags"], "held": held,
+                           "step_ms": [with_table["step_ms"],
+                                       plain["step_ms"]]}
+
+        jsonl = os.path.join(tmp, "dryrun.jsonl")
+        rec = dryrun.run_cell("deepseek-7b", "decode_32k", False, smoke=True,
+                              mesh_shape=(2, 4), device="cpu")
+        if rec["status"] != "ok":
+            fail(f"(d) the dry-run cell failed: {rec.get('error')}")
+        with open(jsonl, "w") as fh:
+            fh.write(json.dumps(rec) + "\n")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rows = roofline.main([jsonl, path])
+        print(buf.getvalue(), end="", flush=True)
+        if len(rows) != 1 or "roofline_fused_qmatmul_2048x4096," not in \
+                buf.getvalue():
+            fail(f"(d) roofline over the dry-run record gave {rows}")
+        report["roofline"] = rows
+
+        t0 = time.time()
+        build.reset_counts()
+        _example("quickstart").main([])
+        errs = _example("serve_protected").main([])
+        counts = {k: counts[k] + v for k, v in build.COUNTS.items()}
+        report["examples_s"] = time.time() - t0
+        if any(e != 0.0 for e in errs.values()):
+            fail(f"(e) serve_protected: in-place at 1e-5 left logit "
+                 f"differences {errs}")
+        log(f"(e) the quickstart and serve_protected examples ran on the "
+            f"card in {report['examples_s']:.1f}s (max|diff| {errs})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    with open(OUT_DIR / "chip_smoke_api.json", "w") as fh:
+        json.dump(report, fh, indent=1, default=str)
+    return counts, report
+
 
 if __name__ == "__main__":
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")

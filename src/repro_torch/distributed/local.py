@@ -25,7 +25,13 @@ its parallel rule implies:
 Where a statistic taken over a local shard would differ from the global
 one, a collective joins the shards: the (corrected, DUE) counts are summed
 so that every block counts once (:func:`count_once`), and the QATT
-throttle's absmax is an all-reduce MAX (``kernels.quant_throttle``).
+throttle's absmax is an all-reduce MAX (``kernels.quant_throttle``). A
+guarded (ABFT, clamp) or int8 matmul joins what its epilogue and checks
+read (:func:`_guarded_local`): the per-token absmax, a row-parallel
+int32 accumulator, the checksums and the counts. Products that DTensor
+cannot split over two mesh axes run on local tensors: MLA's decode
+attention per (batch row, head) (:func:`rows_heads`), the moe expert
+queues per routing group (:func:`per_row`).
 """
 from __future__ import annotations
 
@@ -151,6 +157,22 @@ def _gathered(pt) -> tuple:
     return tuple(out)
 
 
+def _whole_blocks(enc) -> tuple:
+    """``enc``'s placements with every split of its last dim that would cut
+    an 8-byte block (or split it unevenly) gathered instead."""
+    mesh, last, n = enc.device_mesh, enc.ndim - 1, enc.shape[-1]
+    out = []
+    for i, pl in enumerate(enc.placements):
+        if _is_shard(pl, last) and enc.ndim > 1:
+            k = mesh.size(i)
+            if n % k or (n // k) % BLOCK:
+                pl = _rep()
+            else:
+                n //= k
+        out.append(pl)
+    return tuple(out)
+
+
 def local_image(pt, placements):
     """A ProtectedTensor whose ``enc`` is a DTensor -> the local
     ProtectedTensor under ``placements`` (its enc redistributed there, the
@@ -178,7 +200,7 @@ def decode_leaf_with_flags(pt, dtype, backend):
 
     from repro_torch.protection import policy
     enc = pt.enc
-    mesh, pls = enc.device_mesh, tuple(enc.placements)
+    mesh, pls = enc.device_mesh, _whole_blocks(enc)
     loc = local_image(pt, pls)
     q, corrected, due = policy.get_scheme(pt.scheme_id).decode_with_flags(
         loc.enc, loc.checks, policy.get_backend(backend))
@@ -204,7 +226,13 @@ def sharded_matmul(view, x):
     row-parallel (the first dim) -> ``Partial`` over 'model'; replicated
     -> the input's placements. Counts are summed over the shards
     (:func:`count_once`). Calibration absmaxes are taken on the DTensor
-    input, so they are global."""
+    input, so they are global.
+
+    A guarded (ABFT, clamp) or int8 view computes the unsharded step's
+    values shard by shard instead (:func:`_guarded_local`): its
+    row-parallel output is the joined accumulator's epilogue, replicated
+    over 'model'. It keeps a one-shard 'model' split, so its joins run on
+    any mesh."""
     from torch.distributed.tensor import DTensor, Partial, Shard
 
     from repro_torch.protection.fused import ProtectedWeight
@@ -213,15 +241,14 @@ def sharded_matmul(view, x):
     x = as_dtensor(x, mesh)
     pls = _gathered(pt)
     mdim = _model_dim(mesh)
+    guarded = view.act_quant is not None or view._track
+    if guarded and mdim is not None and not pt.is_flat:
+        own = pt.enc.placements[mdim]
+        if mesh.size(mdim) == 1 and _is_shard(own):
+            pls = tuple(own if i == mdim else pl for i, pl in enumerate(pls))
     mpl = pls[mdim] if mdim is not None else _rep()
     col = _is_shard(mpl, pt.enc.ndim - 1)
     row = _is_shard(mpl, 0) and not col
-    if (col or row) and (view.abft or (row and (view.act_quant is not None
-                                                or view.clamp is not None))):
-        raise NotImplementedError(
-            "a guarded or int8 matmul over a model-sharded image needs its "
-            "checksums, clamps or activation scales reduced across the "
-            "shards; serve guarded leaves replicated over 'model'")
     last = x.ndim - 1
     x_pls = [_rep() if _is_shard(pl, last) else pl for pl in x.placements]
     if mdim is not None:
@@ -242,14 +269,193 @@ def sharded_matmul(view, x):
         loc, view.backend, record=record, act_quant=view.act_quant,
         a_scale=view.a_scale, abft=view.abft, clamp=view.clamp,
         record_abft=view._record_abft, abft_per_slot=view.abft_per_slot)
-    y_l = local_view.matmul(x_l)
+    kind = "col" if col else "row" if row else "rep"
+    if guarded:
+        y_l = _guarded_local(view, local_view, x, x_l, x_pls, mesh, mdim,
+                             kind)
+    else:
+        y_l = local_view.matmul(x_l)
     y_pls = list(x_pls)
     if mdim is not None:
         y_pls[mdim] = (Shard(y_l.ndim - 1) if col else
-                       Partial() if row else x_pls[mdim])
+                       (_rep() if guarded else Partial()) if row
+                       else x_pls[mdim])
     shape = (*x.shape[:-1], pt.orig_shape[-1])
     return DTensor.from_local(y_l, mesh, y_pls, shape=torch.Size(shape),
                               stride=_contiguous_stride(shape))
+
+
+def _guarded_local(view, lv, x, x_l, x_pls, mesh, mdim, kind):
+    """The local output of a guarded or int8 view over its shard ``lv`` (a
+    local ``ProtectedWeight``, flags recorded through it), with the
+    unsharded step's values:
+
+    * int8: the per-token absmax of the whole row (a row-parallel input
+      holds a K slice: all-reduce MAX over 'model'), so each shard
+      quantizes with the global scale; the local int32 accumulator (the
+      kernel's raw int8 -> int32 mode on the fused route); a row-parallel
+      accumulator all-reduced (SUM, exact) over 'model' before the
+      requantize epilogue, which then runs once on the global value;
+    * float: the local f32 accumulator, joined the same way;
+    * the clamp on the global output, its hits summed over a column
+      split;
+    * ABFT on the global checksums: every partial sum joined over the
+      shards that split it (a row sum over N's split, a column sum over
+      the row split of the input, both over K's), then compared once.
+
+    Counts land once (:func:`count_once`): per row over the input's row
+    shards, per column over the output's column shards. ``kind``: "col",
+    "row" or "rep" (the image whole over 'model'). -> the local output
+    (rows of ``x_l``; ``kind`` "col": its N slice)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import ref
+
+    last = x.ndim - 1
+    a = x_l.reshape(-1, x_l.shape[-1])
+    out_dtype = x.dtype if x.dtype.is_floating_point else torch.bfloat16
+    int8 = view.act_quant is not None or not x.dtype.is_floating_point
+    a_scale = None
+    if not x.dtype.is_floating_point:
+        if view.act_quant != "static":
+            raise TypeError(f"ProtectedWeight.matmul got raw {x.dtype} "
+                            f"activations without a static a_scale")
+        a_scale = lv._static_scale(a.device)
+        lhs = a
+    elif view.act_quant == "static":
+        lhs, a_scale = lv._quantize_x(a)
+    elif view.act_quant == "dynamic":
+        with torch.profiler.record_function("act_quant"):
+            xf = a.to(torch.float32)
+            amax = xf.abs().amax(dim=1, keepdim=True)
+            if kind == "row":
+                amax = _dim_reduce(amax, "max", mesh, mdim)
+            a_scale = quant.compute_scale(amax, dim=1)
+            lhs, _ = quant.quantize(xf, scale=a_scale)
+    else:
+        lhs = a
+    w = None
+    if lv.fuse:
+        from repro_torch.kernels.ecc_qmatmul import ecc_qmatmul
+        acc, flags = ecc_qmatmul(lhs, lv.pt.enc,
+                                 None if int8 else lv.pt.scale,
+                                 with_flags=True)
+        lv.record(flags[0], flags[1])
+        if view.abft:   # the checksums' operand: this shard decoded
+            w = lv._decode_q()[0]
+    else:
+        w, corrected, due = lv._decode_q()
+        lv.record(corrected, due)
+    if w is not None and not int8:
+        w = (w.to(torch.float32) * lv.pt.scale).to(a.dtype)
+    if not lv.fuse:
+        acc = (quant.int8_acc(lhs, w) if int8 else
+               lhs.to(torch.float32) @ w.to(torch.float32))
+    if kind == "row":   # the K split's partial accumulators, joined
+        acc = _dim_reduce(acc, "sum", mesh, mdim)
+    row_pls = [pl if _is_shard(pl) and pl.dim != last else _rep()
+               for pl in x_pls]
+    row_dims = [i for i, pl in enumerate(row_pls) if _is_shard(pl)]
+    if view.abft:
+        row_bad, col_bad = _abft_global(lhs, w, acc, kind, mesh, mdim,
+                                        row_dims)
+    else:
+        row_bad = torch.zeros(a.shape[0], dtype=torch.int32, device=a.device)
+        col_bad = torch.zeros((), dtype=torch.int32, device=a.device)
+    res = acc
+    if int8:
+        s = a_scale.reshape(-1, 1) * torch.as_tensor(
+            lv.pt.scale, dtype=torch.float32, device=acc.device)
+        res = acc.to(torch.float32) * s
+    hits = torch.zeros_like(row_bad)
+    if view.clamp is not None:
+        res, hits = ref.clamp_counts(res, view.clamp)
+        if kind == "col":
+            hits = _dim_reduce(hits, "sum", mesh, mdim)
+    _record_global_abft(view, x, mesh, row_pls, kind, mdim, row_bad, hits,
+                        col_bad)
+    n_l = res.shape[-1]
+    return res.to(out_dtype).reshape(*x_l.shape[:-1], n_l)
+
+
+def _abft_global(a, w, acc, kind, mesh, mdim, row_dims):
+    """:func:`kernels.ref.abft_counts` of the unsharded matmul, from this
+    rank's operands: ``a`` (M_l, K_l), ``w`` (K_l, N_l), ``acc`` (M_l, N_l;
+    a row-parallel one already joined). Each checksum is a partial sum
+    over the shards that split its summed dim; it is joined over those
+    mesh dims (int sums in int64, exact; float sums in f32) before the
+    compare. -> (row_bad (M_l,), col_bad (N_l,)) int32 0/1."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import ref
+    split_n = [mdim] if kind == "col" else []      # a row sum's N split
+    split_k = [mdim] if kind == "row" else []      # a dot's K split
+    integer = not acc.dtype.is_floating_point
+    if integer:
+        a_c, w_c = a.to(torch.float64), w.to(torch.float64)
+        acc_c = acc.to(torch.int64)
+        rows = [acc_c.sum(1), (a_c @ w_c.sum(1)).to(torch.int64)]
+        cols = [acc_c.sum(0), (a_c.sum(0) @ w_c).to(torch.int64)]
+    else:
+        a_c, w_c = a.to(torch.float32), w.to(torch.float32)
+        acc_c = acc.to(torch.float32)
+        a_abs, w_abs = a_c.abs(), w_c.abs()
+        rows = [acc_c.sum(1), a_c @ w_c.sum(1), a_abs @ w_abs.sum(1)]
+        cols = [acc_c.sum(0), a_c.sum(0) @ w_c, a_abs.sum(0) @ w_abs]
+    # which mesh dims split each entry's sum: the accumulator's row sum
+    # over N; the references' over N and K (a K split joins them per term);
+    # the column sums over the input's rows, the references' also over K
+    rows = [_join(t, mesh, split_n if i == 0 else
+                  sorted(set(split_n) | set(split_k)))
+            for i, t in enumerate(rows)]
+    cols = [_join(t, mesh, row_dims if i == 0 else
+                  sorted(set(row_dims) | set(split_k)))
+            for i, t in enumerate(cols)]
+    if integer:
+        row_bad = quant.wrap_int32(rows[0]) != quant.wrap_int32(rows[1])
+        col_bad = quant.wrap_int32(cols[0]) != quant.wrap_int32(cols[1])
+    else:
+        row_bad = (rows[0] - rows[1]).abs() > ref.ABFT_ATOL + \
+            ref.ABFT_RTOL * rows[2]
+        col_bad = (cols[0] - cols[1]).abs() > ref.ABFT_ATOL + \
+            ref.ABFT_RTOL * cols[2]
+    return row_bad.to(torch.int32), col_bad.to(torch.int32)
+
+
+def _join(t, mesh, dims):
+    """``t`` summed over the mesh dims ``dims`` (one all-reduce each)."""
+    for i in dims:
+        t = _dim_reduce(t, "sum", mesh, i)
+    return t
+
+
+def _record_global_abft(view, x, mesh, row_pls, kind, mdim, row_bad, hits,
+                        col_bad) -> None:
+    """Report a sharded guarded matmul's (mismatches, clamp hits) to the
+    view, each counted once: the per-row counts over the input's row
+    shards, the column mismatches over a column split. Per-slot rows land
+    in their global rows (the rows of ``x`` before the split)."""
+    from torch.distributed.tensor import Shard
+    if view._record_abft is None or not view._track:
+        return
+    col_pls = [Shard(0) if kind == "col" and i == mdim else _rep()
+               for i in range(mesh.ndim)]
+    if view.abft_per_slot:
+        idx = torch.arange(math.prod(x.shape[:-1]), device=row_bad.device)
+        idx = shard_slice(idx.reshape(x.shape[:-1]), mesh, row_pls)
+        full = torch.zeros((2, math.prod(x.shape[:-1])), dtype=torch.int32,
+                           device=row_bad.device)
+        full[:, idx.reshape(-1)] = torch.stack([row_bad, hits])
+        rows = count_once(full, mesh, row_pls)
+        view.record_abft(rows[0], rows[1], None)
+        return
+    zero = torch.zeros((), dtype=torch.int32, device=row_bad.device)
+    per_row = torch.stack([row_bad.sum(dtype=torch.int32),
+                           hits.sum(dtype=torch.int32), zero])
+    per_col = torch.stack([zero, zero, col_bad.sum(dtype=torch.int32)])
+    tot = all_reduce((per_row if owner(mesh, row_pls) else
+                      torch.zeros_like(per_row)) +
+                     (per_col if owner(mesh, col_pls) else
+                      torch.zeros_like(per_col)), "sum", mesh)
+    view.record_abft(tot[0], tot[1], tot[2])
 
 
 def per_head(fn, q, k, v, **kw):
@@ -268,6 +474,52 @@ def per_head(fn, q, k, v, **kw):
     o = fn(ql, kl, vl, **kw)
     shape = torch.Size((*qd.shape[:3], v.shape[-1]))
     return DTensor.from_local(o, mesh, pls, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def per_row(fn, *args):
+    """``fn(*args)`` -> a tuple of tensors, over DTensors whose dim 0 (a
+    batch of independent rows, e.g. the moe routing groups) may be split:
+    every rank runs ``fn`` on the rows it holds, each other dim gathered
+    whole, and each output is placed as the rows were (its dim 0 the
+    rows'). The split is read from the first DTensor argument."""
+    from torch.distributed.tensor import DTensor
+    lead = next(t for t in args if is_dtensor(t))
+    mesh = lead.device_mesh
+    pls = [pl if _is_shard(pl, 0) else _rep() for pl in lead.placements]
+    outs = fn(*(as_dtensor(t, mesh).redistribute(mesh, pls).to_local()
+                for t in args))
+    rows = lead.shape[0]
+    return tuple(DTensor.from_local(
+        o, mesh, pls, shape=torch.Size((rows, *o.shape[1:])),
+        stride=_contiguous_stride((rows, *o.shape[1:]))) for o in outs)
+
+
+def rows_heads(fn, args, head_dims, out_shape, out_head: int):
+    """``fn(*args)`` over DTensors whose batch (dim 0) and heads (dim
+    ``head_dims[i]`` of ``args[i]``; None for an argument without heads)
+    may be split: every rank computes the batch rows and heads it holds,
+    each other dim gathered whole, on local tensors (DTensor never splits
+    one product over two mesh axes); the output (global ``out_shape``,
+    heads at ``out_head``) is placed as the rows and heads were. The split
+    is read from the first argument with heads."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = next(t for t in args if is_dtensor(t)).device_mesh
+    i0 = next(i for i, d in enumerate(head_dims) if d is not None)
+    lead = as_dtensor(args[i0], mesh)
+    kinds = ["b" if _is_shard(pl, 0) else
+             "h" if _is_shard(pl, head_dims[i0]) else None
+             for pl in lead.placements]
+
+    def pls(hd):
+        return [Shard(0) if k == "b" else
+                Shard(hd) if k == "h" and hd is not None else _rep()
+                for k in kinds]
+    locs = [as_dtensor(t, mesh).redistribute(mesh, pls(hd)).to_local()
+            for t, hd in zip(args, head_dims)]
+    o = fn(*locs)
+    shape = torch.Size(out_shape)
+    return DTensor.from_local(o, mesh, pls(out_head), shape=shape,
                               stride=_contiguous_stride(shape))
 
 

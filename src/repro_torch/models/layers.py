@@ -528,14 +528,31 @@ def mla_decode(p, x, cfg, cache, *, pos):
         smax = lat_c.shape[1]
         k_nope = heads(_proj(lat_c, p["w_uk"]), b, smax, h, qn)
         v = heads(_proj(lat_c, p["w_uv"]), b, smax, h, vd)
-        s1 = torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
-        s2 = torch.einsum("bqhd,bkd->bhqk", q_rope, kr_c.to(q_rope.dtype))
-        sc = (s1 + s2).to(torch.float32) / np.sqrt(qn + qr)
-        valid = torch.arange(smax, device=x.device)[None, :] <= pos[:, None]
-        sc = torch.where(valid[:, None, None, :], sc, -1e30)
-        pr = torch.softmax(sc, dim=-1).to(v.dtype)
-        o = torch.einsum("bhqk,bkhd->bqhd", pr, v).reshape(b, 1, h * vd)
+        args = (q_nope, q_rope, k_nope, kr_c, v, pos)
+        if any(local.is_dtensor(t) for t in args):
+            # each rank attends its own (batch row, head) pairs
+            o = local.rows_heads(_mla_decode_core, args, (2, 2, 2, None, 2,
+                                                          None),
+                                 (b, 1, h, vd), 2)
+        else:
+            o = _mla_decode_core(*args)
+        o = o.reshape(b, 1, h * vd)
     return _proj(o, p["wo"]), cache
+
+
+def _mla_decode_core(q_nope, q_rope, k_nope, kr_c, v, pos):
+    """MLA's decode attention over the expanded cache: the nope and rope
+    scores summed in the queries' dtype, scaled in f32, the slots past
+    ``pos`` masked -> (B, 1, H, vd)."""
+    smax = k_nope.shape[1]
+    s1 = torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
+    s2 = torch.einsum("bqhd,bkd->bhqk", q_rope, kr_c.to(q_rope.dtype))
+    sc = (s1 + s2).to(torch.float32) / np.sqrt(q_nope.shape[-1] +
+                                               q_rope.shape[-1])
+    valid = torch.arange(smax, device=pos.device)[None, :] <= pos[:, None]
+    sc = torch.where(valid[:, None, None, :], sc, -1e30)
+    pr = torch.softmax(sc, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", pr, v)
 
 
 # --------------------------------------------------------------------------
@@ -892,7 +909,11 @@ def moe(p, x, cfg, wt=Identity):
         topw, topi = top_k_lower_first(gates, k)              # (g, s, k)
         topw = (topw / topw.sum(dim=-1, keepdim=True)).to(x.dtype)
         eid = topi.reshape(b, nk)
-        order, starts, counts, pos = queue_positions(eid, e)
+        if local.is_dtensor(eid):   # each rank queues its own groups
+            order, starts, counts, pos = local.per_row(
+                lambda t: queue_positions(t, e), eid)
+        else:
+            order, starts, counts, pos = queue_positions(eid, e)
     with torch.profiler.record_function("moe_experts"):
         # the capacity grid: slot (e, c) <- sorted index starts[e] + c
         c_idx = torch.arange(cap, device=dev)

@@ -63,6 +63,8 @@ def _inputs() -> dict:
         np.float32)
     data["pipe_xs"] = rng.standard_normal((8, 4, 16)).astype(np.float32)
     data["psum_g"] = rng.standard_normal((8, 128)).astype(np.float32)
+    data["mm_w"] = (rng.standard_normal((64, 128)) * 0.05).astype(np.float32)
+    data["mm_x"] = rng.standard_normal((8, 1, 64)).astype(np.float32)
     return data
 
 
@@ -262,3 +264,67 @@ def test_elastic_restore_onto_2x2_is_exact(runs):
     assert set(got) == set(whole) and got
     for k in whole:
         np.testing.assert_array_equal(got[k], whole[k], err_msg=k)
+
+
+@pytest.mark.parametrize("mode", torch_dist_cases.GUARDS)
+def test_guarded_decode_cell_matches_reference_and_unsharded(runs, mode):
+    """The int8 (dynamic per-token scales at use) and the guarded (ABFT on
+    every matmul leaf, each clamped at GUARD_CLAMP) decode cells of
+    qwen1.5-4b smoke, b 8 on 2x4, two steps over the faulted images: the
+    flags, ABFT mismatch and clamp-hit rows equal the reference's sharded
+    cell's and the port's unsharded step's exactly, the logits within
+    LOGIT_TOL of both. The row-parallel int8 matmuls join their int32
+    accumulators before the epilogue; the guarded ones their checksums.
+
+    These cells serve f32 activations (the cells' specs, the step built
+    with ``dtype=float32`` in both packages). In bf16 the slot-sharded
+    softmax join moves an activation by a bf16 ulp, and the dynamic
+    quantization then moves it a whole int8 step (ROADMAP Queue 3, the
+    rounding boundary): the port's own bf16 sharded and unsharded int8
+    steps differed by up to 0.077 here, as far as they lie from the
+    reference's sharded cell (0.075), and a clamp bound of 0.3 saw 2,761
+    hits unsharded against 2,764 sharded. In f32 the logits agree within
+    3e-6 and every count is held exactly. A bound sees the f32 sums'
+    order too: at 0.3 one of the head's 8,192 values lay within it (3,138
+    hits on the port's unsharded step, 3,137 on both sharded cells), so
+    the cells clamp at 0.35, where every hit is shared."""
+    port, ref, _ = runs
+    key = torch_dist_cases.guard_key(mode)
+    _hold_decode(port, ref, key)
+    rows = [k for k in port if k.startswith(key + "/flags/")]
+    if mode == "guarded":
+        abft = [r for r in rows if r.endswith("_abft")]
+        assert abft and sum(int(port[r][1].sum()) for r in abft) > 0, \
+            "no clamp hit: the clamp is not exercised"
+    for r in rows:
+        np.testing.assert_array_equal(
+            port[r], port[r.replace("/flags/", "/flags_unsharded/")],
+            err_msg=r)
+    got, want = port[key + "/logits"], port[key + "/logits_unsharded"]
+    assert np.abs(got - want).max() < LOGIT_TOL
+
+
+@pytest.mark.parametrize("i", range(len(torch_dist_cases.MATMULS)))
+def test_sharded_guarded_matmul_equals_whole(runs, i):
+    """``ProtectedWeight.matmul`` over a row-parallel, column-parallel and
+    replicated image on 2x4 (the input's rows split over 'data'), float
+    with ABFT and a clamp, int8 dynamic and static, int8 with ABFT and a
+    clamp, per-slot rows: every count equals the view's over the whole
+    image (flags once per block, mismatches and hits once per row), the
+    int8 outputs bit for bit, the float ones within 2 bf16 ulps (the
+    row-parallel f32 partial accumulators join in another order)."""
+    port, _, _ = runs
+    spec, aq, abft, clamp, per_slot = torch_dist_cases.MATMULS[i]
+    (yw, gw), (ys, gs) = (port[torch_dist_cases.matmul_key(i)][k]
+                          for k in ("whole", "sharded"))
+    assert gs["flags"] == gw["flags"] and gw["flags"][0][0] > 0
+    assert len(gs["abft"]) == len(gw["abft"])
+    for (mw, hw), (ms, hs) in zip(gw["abft"], gs["abft"]):
+        np.testing.assert_array_equal(ms, mw)
+        np.testing.assert_array_equal(hs, hw)
+    if clamp is not None:
+        assert sum(int(h.sum()) for _, h in gw["abft"]) > 0
+    if aq is not None:
+        np.testing.assert_array_equal(ys, yw)
+    else:
+        np.testing.assert_allclose(ys, yw, rtol=2 ** -7, atol=1e-6)

@@ -6,6 +6,8 @@ need not have JAX), so it runs there alone:
 
     PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -1288,3 +1290,108 @@ def test_gpu_sharded_restore_equals_restore(world1, tmp_path):
     for part_got, part_whole in zip(got, whole):
         for p, w in tree.leaves_with_path(part_whole):
             assert torch.equal(tree.get_path(part_got, p).to_local(), w), p
+
+
+def test_gpu_kernel_bench_holds_every_kernel(cuda, tmp_path, capsys):
+    """``kernel_bench --tiles-smoke --json`` on the card: every CUDA column
+    timed, every strip kernel bit-equal to its plain version, every
+    chunked kernel within the fp64 oracle's gate; the artifact
+    (platform "cuda", the card's name) round-trips through the
+    AutotuneTable and names a route for every shape."""
+    from repro_torch.benchmarks import kernel_bench
+    from repro_torch.protection import AutotuneTable
+    path = tmp_path / "bench_kernels_cuda.json"
+    payload = kernel_bench.main(["--tiles-smoke", "--json", str(path)])
+    assert payload["platform"] == "cuda"
+    assert payload["device"] == torch.cuda.get_device_name(0)
+    for e in payload["entries"]:
+        for k in ("torch_us", "cuda_us", "fused_us", "fused_abft_us",
+                  "fused_int8_us", "fused_int8_abft_us", "fused_ref_us",
+                  "int8_ref_us"):
+            assert e[k] is not None and e[k] > 0, (e["shape"], k)
+        assert e["best"] in ("torch", "cuda")
+    assert all(r["bitexact"] is True for r in payload["attention"])
+    assert all(r["within_tol"] is True and r["chunked_us"] > 0
+               for r in payload["attention_long"])
+    table = AutotuneTable.from_json(path)
+    assert table.platform == "cuda" and len(table) == len(payload["entries"])
+    assert "kernel_ecc_decode," in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("spec", [("model", None), (None, "model")])
+@pytest.mark.parametrize("aq,abft,clamp,per_slot", [
+    (None, True, 0.05, False), ("dynamic", True, 0.5, False),
+    ("dynamic", False, None, False), ("dynamic", True, 0.5, True)])
+def test_gpu_sharded_guarded_matmul_is_the_whole_view(world1, spec, aq,
+                                                      abft, clamp, per_slot):
+    """A row- and a column-parallel image on the world-1 mesh (its 'model'
+    axis one shard, so the guarded path's joins run): the kernel route's
+    output, flags, mismatches and clamp hits equal the view's over the
+    whole image bit for bit (the raw int32 or f32 accumulator from the
+    kernel, the epilogue and the checks after the joins)."""
+    from repro_torch.distributed import local
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.protection.fused import ProtectedWeight
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    w = torch.randn((512, 1024), generator=gen, device="cuda") * 0.05
+    pt = ProtectionPolicy().encode_leaf(w, "in-place")
+    _flip(pt.enc.view(-1, 8), 97, gen)
+    x = torch.randn((4, 1, 512), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    outs = {}
+    for name, leaf, arg in (
+            ("whole", pt, x),
+            ("sharded", dataclasses.replace(
+                pt, enc=sh.distribute(pt.enc, sh.P(*spec), world1)),
+             sh.distribute(x, sh.P("data", None, None), world1))):
+        got = {"flags": [], "abft": []}
+        view = ProtectedWeight(
+            leaf, "cuda", act_quant=aq, abft=abft, clamp=clamp,
+            record=lambda c, d, g=got: g["flags"].append((int(c), int(d))),
+            record_abft=lambda m, h, g=got: g["abft"].append(
+                (m.cpu().clone(), h.cpu().clone())),
+            abft_per_slot=per_slot)
+        (y, n) = _launches(lambda: view.matmul(arg))
+        y = y.to_local() if local.is_dtensor(y) else y
+        outs[name] = (y, got, n)
+    (yw, gw, _), (ys, gs, ns) = outs["whole"], outs["sharded"]
+    assert torch.equal(ys, yw)
+    assert gs["flags"] == gw["flags"] and gw["flags"][0][0] > 0
+    assert len(gs["abft"]) == len(gw["abft"])
+    for (mw, hw), (ms, hs) in zip(gw["abft"], gs["abft"]):
+        assert torch.equal(ms, mw) and torch.equal(hs, hw)
+    if clamp is not None:
+        assert sum(int(h.sum()) for _, h in gw["abft"]) > 0
+    assert ns["ecc_qmatmul"] == 1
+
+
+def _example(name):
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / "torch" / \
+        f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_example_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_gpu_train_lm_wot_example(cuda, tmp_path, capsys):
+    """The training example on the card at its ~100M-parameter config for
+    3 steps (the kernels' QATT throttle, the protected checkpointer, the
+    fused decode-at-use serve of fault-injected images)."""
+    bad, finite = _example("train_lm_wot").main(
+        ["--steps", "3", "--ckpt", str(tmp_path / "ck")])
+    out = capsys.readouterr().out
+    assert finite and "served 8 tokens" in out
+    assert "[lm] WOT violations in deployable int8 weights:" in out
+
+
+def test_gpu_fault_tolerant_training_example(cuda, tmp_path, capsys):
+    """The crash-resume example on the card at its own settings: the
+    resumed run equals the uninterrupted one, in-place keeps the weights."""
+    err, fid = _example("fault_tolerant_training").main(
+        [], ckpt=str(tmp_path / "ft"))
+    assert err == 0.0 and fid["in-place"][-1] > 0.999
+    assert "crash-resume reproduces" in capsys.readouterr().out

@@ -21,6 +21,7 @@ from repro_torch.serving import frontend, kvcache
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    sorted((ROOT / "examples" / "torch").glob("*.py")) + \
     [ROOT / "chip_smoke.py"]
 
 
@@ -38,6 +39,11 @@ def test_scan_covers_the_kernel_modules():
         assert f"src/repro_torch/kernels/{name}.py" in scanned
     for name in ("frontend", "telemetry", "kvcache", "protected"):
         assert f"src/repro_torch/serving/{name}.py" in scanned
+    for name in ("kernel_bench", "roofline", "report", "run"):
+        assert f"src/repro_torch/benchmarks/{name}.py" in scanned
+    for name in ("quickstart", "serve_protected", "train_lm_wot",
+                 "fault_tolerant_training"):
+        assert f"examples/torch/{name}.py" in scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

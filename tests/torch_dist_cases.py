@@ -6,6 +6,7 @@ The train and decode cases also run the port's unsharded step on the same
 inputs, so the test holds the sharded result to it and to the reference's
 sharded result (``torch_dist_ref.py``, which runs the same cells).
 """
+import dataclasses
 import os
 import pickle
 
@@ -20,6 +21,15 @@ DECODES = [(8, None, None), (8, "in-place", None), (3, None, None),
            (3, "in-place", None), (8, "in-place", True), (3, None, True)]
 # fsdp of the train cells
 TRAINS = [None, True]
+# the guarded decode cells (batch 8, the faulted images): "int8" dynamic
+# per-token activation quantization at use, "guarded" every matmul leaf
+# with ABFT and a clamp of GUARD_CLAMP
+GUARDS = ["int8", "guarded"]
+GUARD_CLAMP = 0.35
+
+
+def guard_key(mode) -> str:
+    return f"decode_8_{mode}"
 
 
 def decode_key(b, kv, fsdp) -> str:
@@ -155,6 +165,112 @@ def case_decode(data, res, mesh):
                 res[key + f"/flags_unsharded/{k}"] = v.numpy()
 
 
+def guard_cell(S, protected, cfg, plan, shape, mesh, mode, dtype, **kw):
+    """The guarded decode cell of ``mode`` in either package (``S`` its
+    ``launch.specs``, ``protected`` its ``serving.protected``): the cell's
+    in and out specs, and its serve step with f32 activations ``dtype``
+    -> (plan, step, in_sh, out_sh)."""
+    aq = {}
+    if mode == "int8":
+        aq["act_quant"] = "dynamic"
+    else:
+        plan = plan.with_abft(True, clamps={p: GUARD_CLAMP
+                                            for p in plan.leaves})
+    _, _, in_sh, out_sh = S.decode_cell(cfg, shape, mesh, plan=plan,
+                                        with_flags=True, **aq, **kw)
+    step = protected.make_serve_step(cfg, plan=plan, with_flags=True,
+                                     dtype=dtype, **aq)
+    return plan, step, in_sh, out_sh
+
+
+def case_guarded(data, res, mesh):
+    """The int8 and the guarded decode cells: two sharded steps over the
+    faulted images, beside the unsharded step on the same inputs."""
+    from repro_torch import configs, protection, tree
+    from repro_torch.launch import specs as S
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serving import kvcache, protected
+    cfg = configs.get_smoke("qwen1.5-4b")
+    policy = protection.get_policy_preset("attn-inplace-mlp-secded")
+    params = _nest(data, "qwen/")
+    shape = ShapeConfig("d", 64, 8, "decode")
+    for mode in GUARDS:
+        key = guard_key(mode)
+        plan, _ = S.serving_plan(cfg, mesh, policy=policy)
+        plan, step, in_sh, out_sh = guard_cell(
+            S, protected, cfg, plan, shape, mesh, mode, torch.float32)
+        step = S._bound(step, None)
+        enc = _faulted(plan.encode_tree(params), data)
+        placed = S.place((enc,), (in_sh[0],), mesh)[0]
+        cache = kvcache.init_cache(cfg, 8, 64, dtype=torch.float32,
+                                   device="cpu")
+        unsharded = tree.map_with_path(lambda _, t: t.clone(), cache)
+        tokens = torch.from_numpy(data["dec_tokens_8"])
+        run = S.sharded(step, mesh, in_sh, out_sh)
+        for t in range(2):
+            pos = torch.full((8,), t, dtype=torch.int32)
+            logits, cache, flags = run(placed, cache, tokens[:, t:t + 1],
+                                       pos)
+            u_logits, unsharded, u_flags = step(enc, unsharded,
+                                                tokens[:, t:t + 1], pos)
+        res[key + "/logits"] = _full(logits).float().numpy()
+        res[key + "/logits_unsharded"] = u_logits.float().numpy()
+        for k, v in flags.items():
+            res[key + f"/flags/{k}"] = _full(v).numpy()
+        for k, v in u_flags.items():
+            res[key + f"/flags_unsharded/{k}"] = v.numpy()
+
+
+# the sharded_matmul cases: (parallel rule's spec, act_quant, abft, clamp,
+# per-slot rows) over a (64, 128) in-place image and an (8, 1, 64) input
+# split over 'data'
+MATMULS = [(spec, aq, abft, clamp, per_slot)
+           for spec in (("model", None), (None, "model"), (None, None))
+           for aq, abft, clamp, per_slot in (
+               (None, True, 0.05, False), ("dynamic", False, None, False),
+               ("dynamic", True, 0.5, False), ("static", False, 1.0, False),
+               (None, True, 0.05, True), ("dynamic", True, 0.5, True))]
+
+
+def matmul_key(i) -> str:
+    return f"matmul_{i}"
+
+
+def case_matmuls(data, res, mesh):
+    """``ProtectedWeight.matmul`` over a sharded image under each case of
+    ``MATMULS`` against the same view over the whole image: outputs and
+    every count."""
+    from repro_torch import protection
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.protection.fused import ProtectedWeight
+    w = torch.from_numpy(data["mm_w"])
+    x = torch.from_numpy(data["mm_x"]).to(torch.bfloat16)
+    pt = protection.ProtectionPolicy(default_scheme="in-place").encode_leaf(
+        w, "in-place")
+    img = pt.enc.clone()
+    img.view(-1)[::997] ^= 1      # single flips: corrected, counted once
+    pt = dataclasses.replace(pt, enc=img)
+    xd = sh.distribute(x, sh.P("data", None, None), mesh)
+    for i, (spec, aq, abft, clamp, per_slot) in enumerate(MATMULS):
+        outs = {}
+        for name, leaf, arg in (
+                ("whole", pt, x),
+                ("sharded", dataclasses.replace(
+                    pt, enc=sh.distribute(pt.enc, sh.P(*spec), mesh)), xd)):
+            got = {"flags": [], "abft": []}
+            view = ProtectedWeight(
+                leaf, "torch", act_quant=aq, abft=abft, clamp=clamp,
+                a_scale=0.02 if aq == "static" else None,
+                record=lambda c, d, g=got: g["flags"].append((int(c),
+                                                              int(d))),
+                record_abft=lambda m, h, g=got: g["abft"].append(
+                    (_full(m).numpy().copy(), _full(h).numpy().copy())),
+                abft_per_slot=per_slot)
+            y = view.matmul(arg)
+            outs[name] = (_full(y).float().numpy(), got)
+        res[matmul_key(i)] = outs
+
+
 def case_collectives(data, res, mesh):
     """A master whose shards have different absmaxes: the throttle (both
     routes' plain version on the CPU) and the scale must be the global
@@ -247,6 +363,8 @@ def run_rank(rank: int, store: str, inp: str, out: str, tmp: str):
     mesh = make_production_mesh(shape=(2, 4), device="cpu")
     case_train(data, res, mesh)
     case_decode(data, res, mesh)
+    case_guarded(data, res, mesh)
+    case_matmuls(data, res, mesh)
     case_collectives(data, res, mesh)
     case_pipeline(data, res)
     case_psum(data, res)

@@ -4,9 +4,10 @@ starts): ``python tests/torch_dist_ref.py IN.npz OUT_PREFIX``.
 
 Reads the shared inputs, writes ``OUT_PREFIX.npz`` (arrays) and
 ``OUT_PREFIX.json`` (specs). The cells are those of
-``torch_dist_cases.py`` (its ``TRAINS`` and ``DECODES``). Meshes are built with ``AxisType.Auto``: this
-tree's JAX makes Explicit axes by default, on which the reference's
-``with_sharding_constraint`` raises.
+``torch_dist_cases.py`` (its ``TRAINS``, ``DECODES`` and ``GUARDS``).
+Meshes are built with ``AxisType.Auto``: this tree's JAX makes Explicit
+axes by default, on which the reference's ``with_sharding_constraint``
+raises.
 """
 import json
 import os
@@ -157,9 +158,50 @@ def main(inp: str, out: str):
         arrays[key + "/logits"] = np.asarray(logits.astype(jnp.float32))
         for k, v in flags.items():
             arrays[key + f"/flags/{k}"] = np.asarray(v)
+    guarded(data, arrays)
     np.savez(out + ".npz", **arrays)
     with open(out + ".json", "w") as f:
         json.dump(specs, f)
+
+
+def guarded(data, arrays):
+    """The guarded decode cells of ``torch_dist_cases.GUARDS`` (int8 at
+    use; ABFT with clamps), two steps each over the faulted images, f32
+    activations."""
+    from repro import configs, protection
+    from repro.launch import specs as S
+    from repro.models import lm
+    from repro.models.config import ShapeConfig
+    from repro.serving import kvcache, protected
+    from torch_dist_cases import GUARDS, guard_cell, guard_key
+
+    qcfg = configs.get_smoke("qwen1.5-4b")
+    policy = protection.get_policy_preset("attn-inplace-mlp-secded")
+    qparams = jax.tree.map(jnp.asarray, nest(data, "qwen/"))
+    m24 = mesh((2, 4), ("data", "model"))
+    as_named = lambda t: jax.tree.map(  # noqa: E731
+        lambda s: NamedSharding(m24, s) if isinstance(s, P) else s,
+        t, is_leaf=lambda x: isinstance(x, P))
+    shape = ShapeConfig("d", 64, 8, "decode")
+    for mode in GUARDS:
+        key = guard_key(mode)
+        plan, abstract = S.serving_plan(qcfg, m24, policy=policy)
+        plan, step, in_sh, out_sh = guard_cell(
+            S, protected, qcfg, plan, shape, m24, mode, jnp.float32,
+            abstract=abstract)
+        lm.set_sharding_ctx(None)
+        enc = faulted(jax.eval_shape(plan.encode_tree, qparams), data)
+        cache = kvcache.init_cache(qcfg, 8, 64, dtype=jnp.float32)
+        tokens = jnp.asarray(data["dec_tokens_8"])
+        with m24:
+            f = jax.jit(step, in_shardings=as_named(in_sh),
+                        out_shardings=as_named(out_sh))
+            for t in range(2):
+                logits, cache, flags = f(enc, cache, tokens[:, t:t + 1],
+                                         jnp.full((8,), t, jnp.int32))
+        arrays[key + "/logits"] = np.asarray(logits.astype(jnp.float32))
+        for k, v in flags.items():
+            arrays[key + f"/flags/{k}"] = np.asarray(v)
 
 
 if __name__ == "__main__":
